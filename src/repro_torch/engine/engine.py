@@ -1,0 +1,316 @@
+"""Batched multi-stream sampler engine (PyTorch port of ``repro.engine``).
+
+A *batched state* is a sampler state whose every tensor has a leading
+stream axis: for one-pass WORp, ``OnePassState.sketch.table`` is
+(B, rows, width), ``seed_transform`` is (B,), and so on.  The core
+functions take that axis natively, so the engine calls them directly.
+
+Seeding: independent streams hash their own sketch/transform seeds from the
+engine seed (default); ``shared_seeds`` makes the B streams shards of one
+logical stream, and ``reduce_streams`` collapses them in O(log B) merge
+rounds.
+
+The query plane (candidate refresh, estimate, sample) goes through
+``kernels.ops.estimate_batched``: one query-kernel launch for all B streams
+on the card.  Turnstile ingest is the data-plane layer in
+``repro_torch.engine.planes``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import countsketch, hashing, transforms, worp
+from repro_torch.core import sampler as core_sampler
+from repro_torch.core.perfect import Sample
+from repro_torch.core.sampler import SamplerSpec
+from repro_torch.kernels import ops
+
+_NOT_PORTED = "not ported yet: it comes with a later slice of the port"
+
+
+class EngineConfig(NamedTuple):
+    num_streams: int          # B: streams batched as one state
+    rows: int = 7
+    width: int = 2048
+    candidates: int = 512     # one-pass candidate buffer per stream
+    p: float = 1.0
+    scheme: str = transforms.PPSWOR
+    seed: int = 0x5EED
+    shared_seeds: bool = False  # True => streams are mergeable shards
+    sampler: str = "onepass"    # registry key (see repro_torch.core.sampler)
+
+
+def sampler_config(cfg: EngineConfig) -> core_sampler.SamplerConfig:
+    """Project the engine config onto the registry's SamplerConfig."""
+    return core_sampler.SamplerConfig(
+        rows=cfg.rows, width=cfg.width, candidates=cfg.candidates, p=cfg.p,
+        scheme=cfg.scheme)
+
+
+def engine_spec(cfg: EngineConfig) -> SamplerSpec:
+    """The (cached) SamplerSpec this engine config selects."""
+    return core_sampler.make_sampler(cfg.sampler, sampler_config(cfg))
+
+
+def resolve_device(device=None) -> torch.device:
+    """The card unless the caller asks otherwise; never a silent CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    return device
+
+
+def derive_stream_seeds(cfg: EngineConfig, offset: int = 0, device=None):
+    """Per-stream (sketch, transform) seed vectors, both (B,) uint32 values
+    in int64 tensors, bit for bit those of the reference, on ``device``
+    (the card unless the caller asks otherwise).
+
+    ``offset`` shifts the stream indices the seeds are hashed from (block t
+    of a repeated-trial experiment passes ``t * num_streams``).  Ignored
+    under ``shared_seeds``."""
+    B = cfg.num_streams
+    device = resolve_device(device)
+    if cfg.shared_seeds:
+        ones = torch.ones(B, dtype=torch.int64, device=device)
+        return (ones * (cfg.seed & hashing.MASK32),
+                ones * ((cfg.seed ^ 0xA5A5A5A5) & hashing.MASK32))
+    b = (torch.arange(B, dtype=torch.int64, device=device)
+         + offset) & hashing.MASK32
+    return (hashing.hash_u32(b, cfg.seed),
+            hashing.hash_u32(b, (cfg.seed & hashing.MASK32) ^ 0xA5A5A5A5))
+
+
+# ---------------------------------------------------------------------------
+# batched one-pass WORp (the engine's kernel paths)
+# ---------------------------------------------------------------------------
+
+def onepass_init_batched(cfg: EngineConfig,
+                         device=None) -> worp.OnePassState:
+    sk_seeds, t_seeds = derive_stream_seeds(cfg, device=device)
+    return worp.onepass_init(cfg.rows, cfg.width, cfg.candidates, sk_seeds,
+                             t_seeds)
+
+
+def _refresh_candidates(sk: countsketch.CountSketch, cand_keys, batch_keys):
+    """Batched candidate refresh (the policy of ``worp.refresh_candidates``)
+    with the estimates of (old candidates U batch keys) for all B streams
+    from one query launch."""
+    all_keys = torch.cat([cand_keys, batch_keys.to(cand_keys.dtype)], 1)
+    est = torch.abs(ops.estimate_batched(sk.table, all_keys, sk.seed))
+    return worp._refresh_from_estimates(all_keys, est, cand_keys.shape[1])
+
+
+def onepass_merge_batched(a: worp.OnePassState, b: worp.OnePassState):
+    """Stream-wise merge of two batched states (same seeds stream by
+    stream), with the candidate refresh on the query chokepoint."""
+    worp.check_merge_seeds("onepass_merge",
+                           seed_transform=(a.seed_transform, b.seed_transform))
+    sk = countsketch.merge(a.sketch, b.sketch)
+    return worp.OnePassState(
+        sketch=sk, cand_keys=_refresh_candidates(sk, a.cand_keys, b.cand_keys),
+        seed_transform=a.seed_transform)
+
+
+def onepass_sample_batched(st: worp.OnePassState, k: int, p: float,
+                           scheme: str = transforms.PPSWOR) -> Sample:
+    """Per-stream WOR samples (every Sample field grows a leading (B,)
+    axis); the candidate estimates come from one query launch."""
+    est = ops.estimate_batched(st.sketch.table, st.cand_keys, st.sketch.seed)
+    return worp.onepass_sample_from_estimates(st, est, k, p, scheme)
+
+
+def reduce_streams(st, merge_batched):
+    """Collapse a batched state's B streams to ONE state in ceil(log2 B)
+    batched merge rounds (valid when the streams share seeds).  Each round
+    merges the first half with the second half stream-wise; an odd stream
+    carries to the next round."""
+    num = _leaves(st)[0].shape[0]
+    while num > 1:
+        half = num // 2
+        merged = merge_batched(_map(lambda x: x[:half], st),
+                               _map(lambda x: x[half:2 * half], st))
+        if num % 2:
+            merged = _map2(lambda m, c: torch.cat([m, c], 0), merged,
+                           _map(lambda x: x[2 * half:], st))
+        st, num = merged, half + (num % 2)
+    return _map(lambda x: x[0], st)
+
+
+def _leaves(st) -> list:
+    if isinstance(st, torch.Tensor):
+        return [st]
+    return [leaf for field in st for leaf in _leaves(field)]
+
+
+def _map(fn, st):
+    if isinstance(st, torch.Tensor):
+        return fn(st)
+    return type(st)(*(_map(fn, field) for field in st))
+
+
+def _map2(fn, a, b):
+    if isinstance(a, torch.Tensor):
+        return fn(a, b)
+    return type(a)(*(_map2(fn, x, y) for x, y in zip(a, b)))
+
+
+# ---------------------------------------------------------------------------
+# stateful engine
+# ---------------------------------------------------------------------------
+
+class SketchEngine:
+    """Holds the batched state of B sampler streams on one device.
+
+    ``device=None`` means the card; with no card the engine raises unless
+    the caller passes ``device="cpu"``, which runs the plain PyTorch
+    versions of the kernels.
+
+    Data plane: ``plane=`` picks how turnstile microbatches reach the state
+    (``repro_torch.engine.planes``).  ``ingest(keys, values)`` buffers
+    sparse signed microbatches on the host, and the plane's ``FlushPolicy``
+    decides when they go to the device: the default ``"sparse"`` plane makes
+    one scatter-kernel launch per flush, ``"dense"`` is the plain reference
+    plane.  Every read or state-mixing operation drains the plane first.
+    """
+
+    def __init__(self, cfg: EngineConfig, sampler: Optional[str] = None,
+                 flush_elems: int = 4096, plane: str = "sparse",
+                 flush=None, device=None):
+        from repro_torch.engine import planes
+
+        if sampler is not None and sampler != cfg.sampler:
+            cfg = cfg._replace(sampler=sampler)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.spec = engine_spec(cfg)
+        policy = flush if flush is not None \
+            else planes.FlushPolicy(max_elems=int(flush_elems))
+        self._plane = planes.make_plane(
+            plane, self.spec,
+            self.spec.init(*derive_stream_seeds(cfg, device=self.device)),
+            policy=policy)
+
+    @property
+    def num_streams(self) -> int:
+        return self.cfg.num_streams
+
+    @property
+    def sampler(self) -> str:
+        return self.cfg.sampler
+
+    @property
+    def plane(self):
+        """The engine's DataPlane instance."""
+        return self._plane
+
+    @property
+    def state(self):
+        """The batched sampler state (microbatches still in the host buffer
+        stay pending; ``flush()`` applies them)."""
+        return self._plane.state
+
+    @state.setter
+    def state(self, st):
+        self._plane.set_state(st)
+
+    def update(self, keys, values):
+        """Sparse element batches (B, n), applied at once through the
+        sparse kernel path after any pending ingest buffer."""
+        from repro_torch.engine import planes
+
+        self.flush()
+        self.state = planes.ingest_sparse(
+            self.spec, self.state, self._to_device(keys, torch.int32),
+            self._to_device(values, torch.float32))
+        return self
+
+    def _to_device(self, x, dtype):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=dtype).contiguous()
+        return torch.tensor(np.asarray(x), dtype=dtype, device=self.device)
+
+    def ingest(self, keys, values):
+        """Buffer a sparse signed (B, n) turnstile microbatch on the host.
+
+        Negative values are deletions; ``keys == -1`` slots are padding.
+        Microbatches dispatch when the FlushPolicy fires (or on the next
+        read/flush)."""
+        keys = np.asarray(keys, np.int32)
+        values = np.asarray(values, np.float32)
+        if keys.shape != values.shape or keys.ndim != 2 \
+                or keys.shape[0] != self.cfg.num_streams:
+            raise ValueError(
+                f"ingest: keys/values must both be (num_streams="
+                f"{self.cfg.num_streams}, n), got {keys.shape} / "
+                f"{values.shape}")
+        self._plane.ingest(keys, values)
+        return self
+
+    @property
+    def pending(self) -> int:
+        """Per-stream element count buffered, not yet flushed."""
+        return self._plane.pending
+
+    def flush(self):
+        """Drain the data plane: dispatch buffered microbatches."""
+        self._plane.drain()
+        return self
+
+    def update_dense(self, values, base_keys=None, lengths=None):
+        raise NotImplementedError(
+            f"SketchEngine.update_dense is {_NOT_PORTED} (it needs the dense "
+            f"segment kernel countsketch_update_batched)")
+
+    def freeze(self):
+        raise NotImplementedError(
+            f"SketchEngine.freeze (the exact second pass) is {_NOT_PORTED}")
+
+    def merge_with(self, other: "SketchEngine"):
+        """Stream-wise union with another engine of an identical config."""
+        ocfg = getattr(other, "cfg", None)
+        if not isinstance(other, SketchEngine) or ocfg is None:
+            raise TypeError(
+                f"merge_with expects a SketchEngine, got {type(other).__name__}")
+        self.flush()
+        other.flush()
+        if ocfg != self.cfg:
+            diff = [f"{f}={getattr(self.cfg, f)!r} vs {getattr(ocfg, f)!r}"
+                    for f in self.cfg._fields
+                    if getattr(self.cfg, f) != getattr(ocfg, f)]
+            raise ValueError(
+                "merge_with: engines are not mergeable -- stream-wise union "
+                "requires identical EngineConfig (per-stream hash seeds and "
+                "state shapes must agree, or the merged sketch is garbage); "
+                "mismatched fields: " + ", ".join(diff))
+        self.state = onepass_merge_batched(self.state, other.state)
+        return self
+
+    def sample(self, k: int) -> Sample:
+        self.flush()
+        return self.sample_state(self.state, k)
+
+    def sample_state(self, state, k: int) -> Sample:
+        """Per-stream WOR samples of an arbitrary batched state of this
+        engine's sampler, without touching the engine's own state."""
+        return onepass_sample_batched(state, k, self.cfg.p, self.cfg.scheme)
+
+    def estimate(self, keys) -> torch.Tensor:
+        """Per-stream transformed-domain estimates for (B, n) keys."""
+        self.flush()
+        st = self.state
+        return ops.estimate_batched(st.sketch.table,
+                                    self._to_device(keys, torch.int32),
+                                    st.sketch.seed)
+
+    def collapse(self):
+        """Merge all B streams into one state (requires shared_seeds)."""
+        if not self.cfg.shared_seeds:
+            raise ValueError("collapse() requires shared_seeds=True "
+                             "(independent streams are not mergeable)")
+        self.flush()
+        return reduce_streams(self.state, onepass_merge_batched)

@@ -1,0 +1,80 @@
+// Batched turnstile CountSketch scatter for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel
+//   repro/kernels/countsketch_scatter.py::countsketch_scatter_batched
+// (a one-hot MXU matmul per width block, because the TPU has no atomics).
+//
+// Computes, for B streams of n signed (key, value) slots, the sketch delta
+//   delta[b, r, hash(key, row_salt(seed_b, r)) % W] += sign_r(key) * v'
+// where v' = v * r_x^{-1/p} with r_x = Exp1 (ppswor) or U(0,1] (priority)
+// when has_p, else v' = v.  Slot (b, i) counts only when i < lengths[b] and
+// key != -1.  The caller zeroes delta.
+//
+// Design: one thread per (b, i) slot.  It tests the mask, computes the
+// transform once, then walks the rows and atomically adds sign * v' into the
+// global (B, rows, W) delta.  Float atomics sum in an order that changes
+// from run to run, so the result matches the plain version within float
+// tolerance, not bit for bit.
+//
+// Bound: per slot, 7 rows x (two hash_u32 + a modulo) plus the transform's
+// hash, log and pow: some 450 integer operations against 8 bytes read and
+// 7 atomics, so at the deployment shape the kernel is bound by integer issue
+// rate and by atomic throughput to L2 on hot (Zipf-head) buckets, not by
+// device-memory bytes.  The next step is one block per stream holding its
+// 7 x 2048 x 4 B = 57 KB table in shared memory (shared-memory atomics,
+// one coalesced write of the table), which also removes the separate
+// zeroed delta and the table + delta pass.
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "hashing.cuh"
+
+namespace {
+
+__global__ void countsketch_scatter_kernel(
+    const int32_t* __restrict__ keys, const float* __restrict__ values,
+    const int32_t* __restrict__ seeds, const int32_t* __restrict__ tseeds,
+    const int32_t* __restrict__ lengths, float* __restrict__ delta, int B,
+    int n, int rows, int width, int has_p, float neg_inv_p, int scheme) {
+  const int64_t idx =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<int64_t>(B) * n) return;
+  const int b = static_cast<int>(idx / n);
+  const int i = static_cast<int>(idx - static_cast<int64_t>(b) * n);
+  const int32_t key = keys[idx];
+  if (i >= lengths[b] || key == -1) return;
+
+  const uint32_t k = static_cast<uint32_t>(key);
+  float v = values[idx];
+  if (has_p) {
+    v = worp::transform_value(v, k, static_cast<uint32_t>(tseeds[b]), scheme,
+                              neg_inv_p);
+  }
+  const uint32_t seed = static_cast<uint32_t>(seeds[b]);
+  float* table = delta + static_cast<int64_t>(b) * rows * width;
+  for (int r = 0; r < rows; ++r) {
+    const uint32_t salt = worp::row_salt(seed, static_cast<uint32_t>(r));
+    const uint32_t bucket =
+        worp::bucket_hash(k, salt, static_cast<uint32_t>(width));
+    const float s = worp::sign_hash(k, salt);
+    atomicAdd(table + static_cast<int64_t>(r) * width + bucket, s * v);
+  }
+}
+
+}  // namespace
+
+// Launches on `stream`; returns cudaGetLastError() (0 on success).
+extern "C" int worp_countsketch_scatter(
+    const void* keys, const void* values, const void* seeds,
+    const void* tseeds, const void* lengths, void* delta, int B, int n,
+    int rows, int width, int has_p, float neg_inv_p, int scheme, int blocks,
+    int threads, void* stream) {
+  countsketch_scatter_kernel<<<blocks, threads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(keys), static_cast<const float*>(values),
+      static_cast<const int32_t*>(seeds), static_cast<const int32_t*>(tseeds),
+      static_cast<const int32_t*>(lengths), static_cast<float*>(delta), B, n,
+      rows, width, has_p, neg_inv_p, scheme);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -30,6 +30,10 @@ def pytest_configure(config):
         "chaos: multi-process fleet fault-injection tests (slow process "
         "spawns; seed-matrixed in CI, deselected from tier-1 by "
         "pytest.ini addopts)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the port's kernels); skips inside the test "
+        "body when none is present")
 
 
 @pytest.fixture
