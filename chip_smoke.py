@@ -1,24 +1,38 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Deployment: per-key analytics over B = 4096 independent turnstile streams
-(one per tenant or request) at the engine's defaults -- rows 7, width 2048,
-512 candidates, p = 1, ppswor, FlushPolicy(max_elems=4096).  Stream b is
-``TurnstileZipfStream(vocab_size=2**20, alpha=1.2, delete_fraction=0.25)``
-shard b: 4096 inserts plus 1024 retractions per step.  Eight steps are
-ingested, then ``sample(k=64)``.  Device state: 4096 x 7 x 2048 x 4 B =
-235 MB of tables.
+Three paths, each driven with the kernels' launch counts set to 0 just
+before it and read just after:
 
-Phases (each prints its own lines; any failure raises and the script exits
-non-zero without the final ``ok`` line):
+* Sparse plane.  Per-key analytics over B = 4096 independent turnstile
+  streams (one per tenant or request) at the engine's defaults -- rows 7,
+  width 2048, 512 candidates, p = 1, ppswor, FlushPolicy(max_elems=4096).
+  Stream b is ``TurnstileZipfStream(vocab_size=2**20, alpha=1.2,
+  delete_fraction=0.25)`` shard b: 4096 inserts plus 1024 retractions per
+  step.  Eight steps are ingested, then ``sample(k=64)``.  Device state:
+  4096 x 7 x 2048 x 4 B = 235 MB of tables.
+* Dense segments.  ``SketchEngine.update_dense`` on the per-layer gradient
+  streams of one gemma2_2b decoder layer, one stream per parameter leaf (the
+  shape of ``gradcomp.tree_compress_step_engine``): 11 streams, 77.9 M live
+  elements a step, 4 steps, then ``sample(k=32)``.  Depth is cut to 1 layer
+  of 26; the widths are the published ones.
+* Single-stream entry points.  ``ops.sketch_dense_vector`` at n = 1 M and at
+  one gemma2_2b ``wg`` leaf (21.2 M), ``ops.query_rows``/``ops.estimate``
+  with 512 keys, ``ops.transform`` in float32 and bfloat16 (the shapes of
+  benchmarks/sketch_throughput.py).
+
+Phases (each prints its own lines and its wall time; any failure raises and
+the script exits non-zero without the final ``ok`` line):
   1. the card, and the kernels built from ``src/repro_torch/kernels/csrc``;
-  2. each kernel against its plain PyTorch version on the card;
-  3. the main path: ``SketchEngine`` on the sparse plane (the kernels) and on
-     the dense plane (the plain reference), from the same seeds and stream,
-     and a ``torch.profiler`` trace of the sparse plane's flush stages;
-  4. times: kernels, plain versions, library yardsticks, events/s, sample
-     latency, peak memory;
-  5. one ``{"kernels": [...]}`` line, then the ``ok`` line.
+  2. each batched kernel against its plain PyTorch version on the card;
+  3. the sparse plane (the kernels) against the dense plane (the plain
+     reference), from the same seeds and stream, and a ``torch.profiler``
+     trace of the sparse plane's flush stages;
+  4. the sparse path's times: kernels, plain versions, library yardsticks,
+     events/s, sample latency, peak memory;
+  5. the dense segment path against the plain path, its times and a trace;
+  6. the single-stream entry points against their plain versions, and times;
+  7. one ``{"kernels": [...]}`` line, then the ``ok`` line.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 """
@@ -36,10 +50,30 @@ SRC = Path(__file__).resolve().parent / "src"
 B, ROWS, WIDTH, CANDIDATES, P, K = 4096, 7, 2048, 512, 1.0, 64
 INSERTS, STEPS, VOCAB, ALPHA, DELETE_FRACTION = 4096, 8, 1 << 20, 1.2, 0.25
 RTOL = 1e-4  # the reference's scale-aware scatter tolerance; atol below
-# named ranges of the sparse plane's flush (engine/planes.py)
+# named ranges of the sparse plane's flush (engine/planes.py) and of
+# update_dense (engine/engine.py)
 RANGES = ("plane.concat", "plane.h2d", "plane.dispatch", "sparse.scatter",
           "sparse.refresh")
+DENSE_RANGES = ("dense.sketch", "dense.refresh")
 DEVICE = "cuda"
+
+# One gemma2_2b decoder layer's gradient leaves, one stream each: the widths
+# of src/repro/configs/gemma2_2b.py (d_model 2304, 8 heads, 4 KV heads,
+# head_dim 256, d_ff 9216) and the leaves of src/repro/models/transformer.py
+# _attn_pd/_mlp_pd/_norms_pd with gemma2's post-norms, in
+# jax.tree_util.tree_leaves order (sorted keys).  Cut: 1 layer of 26.
+GEMMA_D, GEMMA_H, GEMMA_KV, GEMMA_DH, GEMMA_FF = 2304, 8, 4, 256, 9216
+LEAVES = (("ln1", GEMMA_D), ("ln1p", GEMMA_D), ("ln2", GEMMA_D),
+          ("ln2p", GEMMA_D), ("wg", GEMMA_D * GEMMA_FF),
+          ("wi", GEMMA_D * GEMMA_FF), ("wk", GEMMA_D * GEMMA_KV * GEMMA_DH),
+          ("wo", GEMMA_H * GEMMA_DH * GEMMA_D),
+          ("wo_mlp", GEMMA_FF * GEMMA_D), ("wq", GEMMA_D * GEMMA_H * GEMMA_DH),
+          ("wv", GEMMA_D * GEMMA_KV * GEMMA_DH))
+DENSE_STEPS, DENSE_K = 4, 32  # k = gradcomp's k_per_leaf
+GRAD_LOG_SCALE = 1.5          # per-coordinate scale exp(1.5 g), g ~ N(0, 1)
+# single-stream entry points: benchmarks/sketch_throughput.py's shapes
+SINGLE_N = (1_000_000, GEMMA_D * GEMMA_FF)
+SINGLE_SEED, SINGLE_KEYS = 3, 512
 
 # Device peaks for the bounds (H100 SXM at 700 W).  HBM3 rate from NVIDIA's
 # data sheet.  The integer rate is the fp32 non-tensor rate of the data sheet
@@ -56,6 +90,10 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_ROW = 3 + 20 + 22 + 2
 SCATTER_OPS_PER_SLOT = ROWS * OPS_PER_ROW + 24 + 2 + 3   # uniform01, log+pow,
 QUERY_OPS_PER_KEY = ROWS * (OPS_PER_ROW + 1)             # mask; query: sign mul
+# the dense update computes its key (an add) where the scatter loads and
+# tests it, and tests the length alone: the same count per live slot
+UPDATE_OPS_PER_SLOT = SCATTER_OPS_PER_SLOT
+TRANSFORM_OPS_PER_ELEM = 24 + 2 + 1  # uniform01, log+pow, mul
 
 
 def log(msg: str) -> None:
@@ -86,6 +124,29 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int) -> float | None:
+    """Device time per call of ``fn``: the device activities that a
+    ``torch.profiler`` trace of ``iters`` calls records, summed, over
+    ``iters`` (None when the profiler sees no device time).  For calls too
+    short to keep the card busy, where CUDA events would time the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages()
+               if e.device_type != DeviceType.CPU
+               and "Activity Buffer" not in e.key)
+    return busy / 1e3 / iters if busy > 0 else None
+
+
 def scale_atol(want) -> float:
     """The reference's scale-aware absolute tolerance, 1e-5 * max(1, max|w|)
     over the finite entries (benchmarks/engine_throughput.py)."""
@@ -108,6 +169,60 @@ def cell_check(torch, got, want, tol):
     return ok, float(err.max()), float(ratio.max())
 
 
+def check_sum(torch, what, got, want, tol):
+    """A summing kernel's output ``got`` against its plain version ``want``:
+    allclose within rtol 1e-4 and the scale-aware atol, and every cell within
+    its own rounding bound ``tol``.  Prints a ``[parity]`` line and raises on
+    a failure; returns (max abs error, worst error / bound)."""
+    torch.cuda.synchronize()
+    atol = scale_atol(want)
+    close = torch.allclose(got, want, rtol=RTOL, atol=atol, equal_nan=True)
+    cells, err, ratio = cell_check(torch, got, want, tol)
+    nonfinite = int((~want.isfinite()).sum())
+    log(f"[parity] {what}: shape {tuple(got.shape)} max_abs_err {err:.3e}; "
+        f"allclose atol {atol:.3e} {'ok' if close else 'FAIL'}; per-cell "
+        f"bound worst err/bound {ratio:.3e} {'ok' if cells else 'FAIL'}; "
+        f"nonfinite {nonfinite}")
+    if not (close and cells):
+        raise AssertionError(f"{what}: the kernel disagrees with its plain "
+                             f"version")
+    return err, ratio
+
+
+def check_bitwise(torch, what, got, want):
+    """A query's output against its plain version, bit for bit (NaN reads
+    NaN).  Prints a ``[parity]`` line and raises on a failure."""
+    torch.cuda.synchronize()
+    ok = got.shape == want.shape and bool(
+        ((got == want) | (got.isnan() & want.isnan())).all())
+    log(f"[parity] {what}: shape {tuple(got.shape)} bitwise "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{what}: the kernel is not bitwise")
+
+
+def bound(nbytes, ops):
+    """The least time in ms for ``nbytes`` moved and ``ops`` 32-bit integer
+    operations, and which of the two bounds it."""
+    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def row_index(torch, keys, seeds, width: int, rows: int = ROWS):
+    """Flat (stream, row, bucket) indices and signs of (B, n) keys, row by
+    row: (B, rows * n) int64 and float32, for the library yardsticks."""
+    from repro_torch.core import hashing
+
+    base = torch.arange(keys.shape[0], device=keys.device)[:, None] \
+        * (rows * width)
+    idx, sign = [], []
+    for r in range(rows):
+        salt = hashing.row_salt(seeds[:, None], r)
+        idx.append(base + r * width + hashing.bucket_hash(keys, salt, width))
+        sign.append(hashing.sign_hash(keys, salt))
+    return torch.cat(idx, 1), torch.cat(sign, 1)
+
+
 def make_stream(seed: int):
     """Per-step (B, n) keys/values of the deployment's B shards (numpy)."""
     from repro_torch.data.pipeline import TurnstileZipfStream
@@ -123,16 +238,41 @@ def make_stream(seed: int):
     return stream, steps
 
 
+def make_gradients(seed: int):
+    """Gradient-like signed values of the layer's leaves (numpy): a fixed
+    per-coordinate scale exp(1.5 g) per leaf, times fresh N(0, 1) noise each
+    step.  Returns the leaf sizes, the per-step (L, n_max) float32 values
+    (zero past each leaf's length) and their float64 sum over the steps."""
+    import numpy as np
+
+    sizes = [n for _, n in LEAVES]
+    scales = [np.exp(GRAD_LOG_SCALE * np.random.default_rng(
+        [seed, 0, b]).standard_normal(n, dtype=np.float32))
+        for b, n in enumerate(sizes)]
+    steps, total = [], np.zeros((len(sizes), max(sizes)))
+    for t in range(DENSE_STEPS):
+        vals = np.zeros((len(sizes), max(sizes)), np.float32)
+        for b, n in enumerate(sizes):
+            noise = np.random.default_rng([seed, 1 + t, b]).standard_normal(
+                n, dtype=np.float32)
+            np.multiply(scales[b], noise, out=vals[b, :n])
+        total += vals
+        steps.append(vals)
+    return sizes, steps, total
+
+
 def phase_parity(torch, seeds, tseeds, keys, vals, tag):
-    """Each kernel against its plain version on the card: the scatter within
-    rtol 1e-4 / scale-aware atol and within each cell's rounding bound, the
-    query bit for bit."""
+    """Each batched kernel against its plain version on the card: the
+    scatter and the dense update within rtol 1e-4 / scale-aware atol and
+    within each cell's rounding bound, the query bit for bit."""
     from repro_torch.kernels import countsketch_query as q
     from repro_torch.kernels import countsketch_scatter as s
+    from repro_torch.kernels import countsketch_update as u
     from repro_torch.kernels import ref
 
     dev = keys.device
     results = {}
+    ratios = []
 
     def check_scatter(name, k, v, rows, width, sd, ts, **kw):
         got = s.countsketch_scatter_batched(k, v, rows, width, sd,
@@ -141,24 +281,11 @@ def phase_parity(torch, seeds, tseeds, keys, vals, tag):
                                                    transform_seeds=ts, **kw)
         tol = ref.scatter_tolerance(*ref.countsketch_scatter_mass_ref(
             k, v, rows, width, sd, transform_seeds=ts, **kw))
-        torch.cuda.synchronize()
-        atol = scale_atol(want)
-        close = torch.allclose(got, want, rtol=RTOL, atol=atol,
-                               equal_nan=True)
-        cells, err, ratio = cell_check(torch, got, want, tol)
-        nonfinite = int((~want.isfinite()).sum())
-        log(f"[parity] scatter {name}: shape {tuple(got.shape)} "
-            f"max_abs_err {err:.3e}; allclose atol {atol:.3e} "
-            f"{'ok' if close else 'FAIL'}; per-cell bound worst err/bound "
-            f"{ratio:.3e} {'ok' if cells else 'FAIL'}; nonfinite "
-            f"{nonfinite}")
-        if not (close and cells):
-            raise AssertionError(f"scatter kernel disagrees ({name})")
+        err, ratio = check_sum(torch, f"scatter {name}", got, want, tol)
         ratios.append(ratio)
         return got, err
 
     # deployment shape: one flush of a full step, fused ppswor p=1
-    ratios = []
     table, results["scatter"] = check_scatter("deployment", keys, vals, ROWS,
                                               WIDTH, seeds, tseeds, p=P)
 
@@ -195,14 +322,9 @@ def phase_parity(torch, seeds, tseeds, keys, vals, tag):
     results["scatter_ratio"] = max(ratios)
 
     def check_query(name, tables, qk, sd):
-        got = q.countsketch_query_batched(tables, qk, sd)
-        want = ref.countsketch_query_batched_ref(tables, qk, sd)
-        torch.cuda.synchronize()
-        ok = torch.equal(got, want)
-        log(f"[parity] query {name}: shape {tuple(got.shape)} bitwise "
-            f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"query kernel is not bitwise ({name})")
+        check_bitwise(torch, f"query {name}",
+                      q.countsketch_query_batched(tables, qk, sd),
+                      ref.countsketch_query_batched_ref(tables, qk, sd))
 
     qkeys = torch.cat([torch.full((B, CANDIDATES), -1, dtype=torch.int32,
                                   device=dev), keys], 1).contiguous()
@@ -211,7 +333,44 @@ def phase_parity(torch, seeds, tseeds, keys, vals, tag):
     check_query("W=1000,k=1", tables, k[:, :1].contiguous(), sd)
     check_query("B=1", tables[:1].contiguous(), k[:1].contiguous(), sd[:1])
     results["query"] = 0.0
-    log(f"[parity] all kernels agree with their plain versions {tag}")
+
+    # the dense update kernel at its edge shapes (its deployment shape is
+    # checked in the dense phase)
+    uratios = []
+
+    def check_update(name, vv, rows, width, sd, ts, **kw):
+        got = u.countsketch_update_batched(vv, rows, width, sd,
+                                           transform_seeds=ts, **kw)
+        want = ref.countsketch_update_batched_ref(vv, rows, width, sd,
+                                                  transform_seeds=ts, **kw)
+        tol = ref.scatter_tolerance(*ref.countsketch_update_mass_ref(
+            vv, rows, width, sd, transform_seeds=ts, **kw))
+        uratios.append(check_sum(torch, f"update {name}", got, want,
+                                 tol)[1])
+        return got
+
+    _, v, sd, ts = rand_stream(1, 1)
+    check_update("B=1,n=1", v, ROWS, WIDTH, sd, ts, p=P)
+    _, v, sd, ts = rand_stream(8, 1000)
+    check_update("W=1000", v, 5, 1000, sd, ts, p=P)
+    got = check_update("zero-length stream 2", v, ROWS, WIDTH, sd, ts, p=P,
+                       lengths=lens)
+    if got[2].any():
+        raise AssertionError("zero-length stream is not exactly zero")
+    past = torch.tensor([1000, 1001, 5000, 2**31 - 1, 0, 1, 999, 4096],
+                        device=dev)
+    check_update("lengths > n", v, ROWS, WIDTH, sd, ts, p=P, lengths=past)
+    # keys wrap past 2**31 and 2**32; stream 1 sketches key 0xFFFFFFFF
+    wrap = torch.tensor([2**31 - 500, 2**32 - 5, 2**32 - 1, 0, 7, 2**31,
+                         2**32 - 1000, 123], device=dev)
+    check_update("base keys near 2**31 and 2**32-5", v, ROWS, WIDTH, sd, ts,
+                 p=P, base_keys=wrap)
+    check_update("priority", v, ROWS, WIDTH, sd, ts, p=P, scheme="priority")
+    check_update("p=0.5", v, ROWS, WIDTH, sd, ts, p=0.5)
+    check_update("p=2", v, ROWS, WIDTH, sd, ts, p=2.0)
+    check_update("p=None", v, ROWS, WIDTH, sd, ts, p=None)
+    results["update_edge_ratio"] = max(uratios)
+    log(f"[parity] all batched kernels agree with their plain versions {tag}")
     return results, table, qkeys
 
 
@@ -238,12 +397,99 @@ def run_engine(torch, plane, steps, flush_policy, sample=True):
     return eng, samp, flushes, ingest_s, time.perf_counter() - t0
 
 
+def compare_tables(torch, what, got, want, tol):
+    """The kernel path's tables against the plain path's, within both
+    bounds; returns the streams whose plain tables hold non-finite cells
+    (the reference's uniform01 == 1.0 edge)."""
+    atol = scale_atol(want)
+    close = torch.allclose(got, want, rtol=RTOL, atol=atol, equal_nan=True)
+    cells, t_err, t_ratio = cell_check(torch, got, want, tol)
+    bad_streams = (~want.isfinite()).flatten(1).any(1)
+    log(f"[main] {what} tables: max_abs_err {t_err:.3e}; allclose "
+        f"rtol {RTOL} atol {atol:.3e}: {'ok' if close else 'FAIL'}; "
+        f"per-cell bound worst err/bound {t_ratio:.3e}: "
+        f"{'ok' if cells else 'FAIL'}; streams with non-finite cells (the "
+        f"reference's uniform01 == 1.0 edge): {int(bad_streams.sum())}")
+    if not (close and cells):
+        raise AssertionError(f"{what} tables disagree")
+    return bad_streams
+
+
+def compare_samples(torch, what, samp, dst, tol, seeds, k, p, bad_streams):
+    """The kernel path's sample keys against the plain state read through
+    the plain estimate (``worp.onepass_sample``).  A stream's key set may
+    differ only where the k-th and (k+1)-st |estimate| differ by less than
+    the sum of their error bounds (a key's bound is the largest bound of the
+    cells its rows read), or where the plain table is not finite."""
+    from repro_torch.core import countsketch, worp
+    from repro_torch.kernels import ref
+
+    dsamp = worp.onepass_sample(dst, k, p)
+    cand = dst.cand_keys
+    mag = torch.where(cand == -1, float("-inf"),
+                      countsketch.estimate(dst.sketch, cand).abs())
+    top_mag, top_i = worp.top_k(mag, k + 1)
+    key_err = ref.countsketch_query_batched_ref(tol, cand, seeds).abs()
+    pair_err = torch.gather(key_err.amax(1), 1, top_i[:, k - 1:k + 1])
+    near_tie = (top_mag[:, k - 1] - top_mag[:, k]) <= pair_err.sum(1)
+    same = (torch.sort(samp.keys, 1).values
+            == torch.sort(dsamp.keys, 1).values).all(1)
+    mismatch = int((~same & ~(near_tie | bad_streams)).sum())
+    n = samp.keys.shape[0]
+    log(f"[main] {what} sample key sets: {int(same.sum())}/{n} identical, "
+        f"{int(near_tie.sum())} near-tie streams, {int((~same).sum())} "
+        f"differ, {mismatch} differ outside near ties / non-finite streams")
+    if mismatch:
+        raise AssertionError(f"{what} sample key sets differ from the plain "
+                             f"path's")
+    if not bool(samp.freqs[~bad_streams].isfinite().all()):
+        raise AssertionError(f"{what}: non-finite sample frequencies")
+
+
+def trace_report(prof, ranges, wall_ms, what, tag, top: int = 12):
+    """Print the named ranges (host time, and the device time of the
+    PyTorch ops each launched), device time by kernel, and the device's busy
+    share over ``wall_ms`` of a ``torch.profiler`` trace."""
+    from torch.autograd import DeviceType
+
+    # device-side activities only (kernels, copies, memsets): the host ops
+    # that launched them carry the same device time a second time, and the
+    # device-side copies of the named ranges span their kernels
+    rows, stages = [], {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+        if e.key in ranges:
+            if e.device_type == DeviceType.CPU:
+                incl = getattr(e, "device_time_total",
+                               getattr(e, "cuda_time_total", 0.0))
+                stages[e.key] = (e.count, e.cpu_time_total / 1e3, incl / 1e3)
+        elif dev_us > 0 and e.device_type != DeviceType.CPU:
+            rows.append((dev_us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    for name in ranges:
+        if name not in stages:
+            log(f"[profile] stage {name}: not in the trace")
+            continue
+        n, host, dev = stages[name]
+        log(f"[profile] stage {name} x{n}: host {host / n:.3f} ms, device "
+            f"{dev / n:.3f} ms per call, PyTorch's ops only (the kernels "
+            f"launched through ctypes are listed by name) (traced run) {tag}")
+    # the profiler's own buffer requests are not the program's work
+    busy = sum(r[0] for r in rows if "Activity Buffer" not in r[2])
+    if not rows:
+        log(f"[profile] the profiler saw no device time: not measured {tag}")
+        return
+    log(f"[profile] {what}: wall {wall_ms:.3f} ms, device busy "
+        f"{busy:.3f} ms ({100 * busy / wall_ms:.1f} %), idle "
+        f"{100 * (1 - busy / wall_ms):.1f} % (traced run) {tag}")
+    for ms, count, key in rows[:top]:
+        log(f"[profile]   {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+
+
 def profile_window(torch, steps, tag):
     """torch.profiler over two flushes and one sample of a fresh sparse
-    engine: the flush's named stages (host time, and the device time of the
-    PyTorch ops each launched), device time by kernel, and the device's
-    busy share."""
-    from torch.autograd import DeviceType
+    engine."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.engine import EngineConfig, SketchEngine
@@ -261,89 +507,22 @@ def profile_window(torch, steps, tag):
         eng.sample(K)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side activities only (kernels, copies, memsets): the host ops
-    # that launched them carry the same device time a second time, and the
-    # device-side copies of the named ranges span their kernels
-    rows, stages = [], {}
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-        if e.key in RANGES:
-            if e.device_type == DeviceType.CPU:
-                incl = getattr(e, "device_time_total",
-                               getattr(e, "cuda_time_total", 0.0))
-                stages[e.key] = (e.count, e.cpu_time_total / 1e3, incl / 1e3)
-        elif dev_us > 0 and e.device_type != DeviceType.CPU:
-            rows.append((dev_us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
-    for name in RANGES:
-        if name not in stages:
-            log(f"[profile] stage {name}: not in the trace")
-            continue
-        n, host, dev = stages[name]
-        log(f"[profile] stage {name} x{n}: host {host / n:.3f} ms, device "
-            f"{dev / n:.3f} ms per call, PyTorch's ops only (the kernels "
-            f"launched through ctypes are listed by name) (traced run) {tag}")
-    # the profiler's own buffer requests are not the program's work
-    busy = sum(r[0] for r in rows if "Activity Buffer" not in r[2])
-    if not rows:
-        log(f"[profile] the profiler saw no device time: not measured {tag}")
-        return
-    log(f"[profile] 2 flushes + sample: wall {wall_ms:.3f} ms, device busy "
-        f"{busy:.3f} ms ({100 * busy / wall_ms:.1f} %), idle "
-        f"{100 * (1 - busy / wall_ms):.1f} % (traced run) {tag}")
-    for ms, count, key in rows[:12]:
-        log(f"[profile]   {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+    trace_report(prof, RANGES, wall_ms, "2 flushes + sample", tag)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the generated turnstile stream")
-    args = ap.parse_args()
-
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 2
-    if not (SRC / "repro_torch").is_dir():
-        print(f"chip_smoke: the port's package is missing under {SRC}",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(SRC))
+def phase_sparse(torch, args, seeds, tseeds, tag):
+    """Phases 2-4: batched kernel parity, the sparse plane against the dense
+    plane, and the sparse path's times.  Returns the kernels-line entries of
+    the scatter and the batched query."""
     import numpy as np
 
-    from repro_torch.core import countsketch, transforms, worp
-    from repro_torch.engine import FlushPolicy, derive_stream_seeds
-    from repro_torch.engine.engine import EngineConfig
-    from repro_torch.kernels import build
+    from repro_torch.core import transforms
+    from repro_torch.engine import FlushPolicy
     from repro_torch.kernels import countsketch_query as q
     from repro_torch.kernels import countsketch_scatter as s
     from repro_torch.kernels import ref
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(DEVICE)
-
-    # -- phase 1: the card and the build --------------------------------
-    smi = card_info()
-    tag = f"[{smi}]"
-    kind = torch.cuda.get_device_name(0)
-    count = torch.cuda.device_count()
-    log(smi)
-    log(f"[card] {kind} count={count} torch={torch.__version__} "
-        f"cuda={torch.version.cuda} {tag}")
-    t0 = time.perf_counter()
-    built = build.build_all()
-    log(f"[build] {len(built)} kernels in {time.perf_counter() - t0:.2f} s "
-        f"wall (" + ", ".join(f"{b.name} {b.seconds:.2f} s"
-                              for b in built.values()) + ")")
-    for b in built.values():
-        for line in b.log.splitlines():
-            if line.strip():
-                log(f"[build] {b.name}: {line.strip()}")
-
     t0 = time.perf_counter()
     stream, steps = make_stream(args.seed)
     events = sum(k.size for k, _ in steps)
@@ -352,14 +531,15 @@ def main() -> int:
         f"of the ingest rate)")
 
     # -- phase 2: kernel parity -----------------------------------------
-    cfg = EngineConfig(num_streams=B, rows=ROWS, width=WIDTH,
-                       candidates=CANDIDATES, p=P)
-    seeds, tseeds = derive_stream_seeds(cfg, device=dev)
+    t_phase = time.perf_counter()
     keys1 = torch.from_numpy(steps[1][0]).to(dev)
     vals1 = torch.from_numpy(steps[1][1]).to(dev)
     errs, table, qkeys = phase_parity(torch, seeds, tseeds, keys1, vals1, tag)
+    log(f"[phase] 2 kernel parity: {time.perf_counter() - t_phase:.2f} s "
+        f"wall")
 
-    # -- phase 3: the main path, sparse (kernels) and dense (plain) -------
+    # -- phase 3: the sparse plane (kernels) and the dense plane (plain) --
+    t_phase = time.perf_counter()
     policy = FlushPolicy(max_elems=4096)
     s.launches = q.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -380,11 +560,10 @@ def main() -> int:
     dense, _, dflushes, dense_s, _ = run_engine(torch, "dense", steps,
                                                 policy, sample=False)
     dst = dense.state
-    dt = dst.sketch.table
     # each cell's rounding bound over all steps: any summation order of its
     # terms, the sparse plane's per-flush deltas included
-    cnt = torch.zeros_like(dt)
-    mass = torch.zeros_like(dt)
+    cnt = torch.zeros_like(dst.sketch.table)
+    mass = torch.zeros_like(dst.sketch.table)
     for keys, vals in steps:
         c, m = ref.countsketch_scatter_mass_ref(
             torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev),
@@ -393,43 +572,11 @@ def main() -> int:
         mass += m
     tol = ref.scatter_tolerance(cnt, mass)
     del cnt, mass, c, m
-    atol = scale_atol(dt)
-    close = torch.allclose(st.sketch.table, dt, rtol=RTOL, atol=atol,
-                           equal_nan=True)
-    cells, t_err, t_ratio = cell_check(torch, st.sketch.table, dt, tol)
-    bad_streams = (~dt.isfinite()).flatten(1).any(1)
-    log(f"[main] sparse vs dense tables: max_abs_err {t_err:.3e}; allclose "
-        f"rtol {RTOL} atol {atol:.3e}: {'ok' if close else 'FAIL'}; "
-        f"per-cell bound worst err/bound {t_ratio:.3e}: "
-        f"{'ok' if cells else 'FAIL'}; streams with non-finite cells (the "
-        f"reference's uniform01 == 1.0 edge): {int(bad_streams.sum())}")
-    if not (close and cells):
-        raise AssertionError("sparse and dense plane tables disagree")
-    # the reference sample: the dense state read through the plain estimate
-    dsamp = worp.onepass_sample(dst, K, P)
-    # a stream's key set may differ only where the k-th and (k+1)-st
-    # |estimate| differ by less than the sum of their error bounds; a key's
-    # bound is the largest bound of the cells its rows read
-    cand = dst.cand_keys
-    mag = torch.where(cand == -1, float("-inf"),
-                      countsketch.estimate(dst.sketch, cand).abs())
-    top_mag, top_i = worp.top_k(mag, K + 1)
-    key_err = ref.countsketch_query_batched_ref(tol, cand, seeds).abs()
-    pair_err = torch.gather(key_err.amax(1), 1, top_i[:, K - 1:K + 1])
-    near_tie = (top_mag[:, K - 1] - top_mag[:, K]) <= pair_err.sum(1)
-    del tol, key_err
-    same = (torch.sort(samp.keys, 1).values
-            == torch.sort(dsamp.keys, 1).values).all(1)
-    excused = near_tie | bad_streams
-    mismatch = int((~same & ~excused).sum())
-    log(f"[main] sample key sets: {int(same.sum())}/{B} identical, "
-        f"{int(near_tie.sum())} near-tie streams, {int((~same).sum())} "
-        f"differ, {mismatch} differ outside near ties / non-finite streams")
-    if mismatch:
-        raise AssertionError("sample key sets differ between planes")
-    good = ~bad_streams
-    if not bool(samp.freqs[good].isfinite().all()):
-        raise AssertionError("non-finite sample frequencies")
+    bad_streams = compare_tables(torch, "sparse vs dense plane",
+                                 st.sketch.table, dst.sketch.table, tol)
+    compare_samples(torch, "sparse vs dense plane", samp, dst, tol, seeds, K,
+                    P, bad_streams)
+    del tol
 
     recalls = []
     for b in range(8):
@@ -446,10 +593,12 @@ def main() -> int:
         + " ".join(f"{r:.3f}" for r in recalls))
     if min(recalls) < 0.5:
         raise AssertionError("sample recall below 0.5")
-    del dense, dst, dt
+    del dense, dst
     profile_window(torch, steps, tag)
+    log(f"[phase] 3 sparse plane: {time.perf_counter() - t_phase:.2f} s wall")
 
     # -- phase 4: times --------------------------------------------------
+    t_phase = time.perf_counter()
     log(f"[time] sparse plane: {events} events ingested in {ingest_s:.4f} s "
         f"= {events / ingest_s:.4e} events/s; sample(k={K}) {sample_s * 1e3:.3f}"
         f" ms (first call); dense plane {dense_s:.4f} s = "
@@ -463,6 +612,7 @@ def main() -> int:
         sample_ms.append((time.perf_counter() - t0) * 1e3)
     log(f"[time] sample(k={K}) latency, 5 calls: "
         + " ".join(f"{x:.3f}" for x in sample_ms) + f" ms {tag}")
+    del eng, st, samp
 
     n1 = keys1.shape[1]
     scatter = lambda: s.countsketch_scatter_batched(  # noqa: E731
@@ -471,33 +621,24 @@ def main() -> int:
         keys1, vals1, ROWS, WIDTH, seeds, p=P, transform_seeds=tseeds)
     # library yardstick, memory half only: precomputed flat indices and
     # signed transformed values into a zeroed table with index_add_
-    from repro_torch.core import hashing
     tv = transforms.transform_values(keys1, vals1, P, tseeds[:, None])
-    idx, sv = [], []
-    base = torch.arange(B, device=dev)[:, None] * (ROWS * WIDTH)
-    for r in range(ROWS):
-        salt = hashing.row_salt(seeds[:, None], r)
-        idx.append(base + r * WIDTH + hashing.bucket_hash(keys1, salt, WIDTH))
-        sv.append(hashing.sign_hash(keys1, salt) * tv)
-    idx = torch.cat(idx, 1).reshape(-1)
-    sv = torch.cat(sv, 1).reshape(-1)
+    idx, sign = row_index(torch, keys1, seeds, WIDTH)
+    idx = idx.reshape(-1)
+    sv = (sign * tv.repeat(1, ROWS)).reshape(-1)
     flat = torch.zeros(B * ROWS * WIDTH, device=dev)
     scatter_lib = lambda: flat.zero_().index_add_(0, idx, sv)  # noqa: E731
     s_ms = cuda_ms(torch, scatter, 20)
     s_plain = cuda_ms(torch, scatter_plain, 3, warmup=1)
     s_lib = cuda_ms(torch, scatter_lib, 20)
-    del idx, sv, flat, tv
+    del idx, sign, sv, flat, tv
 
     query = lambda: q.countsketch_query_batched(table, qkeys,  # noqa: E731
                                                 seeds)
     query_plain = lambda: ref.countsketch_query_batched_ref(  # noqa: E731
         table, qkeys, seeds)
     kq = qkeys.shape[1]
-    gidx = []
-    for r in range(ROWS):
-        salt = hashing.row_salt(seeds[:, None], r)
-        gidx.append(r * WIDTH + hashing.bucket_hash(qkeys, salt, WIDTH))
-    gidx = torch.cat(gidx, 1)
+    gidx = row_index(torch, qkeys, seeds, WIDTH)[0] \
+        - (torch.arange(B, device=dev)[:, None] * (ROWS * WIDTH))
     flat_tables = table.reshape(B, ROWS * WIDTH)
     query_lib = lambda: torch.gather(flat_tables, 1, gidx)  # noqa: E731
     q_ms = cuda_ms(torch, query, 20)
@@ -512,11 +653,6 @@ def main() -> int:
     s_ops = live * SCATTER_OPS_PER_SLOT
     q_bytes = qkeys.numel() * 4 + table.numel() * 4 + B * ROWS * kq * 4
     q_ops = qkeys.numel() * QUERY_OPS_PER_KEY
-
-    def bound(nbytes, ops):
-        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
-        return (tb, "bytes") if tb >= to else (to, "operations")
-
     s_bound, s_by = bound(s_bytes, s_ops)
     q_bound, q_by = bound(q_bytes, q_ops)
     log(f"[time] scatter (B={B}, n={n1}): kernel {s_ms:.4f} ms, plain "
@@ -527,9 +663,8 @@ def main() -> int:
         f"{q_plain:.4f} ms, gather yardstick (memory half only) "
         f"{q_lib:.4f} ms, bound {q_bound:.4f} ms by {q_by} "
         f"({q_bytes / 1e6:.1f} MB, {q_ops / 1e9:.2f} G int ops) {tag}")
-
-    # -- phase 5: the kernels line and the ok line -------------------------
-    kernels = [
+    log(f"[phase] 4 sparse times: {time.perf_counter() - t_phase:.2f} s wall")
+    return [
         {"name": "countsketch_scatter_batched", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/countsketch_scatter.cu",
          "replaces": "src/repro/kernels/countsketch_scatter.py:112",
@@ -545,7 +680,458 @@ def main() -> int:
          "launches": query_launches, "max_abs_err": errs["query"],
          "parity": "bitwise", "ms": q_ms, "plain_ms": q_plain,
          "bound_ms": q_bound, "bound_by": q_by, "library_ms": q_lib},
+    ], errs
+
+
+def profile_dense(torch, cfg, values, sizes, tag):
+    """torch.profiler over one update_dense of a fresh engine: the split of
+    its ranges ``dense.sketch`` and ``dense.refresh``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.engine import SketchEngine
+
+    eng = SketchEngine(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.update_dense(values, lengths=sizes)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    trace_report(prof, DENSE_RANGES, wall_ms, "1 update_dense", tag, top=8)
+
+
+def phase_dense(torch, args, tag):
+    """Phase 5: SketchEngine.update_dense on one gemma2_2b layer's gradient
+    streams (kernels) against the plain path, its times and a trace.
+    Returns the kernels-line entry of the dense update and the wg leaf's
+    first-step values (for the single-stream phase)."""
+    import functools
+
+    import numpy as np
+
+    from repro_torch.core import transforms, worp
+    from repro_torch.engine import (EngineConfig, SketchEngine,
+                                    derive_stream_seeds, onepass_init_batched)
+    from repro_torch.engine.engine import _map, _map2
+    from repro_torch.kernels import countsketch_query as q
+    from repro_torch.kernels import countsketch_update as u
+    from repro_torch.kernels import ref
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    sizes, steps, total = make_gradients(args.seed)
+    L, n_max, live = len(sizes), max(sizes), sum(sizes)
+    log(f"[dense] one gemma2_2b layer: {L} gradient streams ("
+        + ", ".join(f"{name} {n}" for name, n in LEAVES) + f"), n_max "
+        f"{n_max}, {live} live elements a step; {DENSE_STEPS} steps "
+        f"generated on the host in {time.perf_counter() - t_phase:.2f} s "
+        f"(kept out of the update rate)")
+    cfg = EngineConfig(num_streams=L)
+    seeds, tseeds = derive_stream_seeds(cfg, device=dev)
+    lengths = torch.tensor(sizes, device=dev)
+
+    # the kernel against its plain version at the deployment shape
+    v0 = torch.from_numpy(steps[0]).to(dev)
+    kw = dict(p=cfg.p, transform_seeds=tseeds, lengths=lengths)
+    got = u.countsketch_update_batched(v0, cfg.rows, cfg.width, seeds, **kw)
+    want = ref.countsketch_update_batched_ref(v0, cfg.rows, cfg.width, seeds,
+                                              **kw)
+    tol = ref.scatter_tolerance(*ref.countsketch_update_mass_ref(
+        v0, cfg.rows, cfg.width, seeds, **kw))
+    u_err, u_ratio = check_sum(torch, "update gemma2_2b layer (step 0)", got,
+                               want, tol)
+    del got, want, tol
+
+    # peak of one update_dense, reckoned from its shapes: the values, the
+    # int32 keys, the (L, n_max + C) query keys, and the refresh's (L, rows,
+    # n_max + C) float32 reads with their sorted copy and int64 sort indices
+    nq = L * (n_max + cfg.candidates)
+    reckoned = L * n_max * 4 * 2 + nq * 4 + cfg.rows * nq * (4 + 4 + 8)
+    log(f"[dense] reckoned peak of one update_dense: {reckoned / 1e9:.2f} GB "
+        f"(values {L * n_max * 4 / 1e9:.2f} GB, refresh reads "
+        f"{cfg.rows * nq * 4 / 1e9:.2f} GB, their sort "
+        f"{cfg.rows * nq * 12 / 1e9:.2f} GB)")
+
+    # -- the main path: update_dense x DENSE_STEPS, then sample ----------
+    del v0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    u.launches = q.launches = 0
+    eng = SketchEngine(cfg, device=DEVICE)
+    update_s = []
+    for vals in steps:
+        dv = torch.from_numpy(vals).to(dev)  # the gradients live on the card
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.update_dense(dv, lengths=sizes)
+        torch.cuda.synchronize()
+        update_s.append(time.perf_counter() - t0)
+        del dv
+    t0 = time.perf_counter()
+    samp = eng.sample(DENSE_K)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    update_launches, query_launches = u.launches, q.launches
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[main] dense segments: {DENSE_STEPS} update_dense calls, update "
+        f"launches {update_launches}, query launches {query_launches}")
+    if update_launches != DENSE_STEPS:
+        raise AssertionError("update launches do not match update_dense calls")
+    if query_launches < DENSE_STEPS + 1:
+        raise AssertionError("query launches < update_dense calls + 1")
+    if tuple(samp.keys.shape) != (L, DENSE_K) \
+            or samp.keys.dtype != torch.int32:
+        raise AssertionError(f"sample keys shape {tuple(samp.keys.shape)}")
+    rate = DENSE_STEPS * live / sum(update_s)
+    log(f"[time] update_dense: {DENSE_STEPS} x {live} live elements in "
+        f"{sum(update_s):.4f} s = {rate:.4e} elements/s (per call "
+        + " ".join(f"{x * 1e3:.1f}" for x in update_s) + f" ms); peak "
+        f"memory {peak / 1e6:.1f} MB (reckoned {reckoned / 1e6:.1f} MB) "
+        f"{tag}")
+    sample_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        eng.sample(DENSE_K)
+        torch.cuda.synchronize()
+        sample_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"[time] dense sample(k={DENSE_K}) latency: first {first_ms:.3f} ms, "
+        f"5 calls " + " ".join(f"{x:.3f}" for x in sample_ms) + f" ms {tag}")
+    st = eng.state
+    del eng
+    torch.cuda.empty_cache()
+
+    # -- the plain path: worp.onepass_update stream by stream, keys base + i
+    # (-1 past the length), same seeds and order -------------------------
+    t0 = time.perf_counter()
+    st0 = onepass_init_batched(cfg, device=dev)
+    offs = torch.arange(n_max, device=dev)
+    parts = []
+    for b in range(L):
+        sb = _map(lambda x: x[b:b + 1], st0)
+        keys = torch.where(offs < sizes[b], offs, -1).to(torch.int32)[None]
+        for vals in steps:
+            sb = worp.onepass_update(
+                sb, keys, torch.from_numpy(vals[b:b + 1]).to(dev), cfg.p,
+                cfg.scheme)
+        parts.append(sb)
+    dst = functools.reduce(
+        lambda a, c: _map2(lambda x, y: torch.cat([x, y]), a, c), parts)
+    del parts, sb, keys
+    torch.cuda.synchronize()
+    log(f"[dense] plain path (worp.onepass_update, stream by stream): "
+        f"{time.perf_counter() - t0:.2f} s")
+    cnt = torch.zeros_like(dst.sketch.table)
+    mass = torch.zeros_like(dst.sketch.table)
+    for vals in steps:
+        c, m = ref.countsketch_update_mass_ref(
+            torch.from_numpy(vals).to(dev), cfg.rows, cfg.width, seeds, **kw)
+        cnt += c
+        mass += m
+    tol = ref.scatter_tolerance(cnt, mass)
+    del cnt, mass, c, m
+    bad = compare_tables(torch, "dense segments, kernels vs plain",
+                         st.sketch.table, dst.sketch.table, tol)
+    compare_samples(torch, "dense segments, kernels vs plain", samp, dst,
+                    tol, seeds, DENSE_K, cfg.p, bad)
+    del tol, dst
+
+    recalls = []
+    for b, n in enumerate(sizes):
+        keys = torch.arange(n, dtype=torch.int32, device=dev)
+        f = torch.from_numpy(total[b, :n].astype(np.float32)).to(dev)
+        tstar = transforms.transform_frequencies(keys, f, cfg.p,
+                                                 int(tseeds[b]))
+        exact = keys[torch.argsort(tstar.abs(), descending=True,
+                                   stable=True)[:DENSE_K]]
+        recalls.append(len(set(exact.tolist())
+                           & set(samp.keys[b].tolist())) / DENSE_K)
+    del keys, f, tstar
+    log(f"[main] recall of the exact bottom-{DENSE_K} per stream ("
+        + ", ".join(f"{name} {r:.3f}{' (non-finite)' if bool(bad[b]) else ''}"
+                    for b, ((name, _), r) in enumerate(zip(LEAVES, recalls)))
+        + ")")
+    if min(r for b, r in enumerate(recalls) if not bool(bad[b])) < 0.5:
+        raise AssertionError("dense sample recall below 0.5 on a finite "
+                             "stream")
+    profile_dense(torch, cfg, torch.from_numpy(steps[0]).to(dev), sizes, tag)
+
+    # -- times of the kernel at the deployment shape -----------------------
+    v0 = torch.from_numpy(steps[0]).to(dev)
+    update = lambda: u.countsketch_update_batched(  # noqa: E731
+        v0, cfg.rows, cfg.width, seeds, **kw)
+    update_plain = lambda: ref.countsketch_update_batched_ref(  # noqa: E731
+        v0, cfg.rows, cfg.width, seeds, **kw)
+    u_ms = cuda_ms(torch, update, 10)
+    u_plain = cuda_ms(torch, update_plain, 2, warmup=1)
+    # library yardstick, memory half only: index_add_ of the signed,
+    # transformed live values at precomputed flat buckets
+    idx, sv = [], []
+    for b, n in enumerate(sizes):
+        keys = torch.arange(n, device=dev)[None]
+        tv = transforms.transform_values(keys, v0[b:b + 1, :n], cfg.p,
+                                         tseeds[b:b + 1, None])
+        i, sg = row_index(torch, keys, seeds[b:b + 1], cfg.width, cfg.rows)
+        idx.append(i.reshape(-1) + b * cfg.rows * cfg.width)
+        sv.append((sg * tv.repeat(1, cfg.rows)).reshape(-1))
+        del keys, tv, i, sg
+    idx, sv = torch.cat(idx), torch.cat(sv)
+    flat = torch.zeros(L * cfg.rows * cfg.width, device=dev)
+    update_lib = lambda: flat.zero_().index_add_(0, idx, sv)  # noqa: E731
+    u_lib = cuda_ms(torch, update_lib, 10)
+    del idx, sv, flat, v0
+    torch.cuda.empty_cache()
+    u_bound, u_by = bound(live * 4 + L * cfg.rows * cfg.width * 4,
+                          live * UPDATE_OPS_PER_SLOT)
+    log(f"[time] update (L={L}, n_max={n_max}, {live} live): kernel "
+        f"{u_ms:.4f} ms, plain {u_plain:.4f} ms, index_add_ yardstick "
+        f"(memory half only) {u_lib:.4f} ms, bound {u_bound:.4f} ms by "
+        f"{u_by} ({live * 4 / 1e6:.1f} MB, "
+        f"{live * UPDATE_OPS_PER_SLOT / 1e9:.2f} G int ops) {tag}")
+    log(f"[phase] 5 dense segments: {time.perf_counter() - t_phase:.2f} s "
+        f"wall")
+    wg = [name for name, _ in LEAVES].index("wg")
+    entry = {
+        "name": "countsketch_update_batched", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/countsketch_update.cu",
+        "replaces": "src/repro/kernels/countsketch_update.py:240",
+        "launches": update_launches, "max_abs_err": u_err,
+        "parity": f"allclose rtol {RTOL} atol 1e-5*max(1,max|want|) and "
+                  f"per-cell eps32*(m+{ref.TRANSFORM_ULPS})*sum|term|",
+        "worst_err_over_bound": u_ratio,
+        "ms": u_ms, "plain_ms": u_plain, "bound_ms": u_bound,
+        "bound_by": u_by, "library_ms": u_lib}
+    return entry, steps[0][wg, :sizes[wg]], query_launches
+
+
+def phase_single(torch, wg_values, tag):
+    """Phase 6: the single-stream entry points (benchmarks/
+    sketch_throughput.py's calls) against their plain versions, and times.
+    Returns the kernels-line entries of the single-segment update, the
+    single-table query and the transform."""
+    from repro_torch.core import hashing, transforms
+    from repro_torch.kernels import countsketch_query as q
+    from repro_torch.kernels import countsketch_update as u
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ppswor_transform as tr
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    vals = torch.from_numpy(wg_values).to(dev)
+    n_big = vals.numel()
+    keys_big = torch.arange(n_big, dtype=torch.int32, device=dev)
+    qkeys = torch.arange(SINGLE_KEYS, dtype=torch.int32, device=dev)
+    vals_bf16 = vals.to(torch.bfloat16)
+
+    # -- the path: counts zeroed just before, read just after --------------
+    u.single_launches = q.single_launches = tr.launches = 0
+    tables = [ops.sketch_dense_vector(vals[:n], ROWS, WIDTH, SINGLE_SEED,
+                                      p=P) for n in SINGLE_N]
+    rows_out = ops.query_rows(tables[-1], qkeys, SINGLE_SEED)
+    est = ops.estimate(tables[-1], qkeys, SINGLE_SEED)
+    t32 = ops.transform(keys_big, vals, P, 0)
+    t16 = ops.transform(keys_big, vals_bf16, P, 0)
+    torch.cuda.synchronize()
+    launches = {"update": u.single_launches, "query": q.single_launches,
+                "transform": tr.launches}
+    log(f"[main] single-stream entry points: sketch_dense_vector launches "
+        f"{launches['update']}, query launches {launches['query']}, "
+        f"transform launches {launches['transform']}")
+    if launches != {"update": len(SINGLE_N), "query": 2, "transform": 2}:
+        raise AssertionError("single-stream launches do not match the calls")
+
+    # -- parity against the plain versions ---------------------------------
+    u_err = 0.0
+    for n, table in zip(SINGLE_N, tables):
+        want = ref.countsketch_update_ref(vals[:n], 0, ROWS, WIDTH,
+                                          SINGLE_SEED, p=P)
+        tol = ref.scatter_tolerance(*ref.countsketch_update_mass_ref(
+            vals[None, :n], ROWS, WIDTH, SINGLE_SEED, p=P))[0]
+        u_err = max(u_err, check_sum(torch, f"sketch_dense_vector n={n}",
+                                     table, want, tol)[0])
+    check_bitwise(torch, f"query_rows k={SINGLE_KEYS}", rows_out,
+                  ref.countsketch_query_ref(tables[-1], qkeys, SINGLE_SEED))
+    check_bitwise(torch, f"estimate k={SINGLE_KEYS}", est,
+                  ref.countsketch_estimate_ref(tables[-1], qkeys,
+                                               SINGLE_SEED))
+    t_err = {}
+    for name, got, v, rtol, atol in (("float32", t32, vals, 1e-5, 1e-6),
+                                     ("bfloat16", t16, vals_bf16, 2e-2,
+                                      1e-2)):
+        want = ref.ppswor_transform_ref(keys_big, v, P, 0)
+        torch.cuda.synchronize()
+        ok = got.dtype == want.dtype and torch.allclose(
+            got.float(), want.float(), rtol=rtol, atol=atol, equal_nan=True)
+        fin = want.isfinite()
+        t_err[name] = float((got.float() - want.float())[fin].abs().max())
+        log(f"[parity] transform {name} n={n_big}: max_abs_err "
+            f"{t_err[name]:.3e}; allclose rtol {rtol} atol {atol} "
+            f"{'ok' if ok else 'FAIL'}; nonfinite {int((~fin).sum())}")
+        if not ok:
+            raise AssertionError(f"transform {name}: the kernel disagrees "
+                                 f"with its plain version")
+    del rows_out, est, t32, t16, want
+
+    # -- times -------------------------------------------------------------
+    table = tables[-1]
+    upd = lambda: ops.sketch_dense_vector(  # noqa: E731
+        vals, ROWS, WIDTH, SINGLE_SEED, p=P)
+    upd_plain = lambda: ref.countsketch_update_ref(  # noqa: E731
+        vals, 0, ROWS, WIDTH, SINGLE_SEED, p=P)
+    tv = transforms.transform_values(keys_big, vals, P, 0)
+    sd = torch.tensor([SINGLE_SEED], device=dev)
+    idx, sign = row_index(torch, keys_big[None], sd, WIDTH)
+    idx, sv = idx.reshape(-1), (sign * tv.repeat(1, ROWS)).reshape(-1)
+    flat = torch.zeros(ROWS * WIDTH, device=dev)
+    upd_lib = lambda: flat.zero_().index_add_(0, idx, sv)  # noqa: E731
+    s_ms = cuda_ms(torch, upd, 20)
+    s_plain = cuda_ms(torch, upd_plain, 3, warmup=1)
+    s_lib = cuda_ms(torch, upd_lib, 20)
+    del tv, idx, sign, sv, flat
+    s_bound, s_by = bound(n_big * 4 + ROWS * WIDTH * 4,
+                          n_big * UPDATE_OPS_PER_SLOT)
+
+    qry = lambda: ops.query_rows(table, qkeys, SINGLE_SEED)  # noqa: E731
+    qry_plain = lambda: ref.countsketch_query_ref(  # noqa: E731
+        table, qkeys, SINGLE_SEED)
+    gidx = row_index(torch, qkeys[None], sd, WIDTH)[0].reshape(-1)
+    flat_table = table.reshape(-1)
+    qry_lib = lambda: torch.gather(flat_table, 0, gidx)  # noqa: E731
+    # one call keeps the card busy for microseconds, so CUDA events over
+    # back-to-back calls time the host; the device time comes from a trace
+    q_call = (cuda_ms(torch, qry, 200, warmup=5),
+              cuda_ms(torch, qry_plain, 50, warmup=5),
+              cuda_ms(torch, qry_lib, 200, warmup=5))
+    q_ms, q_plain, q_lib = (device_ms(torch, f, 50) or t for f, t in zip(
+        (qry, qry_plain, qry_lib), q_call))
+    q_bound, q_by = bound(SINGLE_KEYS * 4 + table.numel() * 4
+                          + ROWS * SINGLE_KEYS * 4,
+                          SINGLE_KEYS * QUERY_OPS_PER_KEY)
+
+    factor = transforms._pow32(hashing.exp1(keys_big, 0), -1.0 / P)
+    factor16 = factor.to(torch.bfloat16)
+    t_times = {}
+    for name, v, f, width in (("float32", vals, factor, 4),
+                              ("bfloat16", vals_bf16, factor16, 2)):
+        t_times[name] = (
+            cuda_ms(torch, lambda: ops.transform(keys_big, v, P, 0), 20),
+            cuda_ms(torch, lambda: ref.ppswor_transform_ref(keys_big, v, P,
+                                                            0), 3, warmup=1),
+            cuda_ms(torch, lambda: torch.mul(v, f), 20),
+            *bound(n_big * (4 + 2 * width),
+                   n_big * TRANSFORM_OPS_PER_ELEM))
+    del factor, factor16
+    log(f"[time] sketch_dense_vector (n={n_big}): kernel {s_ms:.4f} ms, "
+        f"plain {s_plain:.4f} ms, index_add_ yardstick (memory half only) "
+        f"{s_lib:.4f} ms, bound {s_bound:.4f} ms by {s_by} {tag}")
+    log(f"[time] query_rows (k={SINGLE_KEYS}), device time per call "
+        f"(traced): kernel {q_ms:.4f} ms, plain {q_plain:.4f} ms, gather "
+        f"yardstick (memory half only) {q_lib:.4f} ms, bound {q_bound:.6f} "
+        f"ms by {q_by}; per call by CUDA events (host-bound): kernel "
+        f"{q_call[0]:.4f} ms, plain {q_call[1]:.4f} ms, gather "
+        f"{q_call[2]:.4f} ms {tag}")
+    for name, (k_ms, p_ms, l_ms, b_ms, b_by) in t_times.items():
+        log(f"[time] transform {name} (n={n_big}): kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, torch.mul by precomputed factors "
+            f"{l_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} {tag}")
+    log(f"[phase] 6 single-stream entry points: "
+        f"{time.perf_counter() - t_phase:.2f} s wall")
+    f32, bf16 = t_times["float32"], t_times["bfloat16"]
+    return [
+        {"name": "countsketch_update", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/countsketch_update.cu",
+         "replaces": "src/repro/kernels/countsketch_update.py:102",
+         "launches": launches["update"], "max_abs_err": u_err,
+         "parity": f"allclose rtol {RTOL} atol 1e-5*max(1,max|want|) and "
+                   f"per-cell eps32*(m+{ref.TRANSFORM_ULPS})*sum|term|",
+         "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound,
+         "bound_by": s_by, "library_ms": s_lib},
+        {"name": "countsketch_query", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/countsketch_query.cu",
+         "replaces": "src/repro/kernels/countsketch_query.py:66",
+         "launches": launches["query"], "max_abs_err": 0.0,
+         "parity": "bitwise", "ms": q_ms, "plain_ms": q_plain,
+         "bound_ms": q_bound, "bound_by": q_by, "library_ms": q_lib,
+         "timing": "device time per call from a torch.profiler trace",
+         "call_ms": q_call[0]},
+        {"name": "ppswor_transform", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ppswor_transform.cu",
+         "replaces": "src/repro/kernels/ppswor_transform.py:32",
+         "launches": launches["transform"],
+         "max_abs_err": t_err["float32"],
+         "parity": "float32 rtol 1e-5 atol 1e-6; bfloat16 rtol 2e-2 "
+                   "atol 1e-2",
+         "ms": f32[0], "plain_ms": f32[1], "bound_ms": f32[3],
+         "bound_by": f32[4], "library_ms": f32[2],
+         "bf16_max_abs_err": t_err["bfloat16"], "bf16_ms": bf16[0],
+         "bf16_plain_ms": bf16[1], "bf16_bound_ms": bf16[3],
+         "bf16_library_ms": bf16[2]},
     ]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the generated streams and gradients")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: the port's package is missing under {SRC}",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+
+    from repro_torch.engine import derive_stream_seeds
+    from repro_torch.engine.engine import EngineConfig
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+
+    # -- phase 1: the card and the build --------------------------------
+    t_phase = time.perf_counter()
+    smi = card_info()
+    tag = f"[{smi}]"
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    log(smi)
+    log(f"[card] {kind} count={count} torch={torch.__version__} "
+        f"cuda={torch.version.cuda} {tag}")
+    t0 = time.perf_counter()
+    built = build.build_all()
+    log(f"[build] {len(built)} kernels in {time.perf_counter() - t0:.2f} s "
+        f"wall (" + ", ".join(f"{b.name} {b.seconds:.2f} s"
+                              for b in built.values()) + ")")
+    for b in built.values():
+        for line in b.log.splitlines():
+            if line.strip():
+                log(f"[build] {b.name}: {line.strip()}")
+    log(f"[phase] 1 card and build: {time.perf_counter() - t_phase:.2f} s "
+        f"wall")
+
+    # -- phases 2-4: the sparse plane -------------------------------------
+    cfg = EngineConfig(num_streams=B, rows=ROWS, width=WIDTH,
+                       candidates=CANDIDATES, p=P)
+    seeds, tseeds = derive_stream_seeds(cfg, device=dev)
+    kernels, errs = phase_sparse(torch, args, seeds, tseeds, tag)
+    del seeds, tseeds
+    torch.cuda.empty_cache()
+
+    # -- phase 5: dense segments; phase 6: single-stream entry points -----
+    entry, wg_values, dense_queries = phase_dense(torch, args, tag)
+    kernels.append(entry)
+    kernels.extend(phase_single(torch, wg_values, tag))
+
+    # -- phase 7: the kernels line and the ok line -------------------------
+    log(f"[main] batched query launches on the dense path: {dense_queries}; "
+        f"worst err/bound of the update at its edge shapes "
+        f"{errs['update_edge_ratio']:.3e}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))

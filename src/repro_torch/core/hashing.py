@@ -49,6 +49,20 @@ def to_int32(x: torch.Tensor) -> torch.Tensor:
     return (((x + 2**31) % 2**32) - 2**31).to(torch.int32)
 
 
+def int32_arg(x, n: int, device) -> torch.Tensor:
+    """A kernel's (n,) int32 argument of uint32 values (``to_int32``'s
+    wrap), broadcast from a scalar, array or tensor.  A scalar is filled on
+    the device, so no blocking host-to-device copy precedes the launch."""
+    if isinstance(x, torch.Tensor):
+        return to_int32(as_u32(x, device=device).expand(n)).contiguous()
+    a = _np.asarray(x, _np.int64) & MASK32
+    a = (a + 2**31) % 2**32 - 2**31
+    if a.ndim == 0:
+        return torch.full((n,), int(a), dtype=torch.int32, device=device)
+    return torch.from_numpy(a.astype(_np.int32)).to(device).expand(
+        n).contiguous()
+
+
 def _mul32(x: torch.Tensor, c) -> torch.Tensor:
     """(x * c) mod 2**32 for x in [0, 2**32) and c a uint32 constant or
     tensor, without any int64 product overflowing: x is split into 16-bit

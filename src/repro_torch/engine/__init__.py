@@ -8,6 +8,7 @@ from .engine import (  # noqa: F401
     onepass_init_batched,
     onepass_merge_batched,
     onepass_sample_batched,
+    onepass_update_dense,
     reduce_streams,
     sampler_config,
 )

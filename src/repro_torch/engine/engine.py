@@ -12,7 +12,8 @@ rounds.
 
 The query plane (candidate refresh, estimate, sample) goes through
 ``kernels.ops.estimate_batched``: one query-kernel launch for all B streams
-on the card.  Turnstile ingest is the data-plane layer in
+on the card.  Dense segments (``update_dense``) go through one launch of
+the dense update kernel; turnstile ingest is the data-plane layer in
 ``repro_torch.engine.planes``.
 """
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core import countsketch, hashing, transforms, worp
 from repro_torch.core import sampler as core_sampler
@@ -103,6 +105,39 @@ def _refresh_candidates(sk: countsketch.CountSketch, cand_keys, batch_keys):
     all_keys = torch.cat([cand_keys, batch_keys.to(cand_keys.dtype)], 1)
     est = torch.abs(ops.estimate_batched(sk.table, all_keys, sk.seed))
     return worp._refresh_from_estimates(all_keys, est, cand_keys.shape[1])
+
+
+def onepass_update_dense(st: worp.OnePassState, values: torch.Tensor,
+                         p: float, base_keys=None, lengths=None,
+                         scheme: str = transforms.PPSWOR):
+    """Dense fast path: B dense segments through one update-kernel launch.
+
+    ``values[b, i]`` is the frequency increment of key ``base_keys[b] + i``
+    (mod 2**32) for stream b; columns past ``lengths[b]`` are ignored.  The
+    candidate refresh queries the (C + n) per-stream keys through one query
+    launch; the segment's keys enter it as int32 with two's-complement wrap,
+    and -1 past ``lengths[b]``."""
+    B, n = values.shape
+    dev = st.sketch.table.device
+    base = hashing.as_u32(0 if base_keys is None else base_keys,
+                          device=dev).expand(B)
+    lengths = torch.as_tensor(n if lengths is None else lengths,
+                              dtype=torch.int64, device=dev).expand(B)
+    with record_function("dense.sketch"):
+        delta = ops.sketch_dense_batch(
+            values, st.sketch.rows, st.sketch.width, st.sketch.seed, p=p,
+            scheme=scheme, transform_seeds=st.seed_transform,
+            base_keys=base, lengths=lengths)
+        sk = countsketch.CountSketch(table=st.sketch.table + delta,
+                                     seed=st.sketch.seed)
+    with record_function("dense.refresh"):
+        offs = torch.arange(n, dtype=torch.int64, device=dev)
+        keys = torch.where(offs < lengths[:, None],
+                           hashing.to_int32(base[:, None] + offs),
+                           worp._EMPTY)
+        cand = _refresh_candidates(sk, st.cand_keys, keys)
+    return worp.OnePassState(sketch=sk, cand_keys=cand,
+                             seed_transform=st.seed_transform)
 
 
 def onepass_merge_batched(a: worp.OnePassState, b: worp.OnePassState):
@@ -262,9 +297,20 @@ class SketchEngine:
         return self
 
     def update_dense(self, values, base_keys=None, lengths=None):
-        raise NotImplementedError(
-            f"SketchEngine.update_dense is {_NOT_PORTED} (it needs the dense "
-            f"segment kernel countsketch_update_batched)")
+        """Dense segments (B, n) through one update-kernel launch, after any
+        pending ingest buffer: stream b's ``values[b, i]`` is the increment
+        of key ``base_keys[b] + i`` for ``i < lengths[b]``.
+
+        One-pass WORp only: the other samplers have no dense kernel path."""
+        if self.cfg.sampler != "onepass":
+            raise ValueError(
+                f"update_dense: sampler {self.cfg.sampler!r} has no dense "
+                f"kernel path (only 'onepass'); use update()")
+        self.flush()
+        self.state = onepass_update_dense(
+            self.state, self._to_device(values, torch.float32), self.cfg.p,
+            base_keys=base_keys, lengths=lengths, scheme=self.cfg.scheme)
+        return self
 
     def freeze(self):
         raise NotImplementedError(

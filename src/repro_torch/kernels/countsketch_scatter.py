@@ -57,15 +57,14 @@ def countsketch_scatter_batched(keys: torch.Tensor, values: torch.Tensor,
     _require(p is None or scheme in SCHEMES, f"unknown scheme {scheme!r}")
     B, n = keys.shape
     _require(B <= _INT_MAX and n <= _INT_MAX, f"shape {tuple(keys.shape)}")
-    seeds, tseeds, lens = ref.stream_params(B, n, seeds, transform_seeds,
-                                            lengths, keys.device)
     delta = torch.zeros((B, rows, width), dtype=torch.float32,
                         device=keys.device)
     if B * n == 0:
         return delta
-    seeds32 = hashing.to_int32(seeds).contiguous()
-    tseeds32 = hashing.to_int32(tseeds).contiguous()
-    lens32 = lens.clamp(-_INT_MAX - 1, _INT_MAX).to(torch.int32).contiguous()
+    seeds32 = hashing.int32_arg(seeds, B, keys.device)
+    tseeds32 = hashing.int32_arg(
+        0 if transform_seeds is None else transform_seeds, B, keys.device)
+    lens32 = tiling.lengths_arg(lengths, B, n, keys.device)
     fn = build.function("countsketch_scatter", "worp_countsketch_scatter",
                         _ARGTYPES)
     with torch.cuda.device(keys.device):

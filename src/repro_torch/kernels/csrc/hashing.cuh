@@ -54,13 +54,21 @@ __device__ __forceinline__ uint32_t bucket_hash(uint32_t key, uint32_t salt,
   return hash_u32(key, salt) % width;
 }
 
-// v / r_x^{1/p} (Eq. 5); neg_inv_p is -1/p rounded to float32 by the caller.
+// r_x^{-1/p}, the factor of Eq. 5 in float32; neg_inv_p is -1/p rounded to
+// float32 by the caller.
+__device__ __forceinline__ float transform_factor(uint32_t key, uint32_t tseed,
+                                                  int scheme,
+                                                  float neg_inv_p) {
+  const float u = uniform01(key, tseed);
+  const float r = scheme == kPpswor ? -logf(u) : u;
+  return powf(r, neg_inv_p);
+}
+
+// v / r_x^{1/p} (Eq. 5).
 __device__ __forceinline__ float transform_value(float v, uint32_t key,
                                                  uint32_t tseed, int scheme,
                                                  float neg_inv_p) {
-  const float u = uniform01(key, tseed);
-  const float r = scheme == kPpswor ? -logf(u) : u;
-  return v * powf(r, neg_inv_p);
+  return v * transform_factor(key, tseed, scheme, neg_inv_p);
 }
 
 }  // namespace worp

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the CUDA kernels (the correctness contract).
 
 Each kernel must match its plain version here: the query bit for bit, the
-scatter within float tolerance (atomics sum in another order).  On a CPU
+scatter and the dense update within float tolerance (atomics sum in another
+order), the transform within a few ulps of -log and pow.  On a CPU
 tensor the kernel wrappers call these; ``chip_smoke.py`` compares the
 kernels with them on the card.  They share the hashes with
 ``repro_torch.core.hashing``, so the kernels are drop-in replacements for
@@ -111,6 +112,85 @@ def countsketch_scatter_ref(keys, values, rows: int, width: int, seed,
         transform_seeds=transform_seed, scheme=scheme)[0]
 
 
+def _update_terms(values, seeds, p, transform_seeds, base_keys, lengths,
+                  scheme):
+    """Per-stream seeds, the dense keys ``base_keys[b] + i`` (uint32 wrap,
+    held in int64), the live-slot mask ``i < lengths[b]`` and the
+    (transformed) values, zero in dead slots.  No key is padding: a live
+    key 0xFFFFFFFF is sketched."""
+    B, n = values.shape
+    seeds, tseeds, lengths = stream_params(B, n, seeds, transform_seeds,
+                                           lengths, values.device)
+    base = hashing.as_u32(0 if base_keys is None else base_keys,
+                          device=values.device).expand(B)
+    pos = torch.arange(n, device=values.device)
+    keys = (base[:, None] + pos) & hashing.MASK32
+    valid = pos[None, :] < lengths[:, None]
+    vals = values.to(torch.float32)
+    if p is not None:
+        vals = transforms.transform_values(keys, vals, p, tseeds[:, None],
+                                           scheme)
+    return keys, seeds, valid, torch.where(valid, vals, 0.0)
+
+
+def countsketch_update_batched_ref(values, rows: int, width: int, seeds,
+                                   p: float | None = None,
+                                   transform_seeds=None, base_keys=None,
+                                   lengths=None,
+                                   scheme: str = transforms.PPSWOR
+                                   ) -> torch.Tensor:
+    """CountSketch of B dense segments: (B, rows, width).
+
+    ``values[b, i]`` is the frequency of key ``base_keys[b] + i`` (mod
+    2**32) for ``i < lengths[b]``; later columns are ignored.  With ``p``
+    set the bottom-k transform of ``scheme`` is applied first."""
+    keys, seeds, _, vals = _update_terms(values, seeds, p, transform_seeds,
+                                         base_keys, lengths, scheme)
+    return _scatter_rows(keys, vals, rows, width, seeds)
+
+
+def countsketch_update_mass_ref(values, rows: int, width: int, seeds,
+                                p: float | None = None, transform_seeds=None,
+                                base_keys=None, lengths=None,
+                                scheme: str = transforms.PPSWOR):
+    """Per cell of ``countsketch_update_batched_ref``'s table, the number of
+    terms m and their absolute mass M = sum |term| (for
+    ``scatter_tolerance``): two (B, rows, width) float32 tables."""
+    keys, seeds, valid, vals = _update_terms(values, seeds, p,
+                                             transform_seeds, base_keys,
+                                             lengths, scheme)
+    return (_scatter_rows(keys, valid.to(torch.float32), rows, width, seeds,
+                          signed=False),
+            _scatter_rows(keys, vals.abs(), rows, width, seeds,
+                          signed=False))
+
+
+def countsketch_update_ref(values, base_key, rows: int, width: int, seed,
+                           p: float | None = None, transform_seed=None,
+                           scheme: str = transforms.PPSWOR) -> torch.Tensor:
+    """Single dense segment: (n,) values of keys ``base_key + i`` ->
+    (rows, width)."""
+    return countsketch_update_batched_ref(
+        values[None], rows, width, seed, p=p, transform_seeds=transform_seed,
+        base_keys=base_key, scheme=scheme)[0]
+
+
+def ppswor_transform_ref(keys, values, p: float, seed) -> torch.Tensor:
+    """v * Exp1(hash(key, seed))^(-1/p) in the values' type.  float32 as the
+    fused transform; bfloat16 as the Pallas kernel: the factor is computed
+    in float32 and rounded to bfloat16, and the product of the two bfloat16
+    values (exact in float32) is rounded to bfloat16."""
+    factor = transforms._pow32(hashing.exp1(keys, seed), -1.0 / p)
+    if values.dtype == torch.float32:
+        return values * factor
+    if values.dtype == torch.bfloat16:
+        prod = values.to(torch.float32) * factor.to(torch.bfloat16).to(
+            torch.float32)
+        return prod.to(torch.bfloat16)
+    raise ValueError(f"ppswor_transform: values must be float32 or "
+                     f"bfloat16, got {values.dtype}")
+
+
 def countsketch_query_batched_ref(tables, keys, seeds) -> torch.Tensor:
     """Signed per-row reads for B streams: (B, rows, k), stream b against
     its own table and seed."""
@@ -128,6 +208,12 @@ def countsketch_query_batched_ref(tables, keys, seeds) -> torch.Tensor:
 def countsketch_query_ref(table, keys, seed) -> torch.Tensor:
     """Single-stream per-row reads: (rows, k)."""
     return countsketch_query_batched_ref(table[None], keys[None], seed)[0]
+
+
+def countsketch_estimate_ref(table, keys, seed) -> torch.Tensor:
+    """Single-stream R.Est: (k,) median over rows (``jnp.median``
+    semantics)."""
+    return countsketch.median(countsketch_query_ref(table, keys, seed), 0)
 
 
 def countsketch_estimate_batched_ref(tables, keys, seeds) -> torch.Tensor:

@@ -226,8 +226,10 @@ def test_failed_flush_keeps_the_buffer(monkeypatch):
 def test_not_ported_paths_raise():
     cfg = EngineConfig(num_streams=2, rows=5, width=384, candidates=16)
     eng = SketchEngine(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        eng.update_dense(np.zeros((2, 8), np.float32))
+    other = SketchEngine(cfg, device="cpu")
+    other.cfg = other.cfg._replace(sampler="perfect")
+    with pytest.raises(ValueError, match="no dense kernel path"):
+        other.update_dense(np.zeros((2, 8), np.float32))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         eng.freeze()
     with pytest.raises(NotImplementedError, match="not ported yet"):

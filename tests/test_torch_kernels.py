@@ -27,6 +27,7 @@ from repro.kernels import ref as jref
 from repro.kernels.countsketch_query import countsketch_query_batched as jq
 from repro.kernels.countsketch_scatter import (
     countsketch_scatter_batched as jscatter)
+from repro_torch.core import hashing
 from repro_torch.kernels import build, ops, ref, tiling
 from repro_torch.kernels import countsketch_query as tq
 from repro_torch.kernels import countsketch_scatter as ts
@@ -184,6 +185,23 @@ def test_tiling_grid():
     assert tiling.grid_1d(4096 * 5120) == 4096 * 5120 // 256
     with pytest.raises(ValueError, match="grid limit"):
         tiling.grid_1d(2**31 * tiling.THREADS_PER_BLOCK)
+
+
+def test_kernel_arguments_wrap_and_clamp():
+    """Seeds go to a kernel as int32 with two's-complement wrap, from a
+    scalar, an array or a tensor; lengths are clamped to [0, n]."""
+    want = torch.tensor([-1, -2**31, 5], dtype=torch.int32)
+    for seeds in ([2**32 - 1, 2**31, 5], np.array([2**32 - 1, 2**31, 5]),
+                  torch.tensor([-1, 2**31, 5])):
+        got = hashing.int32_arg(seeds, 3, "cpu")
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(hashing.int32_arg(2**32 - 7, 2, "cpu"),
+                       torch.tensor([-7, -7], dtype=torch.int32))
+    assert torch.equal(tiling.lengths_arg(None, 2, 9, "cpu"),
+                       torch.tensor([9, 9], dtype=torch.int32))
+    for lens in ([-3, 4, 2**31 + 5], torch.tensor([-3, 4, 2**31 + 5])):
+        assert torch.equal(tiling.lengths_arg(lens, 3, 9, "cpu"),
+                           torch.tensor([0, 4, 9], dtype=torch.int32))
 
 
 def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
