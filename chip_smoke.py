@@ -21,17 +21,30 @@ before it and read just after:
   with 512 keys, ``ops.transform`` in float32 and bfloat16 (the shapes of
   benchmarks/sketch_throughput.py).
 
+The summing kernels (scatter, dense update) have two variants, chosen by
+shape before the launch: the shared-memory table (one block per stream
+chunk) wherever rows x width fits a block, as at every shape of the three
+paths, and global atomics for larger tables.  The paths must run the
+shared-memory variant; the script also checks and times the global one at
+the same shapes (forced through the wrappers' private ``_variant``).
+
 Phases (each prints its own lines and its wall time; any failure raises and
 the script exits non-zero without the final ``ok`` line):
-  1. the card, and the kernels built from ``src/repro_torch/kernels/csrc``;
-  2. each batched kernel against its plain PyTorch version on the card;
+  1. the card, and the kernels built from ``src/repro_torch/kernels/csrc``
+     with their registers, shared memory and blocks per SM;
+  2. each batched kernel against its plain PyTorch version on the card,
+     both variants of the scatter at the deployment shape, a hot-key
+     stream, and a table too large for shared memory;
   3. the sparse plane (the kernels) against the dense plane (the plain
      reference), from the same seeds and stream, and a ``torch.profiler``
      trace of the sparse plane's flush stages;
-  4. the sparse path's times: kernels, plain versions, library yardsticks,
-     events/s, sample latency, peak memory;
-  5. the dense segment path against the plain path, its times and a trace;
-  6. the single-stream entry points against their plain versions, and times;
+  4. the sparse path's times: kernels (both variants, and a hot-key
+     stream), plain versions, library yardsticks, events/s, sample latency,
+     peak memory;
+  5. the dense segment path against the plain path, its times (both
+     variants) and a trace;
+  6. the single-stream entry points against their plain versions, and
+     times (both variants of the dense segment);
   7. one ``{"kernels": [...]}`` line, then the ``ok`` line.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
@@ -56,6 +69,9 @@ RANGES = ("plane.concat", "plane.h2d", "plane.dispatch", "sparse.scatter",
           "sparse.refresh")
 DENSE_RANGES = ("dense.sketch", "dense.refresh")
 DEVICE = "cuda"
+VARIANTS = ("smem", "global")
+# kernels' registers, shared memory and blocks per SM, from phase 1
+OCCUPANCY: dict = {}
 
 # One gemma2_2b decoder layer's gradient leaves, one stream each: the widths
 # of src/repro/configs/gemma2_2b.py (d_model 2304, 8 heads, 4 KV heads,
@@ -84,9 +100,10 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 # 32-bit operations per work item, counted from kernels/csrc/hashing.cuh:
 # mix32 = 3 shifts + 3 xors + 2 multiplies = 8; hash_u32 = 2 mix32 + add +
-# xor + multiply = 19; row_salt = 3; a bucket = hash + modulo = 20; a sign =
-# salt xor + hash + and + select = 22; an address = 2.  The modulo counts as
-# one operation, so these are lower bounds.
+# xor + multiply = 19; row_salt = 3; a bucket = hash + mask (the width is a
+# power of two at every timed shape) = 20; a sign = salt xor + hash + and +
+# select = 22; an address = 2.  -logf and powf count as one operation each,
+# so these are lower bounds.
 OPS_PER_ROW = 3 + 20 + 22 + 2
 SCATTER_OPS_PER_SLOT = ROWS * OPS_PER_ROW + 24 + 2 + 3   # uniform01, log+pow,
 QUERY_OPS_PER_KEY = ROWS * (OPS_PER_ROW + 1)             # mask; query: sign mul
@@ -223,6 +240,66 @@ def row_index(torch, keys, seeds, width: int, rows: int = ROWS):
     return torch.cat(idx, 1), torch.cat(sign, 1)
 
 
+def report_occupancy(tag):
+    """Each kernel's registers, static and dynamic shared memory and
+    resident blocks per SM at its launch shape (the CUDA occupancy
+    calculator, through each source's ``worp_<name>_info``)."""
+    from repro_torch.kernels import build, tiling
+
+    table = ROWS * WIDTH * 4
+    for name, variant, label, threads, smem in (
+            ("countsketch_scatter", 1, "smem", tiling.TABLE_THREADS, table),
+            ("countsketch_scatter", 0, "global", tiling.THREADS_PER_BLOCK, 0),
+            ("countsketch_update", 1, "smem", tiling.TABLE_THREADS, table),
+            ("countsketch_update", 0, "global", tiling.THREADS_PER_BLOCK, 0),
+            ("countsketch_query", 0, "", tiling.THREADS_PER_BLOCK, 0),
+            ("ppswor_transform", 0, "float32", tiling.THREADS_PER_BLOCK, 0),
+            ("ppswor_transform", 1, "bfloat16", tiling.THREADS_PER_BLOCK,
+             0)):
+        info = build.kernel_info(name, variant, threads, smem)
+        info.update(threads=threads, dynamic_smem=smem)
+        OCCUPANCY[(name, label)] = info
+        log(f"[occupancy] {name}{' ' + label if label else ''}: "
+            f"{info['registers']} registers a thread, {threads} threads, "
+            f"static smem {info['static_smem']} B, dynamic smem {smem} B "
+            f"(limit {info['max_dynamic_smem']} B), {info['blocks_per_sm']} "
+            f"blocks per SM {tag}")
+
+
+def plan_of(B, n, lengths, rows=ROWS, width=WIDTH):
+    """The shared-memory plan the wrappers launch for these shapes."""
+    from repro_torch.kernels import tiling
+
+    p = tiling.table_plan(B, n, tiling.host_lengths(lengths, B, n), rows,
+                          width, tiling.sm_count(DEVICE))
+    return {"blocks": p.blocks, "threads": p.threads, "chunk": p.chunk,
+            "one_per_stream": p.one_per_stream, "smem_bytes": p.smem_bytes}
+
+
+def variants_entry(source, launches, errs, ms, plans, hot_ms=None):
+    """The kernels line's per-variant record of a summing kernel: its
+    launches on the main path, max error and worst error / bound against
+    the plain version, time, plan and occupancy."""
+    out = {}
+    for v in VARIANTS:
+        out[v] = {"launches": launches[v], "max_abs_err": errs[v][0],
+                  "worst_err_over_bound": errs[v][1], "ms": ms[v],
+                  "plan": plans.get(v, "one thread per slot"),
+                  "occupancy": OCCUPANCY.get((source, v))}
+        if hot_ms is not None:
+            out[v]["hot_key_ms"] = hot_ms[v]
+    return out
+
+
+def launched(module, before):
+    """The one variant of ``module``'s kernel launched since ``before`` (a
+    copy of its ``variant_launches``); raises unless exactly one launch."""
+    ran = {v: module.variant_launches[v] - before[v] for v in VARIANTS}
+    if sorted(ran.values()) != [0, 1]:
+        raise AssertionError(f"expected one launch, got {ran}")
+    return max(ran, key=ran.get)
+
+
 def make_stream(seed: int):
     """Per-step (B, n) keys/values of the deployment's B shards (numpy)."""
     from repro_torch.data.pipeline import TurnstileZipfStream
@@ -264,7 +341,9 @@ def make_gradients(seed: int):
 def phase_parity(torch, seeds, tseeds, keys, vals, tag):
     """Each batched kernel against its plain version on the card: the
     scatter and the dense update within rtol 1e-4 / scale-aware atol and
-    within each cell's rounding bound, the query bit for bit."""
+    within each cell's rounding bound, the query bit for bit.  The scatter
+    at the deployment shape in both variants, the shared-memory one by
+    shape; a hot-key stream; rows 7 x width 16384 by shape global."""
     from repro_torch.kernels import countsketch_query as q
     from repro_torch.kernels import countsketch_scatter as s
     from repro_torch.kernels import countsketch_update as u
@@ -274,20 +353,38 @@ def phase_parity(torch, seeds, tseeds, keys, vals, tag):
     results = {}
     ratios = []
 
-    def check_scatter(name, k, v, rows, width, sd, ts, **kw):
-        got = s.countsketch_scatter_batched(k, v, rows, width, sd,
-                                            transform_seeds=ts, **kw)
+    def check_scatter(name, k, v, rows, width, sd, ts, variants=(None,),
+                      expect="smem", **kw):
         want = ref.countsketch_scatter_batched_ref(k, v, rows, width, sd,
                                                    transform_seeds=ts, **kw)
         tol = ref.scatter_tolerance(*ref.countsketch_scatter_mass_ref(
             k, v, rows, width, sd, transform_seeds=ts, **kw))
-        err, ratio = check_sum(torch, f"scatter {name}", got, want, tol)
-        ratios.append(ratio)
-        return got, err
+        out = {}
+        for variant in variants:
+            before = dict(s.variant_launches)
+            got = s.countsketch_scatter_batched(k, v, rows, width, sd,
+                                                transform_seeds=ts,
+                                                _variant=variant, **kw)
+            ran = launched(s, before)
+            if ran != (variant or expect):
+                raise AssertionError(f"scatter {name}: launched {ran}")
+            err, ratio = check_sum(torch, f"scatter {name} [{ran}]", got,
+                                   want, tol)
+            ratios.append(ratio)
+            out[ran] = (err, ratio)
+        del want, tol
+        return got, out
 
-    # deployment shape: one flush of a full step, fused ppswor p=1
-    table, results["scatter"] = check_scatter("deployment", keys, vals, ROWS,
-                                              WIDTH, seeds, tseeds, p=P)
+    # deployment shape: one flush of a full step, fused ppswor p=1; the
+    # global variant first, so ``table`` is the shared-memory kernel's
+    table, results["scatter"] = check_scatter(
+        "deployment", keys, vals, ROWS, WIDTH, seeds, tseeds,
+        variants=("global", None), p=P)
+    hot = torch.zeros_like(keys)  # one key, n times, in every stream
+    _, results["scatter_hot"] = check_scatter(
+        "hot key (key 0 x n)", hot, vals, ROWS, WIDTH, seeds, tseeds,
+        variants=(None, "global"), p=P)
+    del hot
 
     g = torch.Generator(device="cpu").manual_seed(1)
 
@@ -302,6 +399,8 @@ def phase_parity(torch, seeds, tseeds, keys, vals, tag):
     check_scatter("B=1,n=1", k, v, ROWS, WIDTH, sd, ts, p=P)
     k, v, sd, ts = rand_stream(8, 1000)
     check_scatter("W=1000", k, v, 5, 1000, sd, ts, p=P)
+    check_scatter("rows 7 x W=16384 (too large for shared memory)", k, v,
+                  ROWS, 16384, sd, ts, expect="global", p=P)
     kp = k.clone()
     kp[3] = -1
     got, _ = check_scatter("all-padding stream 3", kp, v, ROWS, WIDTH,
@@ -320,6 +419,7 @@ def phase_parity(torch, seeds, tseeds, keys, vals, tag):
     check_scatter("p=2", k, v, ROWS, WIDTH, sd, ts, p=2.0)
     check_scatter("p=None", k, v, ROWS, WIDTH, sd, ts, p=None)
     results["scatter_ratio"] = max(ratios)
+    results["scatter_err"] = {v: results["scatter"][v][0] for v in VARIANTS}
 
     def check_query(name, tables, qk, sd):
         check_bitwise(torch, f"query {name}",
@@ -369,6 +469,14 @@ def phase_parity(torch, seeds, tseeds, keys, vals, tag):
     check_update("p=0.5", v, ROWS, WIDTH, sd, ts, p=0.5)
     check_update("p=2", v, ROWS, WIDTH, sd, ts, p=2.0)
     check_update("p=None", v, ROWS, WIDTH, sd, ts, p=None)
+    # several chunks a stream, ragged lengths, keys wrapping through
+    # 0xFFFFFFFF inside a chunk, an empty stream
+    _, v, sd, ts = rand_stream(4, 200_000)
+    check_update("chunked, ragged, wrapping", v, ROWS, WIDTH, sd, ts, p=P,
+                 lengths=torch.tensor([200_000, 77_123, 0, 150_001],
+                                      device=dev),
+                 base_keys=torch.tensor([0, 2**31 - 500, 5, 2**32 - 100_000],
+                                        device=dev))
     results["update_edge_ratio"] = max(uratios)
     log(f"[parity] all batched kernels agree with their plain versions {tag}")
     return results, table, qkeys
@@ -542,15 +650,21 @@ def phase_sparse(torch, args, seeds, tseeds, tag):
     t_phase = time.perf_counter()
     policy = FlushPolicy(max_elems=4096)
     s.launches = q.launches = 0
+    s.variant_launches.update(dict.fromkeys(VARIANTS, 0))
     torch.cuda.reset_peak_memory_stats()
     eng, samp, flushes, ingest_s, sample_s = run_engine(torch, "sparse",
                                                         steps, policy)
     scatter_launches, query_launches = s.launches, q.launches
+    scatter_variants = dict(s.variant_launches)
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     log(f"[main] sparse plane: {flushes} flushes, scatter launches "
-        f"{scatter_launches}, query launches {query_launches}")
+        f"{scatter_launches} ({scatter_variants}), query launches "
+        f"{query_launches}")
     if scatter_launches != flushes or flushes == 0:
         raise AssertionError("scatter launches do not match the flushes")
+    if scatter_variants["smem"] != flushes:
+        raise AssertionError("the sparse plane did not run the shared-memory "
+                             "scatter")
     if query_launches < flushes + 1:
         raise AssertionError("query launches < flushes + 1")
     st = eng.state
@@ -615,8 +729,16 @@ def phase_sparse(torch, args, seeds, tseeds, tag):
     del eng, st, samp
 
     n1 = keys1.shape[1]
-    scatter = lambda: s.countsketch_scatter_batched(  # noqa: E731
-        keys1, vals1, ROWS, WIDTH, seeds, p=P, transform_seeds=tseeds)
+    hot = torch.zeros_like(keys1)
+    s_var, s_hot = {}, {}
+    for variant in VARIANTS:
+        s_var[variant] = cuda_ms(torch, lambda: s.countsketch_scatter_batched(
+            keys1, vals1, ROWS, WIDTH, seeds, p=P, transform_seeds=tseeds,
+            _variant=variant), 20)
+        s_hot[variant] = cuda_ms(torch, lambda: s.countsketch_scatter_batched(
+            hot, vals1, ROWS, WIDTH, seeds, p=P, transform_seeds=tseeds,
+            _variant=variant), 20)
+    del hot
     scatter_plain = lambda: ref.countsketch_scatter_batched_ref(  # noqa: E731
         keys1, vals1, ROWS, WIDTH, seeds, p=P, transform_seeds=tseeds)
     # library yardstick, memory half only: precomputed flat indices and
@@ -627,7 +749,7 @@ def phase_sparse(torch, args, seeds, tseeds, tag):
     sv = (sign * tv.repeat(1, ROWS)).reshape(-1)
     flat = torch.zeros(B * ROWS * WIDTH, device=dev)
     scatter_lib = lambda: flat.zero_().index_add_(0, idx, sv)  # noqa: E731
-    s_ms = cuda_ms(torch, scatter, 20)
+    s_ms = s_var["smem"]
     s_plain = cuda_ms(torch, scatter_plain, 3, warmup=1)
     s_lib = cuda_ms(torch, scatter_lib, 20)
     del idx, sign, sv, flat, tv
@@ -655,25 +777,36 @@ def phase_sparse(torch, args, seeds, tseeds, tag):
     q_ops = qkeys.numel() * QUERY_OPS_PER_KEY
     s_bound, s_by = bound(s_bytes, s_ops)
     q_bound, q_by = bound(q_bytes, q_ops)
-    log(f"[time] scatter (B={B}, n={n1}): kernel {s_ms:.4f} ms, plain "
+    log(f"[time] scatter (B={B}, n={n1}): kernel {s_ms:.4f} ms (shared "
+        f"memory; global atomics {s_var['global']:.4f} ms), plain "
         f"{s_plain:.4f} ms, index_add_ yardstick (memory half only) "
         f"{s_lib:.4f} ms, bound {s_bound:.4f} ms by {s_by} "
-        f"({s_bytes / 1e6:.1f} MB, {s_ops / 1e9:.2f} G int ops) {tag}")
+        f"({s_bytes / 1e6:.1f} MB, {s_ops / 1e9:.2f} G int ops), "
+        f"{100 * s_bound / s_ms:.1f} % of bound {tag}")
+    log(f"[time] scatter hot key (key 0 x {n1} in each of {B} streams): "
+        f"shared memory {s_hot['smem']:.4f} ms, global atomics "
+        f"{s_hot['global']:.4f} ms; the hot key costs "
+        f"{s_hot['smem'] - s_ms:+.4f} ms on the shared-memory kernel {tag}")
     log(f"[time] query (B={B}, k={kq}): kernel {q_ms:.4f} ms, plain "
         f"{q_plain:.4f} ms, gather yardstick (memory half only) "
         f"{q_lib:.4f} ms, bound {q_bound:.4f} ms by {q_by} "
         f"({q_bytes / 1e6:.1f} MB, {q_ops / 1e9:.2f} G int ops) {tag}")
     log(f"[phase] 4 sparse times: {time.perf_counter() - t_phase:.2f} s wall")
+    plan = plan_of(B, n1, None)
     return [
         {"name": "countsketch_scatter_batched", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/countsketch_scatter.cu",
          "replaces": "src/repro/kernels/countsketch_scatter.py:112",
-         "launches": scatter_launches, "max_abs_err": errs["scatter"],
+         "launches": scatter_launches,
+         "max_abs_err": errs["scatter_err"]["smem"],
          "parity": f"allclose rtol {RTOL} atol 1e-5*max(1,max|want|) and "
                    f"per-cell eps32*(m+{ref.TRANSFORM_ULPS})*sum|term|",
          "worst_err_over_bound": errs["scatter_ratio"],
          "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound,
-         "bound_by": s_by, "library_ms": s_lib},
+         "bound_by": s_by, "library_ms": s_lib, "variant": "smem",
+         "variants": variants_entry(
+             "countsketch_scatter", scatter_variants, errs["scatter"],
+             s_var, {"smem": plan}, hot_ms=s_hot)},
         {"name": "countsketch_query_batched", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/countsketch_query.cu",
          "replaces": "src/repro/kernels/countsketch_query.py:150",
@@ -731,17 +864,27 @@ def phase_dense(torch, args, tag):
     seeds, tseeds = derive_stream_seeds(cfg, device=dev)
     lengths = torch.tensor(sizes, device=dev)
 
-    # the kernel against its plain version at the deployment shape
+    # the kernel against its plain version at the deployment shape, both
+    # variants, the shared-memory one by shape
     v0 = torch.from_numpy(steps[0]).to(dev)
     kw = dict(p=cfg.p, transform_seeds=tseeds, lengths=lengths)
-    got = u.countsketch_update_batched(v0, cfg.rows, cfg.width, seeds, **kw)
     want = ref.countsketch_update_batched_ref(v0, cfg.rows, cfg.width, seeds,
                                               **kw)
     tol = ref.scatter_tolerance(*ref.countsketch_update_mass_ref(
         v0, cfg.rows, cfg.width, seeds, **kw))
-    u_err, u_ratio = check_sum(torch, "update gemma2_2b layer (step 0)", got,
-                               want, tol)
-    del got, want, tol
+    u_errs = {}
+    for variant in (None, "global"):
+        before = dict(u.variant_launches)
+        got = u.countsketch_update_batched(v0, cfg.rows, cfg.width, seeds,
+                                           _variant=variant, **kw)
+        ran = launched(u, before)
+        if ran != (variant or "smem"):
+            raise AssertionError(f"update gemma2_2b layer: launched {ran}")
+        u_errs[ran] = check_sum(torch, f"update gemma2_2b layer (step 0) "
+                                f"[{ran}]", got, want, tol)
+        del got
+    del want, tol
+    u_err, u_ratio = u_errs["smem"]
 
     # peak of one update_dense, reckoned from its shapes: the values, the
     # int32 keys, the (L, n_max + C) query keys, and the refresh's (L, rows,
@@ -758,6 +901,7 @@ def phase_dense(torch, args, tag):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     u.launches = q.launches = 0
+    u.variant_launches.update(dict.fromkeys(VARIANTS, 0))
     eng = SketchEngine(cfg, device=DEVICE)
     update_s = []
     for vals in steps:
@@ -773,11 +917,16 @@ def phase_dense(torch, args, tag):
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     update_launches, query_launches = u.launches, q.launches
+    update_variants = dict(u.variant_launches)
     peak = torch.cuda.max_memory_allocated()
     log(f"[main] dense segments: {DENSE_STEPS} update_dense calls, update "
-        f"launches {update_launches}, query launches {query_launches}")
+        f"launches {update_launches} ({update_variants}), query launches "
+        f"{query_launches}")
     if update_launches != DENSE_STEPS:
         raise AssertionError("update launches do not match update_dense calls")
+    if update_variants["smem"] != DENSE_STEPS:
+        raise AssertionError("update_dense did not run the shared-memory "
+                             "update")
     if query_launches < DENSE_STEPS + 1:
         raise AssertionError("query launches < update_dense calls + 1")
     if tuple(samp.keys.shape) != (L, DENSE_K) \
@@ -858,11 +1007,12 @@ def phase_dense(torch, args, tag):
 
     # -- times of the kernel at the deployment shape -----------------------
     v0 = torch.from_numpy(steps[0]).to(dev)
-    update = lambda: u.countsketch_update_batched(  # noqa: E731
-        v0, cfg.rows, cfg.width, seeds, **kw)
+    u_var = {variant: cuda_ms(torch, lambda: u.countsketch_update_batched(
+        v0, cfg.rows, cfg.width, seeds, _variant=variant, **kw), 10)
+        for variant in VARIANTS}
+    u_ms = u_var["smem"]
     update_plain = lambda: ref.countsketch_update_batched_ref(  # noqa: E731
         v0, cfg.rows, cfg.width, seeds, **kw)
-    u_ms = cuda_ms(torch, update, 10)
     u_plain = cuda_ms(torch, update_plain, 2, warmup=1)
     # library yardstick, memory half only: index_add_ of the signed,
     # transformed live values at precomputed flat buckets
@@ -883,11 +1033,15 @@ def phase_dense(torch, args, tag):
     torch.cuda.empty_cache()
     u_bound, u_by = bound(live * 4 + L * cfg.rows * cfg.width * 4,
                           live * UPDATE_OPS_PER_SLOT)
+    plan = plan_of(L, n_max, sizes)
     log(f"[time] update (L={L}, n_max={n_max}, {live} live): kernel "
-        f"{u_ms:.4f} ms, plain {u_plain:.4f} ms, index_add_ yardstick "
+        f"{u_ms:.4f} ms (shared memory, {plan['blocks']} blocks of "
+        f"{plan['chunk']} slots; global atomics {u_var['global']:.4f} ms), "
+        f"plain {u_plain:.4f} ms, index_add_ yardstick "
         f"(memory half only) {u_lib:.4f} ms, bound {u_bound:.4f} ms by "
         f"{u_by} ({live * 4 / 1e6:.1f} MB, "
-        f"{live * UPDATE_OPS_PER_SLOT / 1e9:.2f} G int ops) {tag}")
+        f"{live * UPDATE_OPS_PER_SLOT / 1e9:.2f} G int ops), "
+        f"{100 * u_bound / u_ms:.1f} % of bound {tag}")
     log(f"[phase] 5 dense segments: {time.perf_counter() - t_phase:.2f} s "
         f"wall")
     wg = [name for name, _ in LEAVES].index("wg")
@@ -900,7 +1054,9 @@ def phase_dense(torch, args, tag):
                   f"per-cell eps32*(m+{ref.TRANSFORM_ULPS})*sum|term|",
         "worst_err_over_bound": u_ratio,
         "ms": u_ms, "plain_ms": u_plain, "bound_ms": u_bound,
-        "bound_by": u_by, "library_ms": u_lib}
+        "bound_by": u_by, "library_ms": u_lib, "variant": "smem",
+        "variants": variants_entry("countsketch_update", update_variants,
+                                   u_errs, u_var, {"smem": plan})}
     return entry, steps[0][wg, :sizes[wg]], query_launches
 
 
@@ -925,6 +1081,7 @@ def phase_single(torch, wg_values, tag):
 
     # -- the path: counts zeroed just before, read just after --------------
     u.single_launches = q.single_launches = tr.launches = 0
+    u.variant_launches.update(dict.fromkeys(VARIANTS, 0))
     tables = [ops.sketch_dense_vector(vals[:n], ROWS, WIDTH, SINGLE_SEED,
                                       p=P) for n in SINGLE_N]
     rows_out = ops.query_rows(tables[-1], qkeys, SINGLE_SEED)
@@ -934,21 +1091,35 @@ def phase_single(torch, wg_values, tag):
     torch.cuda.synchronize()
     launches = {"update": u.single_launches, "query": q.single_launches,
                 "transform": tr.launches}
+    single_variants = dict(u.variant_launches)
     log(f"[main] single-stream entry points: sketch_dense_vector launches "
-        f"{launches['update']}, query launches {launches['query']}, "
-        f"transform launches {launches['transform']}")
+        f"{launches['update']} ({single_variants}), query launches "
+        f"{launches['query']}, transform launches {launches['transform']}")
     if launches != {"update": len(SINGLE_N), "query": 2, "transform": 2}:
         raise AssertionError("single-stream launches do not match the calls")
+    if single_variants["smem"] != len(SINGLE_N):
+        raise AssertionError("sketch_dense_vector did not run the "
+                             "shared-memory update")
 
     # -- parity against the plain versions ---------------------------------
-    u_err = 0.0
+    u_err, single_errs = 0.0, {}
     for n, table in zip(SINGLE_N, tables):
         want = ref.countsketch_update_ref(vals[:n], 0, ROWS, WIDTH,
                                           SINGLE_SEED, p=P)
         tol = ref.scatter_tolerance(*ref.countsketch_update_mass_ref(
             vals[None, :n], ROWS, WIDTH, SINGLE_SEED, p=P))[0]
-        u_err = max(u_err, check_sum(torch, f"sketch_dense_vector n={n}",
-                                     table, want, tol)[0])
+        single_errs["smem"] = check_sum(
+            torch, f"sketch_dense_vector n={n} [smem]", table, want, tol)
+        u_err = max(u_err, single_errs["smem"][0])
+    # the global variant of #4 at n = 21.2 M, against the same plain table
+    before = dict(u.variant_launches)
+    got = u.countsketch_update(vals, ROWS, WIDTH, SINGLE_SEED, p=P,
+                               _variant="global")
+    if launched(u, before) != "global":
+        raise AssertionError("the forced global update did not launch")
+    single_errs["global"] = check_sum(torch, f"sketch_dense_vector n={n} "
+                                      f"[global]", got, want, tol)
+    del got
     check_bitwise(torch, f"query_rows k={SINGLE_KEYS}", rows_out,
                   ref.countsketch_query_ref(tables[-1], qkeys, SINGLE_SEED))
     check_bitwise(torch, f"estimate k={SINGLE_KEYS}", est,
@@ -974,8 +1145,9 @@ def phase_single(torch, wg_values, tag):
 
     # -- times -------------------------------------------------------------
     table = tables[-1]
-    upd = lambda: ops.sketch_dense_vector(  # noqa: E731
-        vals, ROWS, WIDTH, SINGLE_SEED, p=P)
+    single_ms = {variant: cuda_ms(torch, lambda: u.countsketch_update(
+        vals, ROWS, WIDTH, SINGLE_SEED, p=P, _variant=variant), 20)
+        for variant in VARIANTS}
     upd_plain = lambda: ref.countsketch_update_ref(  # noqa: E731
         vals, 0, ROWS, WIDTH, SINGLE_SEED, p=P)
     tv = transforms.transform_values(keys_big, vals, P, 0)
@@ -984,7 +1156,7 @@ def phase_single(torch, wg_values, tag):
     idx, sv = idx.reshape(-1), (sign * tv.repeat(1, ROWS)).reshape(-1)
     flat = torch.zeros(ROWS * WIDTH, device=dev)
     upd_lib = lambda: flat.zero_().index_add_(0, idx, sv)  # noqa: E731
-    s_ms = cuda_ms(torch, upd, 20)
+    s_ms = single_ms["smem"]
     s_plain = cuda_ms(torch, upd_plain, 3, warmup=1)
     s_lib = cuda_ms(torch, upd_lib, 20)
     del tv, idx, sign, sv, flat
@@ -1021,9 +1193,13 @@ def phase_single(torch, wg_values, tag):
             *bound(n_big * (4 + 2 * width),
                    n_big * TRANSFORM_OPS_PER_ELEM))
     del factor, factor16
-    log(f"[time] sketch_dense_vector (n={n_big}): kernel {s_ms:.4f} ms, "
-        f"plain {s_plain:.4f} ms, index_add_ yardstick (memory half only) "
-        f"{s_lib:.4f} ms, bound {s_bound:.4f} ms by {s_by} {tag}")
+    plan = plan_of(1, n_big, None)
+    log(f"[time] sketch_dense_vector (n={n_big}): kernel {s_ms:.4f} ms "
+        f"(shared memory, {plan['blocks']} blocks of {plan['chunk']} slots; "
+        f"global atomics {single_ms['global']:.4f} ms), plain "
+        f"{s_plain:.4f} ms, index_add_ yardstick (memory half only) "
+        f"{s_lib:.4f} ms, bound {s_bound:.4f} ms by {s_by}, "
+        f"{100 * s_bound / s_ms:.1f} % of bound {tag}")
     log(f"[time] query_rows (k={SINGLE_KEYS}), device time per call "
         f"(traced): kernel {q_ms:.4f} ms, plain {q_plain:.4f} ms, gather "
         f"yardstick (memory half only) {q_lib:.4f} ms, bound {q_bound:.6f} "
@@ -1045,7 +1221,9 @@ def phase_single(torch, wg_values, tag):
          "parity": f"allclose rtol {RTOL} atol 1e-5*max(1,max|want|) and "
                    f"per-cell eps32*(m+{ref.TRANSFORM_ULPS})*sum|term|",
          "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound,
-         "bound_by": s_by, "library_ms": s_lib},
+         "bound_by": s_by, "library_ms": s_lib, "variant": "smem",
+         "variants": variants_entry("countsketch_update", single_variants,
+                                    single_errs, single_ms, {"smem": plan})},
         {"name": "countsketch_query", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/countsketch_query.cu",
          "replaces": "src/repro/kernels/countsketch_query.py:66",
@@ -1112,6 +1290,7 @@ def main() -> int:
         for line in b.log.splitlines():
             if line.strip():
                 log(f"[build] {b.name}: {line.strip()}")
+    report_occupancy(tag)
     log(f"[phase] 1 card and build: {time.perf_counter() - t_phase:.2f} s "
         f"wall")
 

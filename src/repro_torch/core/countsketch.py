@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 
 from . import hashing
+from .device import resolve_device
 
 
 class CountSketch(NamedTuple):
@@ -32,7 +33,13 @@ class CountSketch(NamedTuple):
 
 def init(rows: int, width: int, seed, device=None,
          dtype=torch.float32) -> CountSketch:
-    """Zero sketch; the batch shape is the shape of ``seed``."""
+    """Zero sketch; the batch shape is the shape of ``seed``.
+
+    It lives on ``device``: by default a tensor seed's own device, and the
+    card for any other seed (raising without one; pass ``device="cpu"``
+    for the plain path)."""
+    if device is not None or not isinstance(seed, torch.Tensor):
+        device = resolve_device(device)
     seed = hashing.as_u32(seed, device=device)
     return CountSketch(
         table=torch.zeros(seed.shape + (rows, width), dtype=dtype,

@@ -10,6 +10,9 @@ natively, so the batched engine calls the spec directly:
   sample(state, k)                 -> Sample
   estimate(state, keys)            -> tensor      transformed-domain nu*-hat
 
+``init`` also takes a keyword ``device``: the state lives there, else on a
+tensor seed's device, else on the card (raising without one).
+
 ``init2``/``update2``/``merge2``/``sample2`` (the exact second pass) are
 None until the two-pass slice of the port lands.
 
@@ -93,9 +96,9 @@ def make_sampler(name: str,
 
 @register("onepass")
 def _make_onepass(cfg: SamplerConfig) -> SamplerSpec:
-    def init(seed_sketch, seed_transform):
+    def init(seed_sketch, seed_transform, *, device=None):
         return worp.onepass_init(cfg.rows, cfg.width, cfg.candidates,
-                                 seed_sketch, seed_transform)
+                                 seed_sketch, seed_transform, device=device)
 
     def update(st, keys, values):
         return worp.onepass_update(st, keys, values, cfg.p, cfg.scheme)

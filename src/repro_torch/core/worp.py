@@ -71,7 +71,9 @@ class OnePassState(NamedTuple):
 
 def onepass_init(rows: int, width: int, candidates: int, seed_sketch,
                  seed_transform, device=None) -> OnePassState:
-    """Empty state; the batch shape is the shape of the seeds."""
+    """Empty state; the batch shape is the shape of the seeds.  It lives
+    where ``countsketch.init`` puts the sketch: on ``device``, else on a
+    tensor ``seed_sketch``'s device, else on the card."""
     sk = countsketch.init(rows, width, seed_sketch, device=device)
     return OnePassState(
         sketch=sk,

@@ -26,6 +26,7 @@ from torch.profiler import record_function
 
 from repro_torch.core import countsketch, hashing, transforms, worp
 from repro_torch.core import sampler as core_sampler
+from repro_torch.core.device import resolve_device
 from repro_torch.core.perfect import Sample
 from repro_torch.core.sampler import SamplerSpec
 from repro_torch.kernels import ops
@@ -55,16 +56,6 @@ def sampler_config(cfg: EngineConfig) -> core_sampler.SamplerConfig:
 def engine_spec(cfg: EngineConfig) -> SamplerSpec:
     """The (cached) SamplerSpec this engine config selects."""
     return core_sampler.make_sampler(cfg.sampler, sampler_config(cfg))
-
-
-def resolve_device(device=None) -> torch.device:
-    """The card unless the caller asks otherwise; never a silent CPU."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch path on the CPU")
-    return device
 
 
 def derive_stream_seeds(cfg: EngineConfig, offset: int = 0, device=None):
@@ -116,13 +107,13 @@ def onepass_update_dense(st: worp.OnePassState, values: torch.Tensor,
     (mod 2**32) for stream b; columns past ``lengths[b]`` are ignored.  The
     candidate refresh queries the (C + n) per-stream keys through one query
     launch; the segment's keys enter it as int32 with two's-complement wrap,
-    and -1 past ``lengths[b]``."""
+    and -1 past ``lengths[b]``.  The kernel plans its blocks from the
+    lengths on the host: lengths given as host values cost no wait for the
+    card, a CUDA tensor one read-back."""
     B, n = values.shape
     dev = st.sketch.table.device
     base = hashing.as_u32(0 if base_keys is None else base_keys,
                           device=dev).expand(B)
-    lengths = torch.as_tensor(n if lengths is None else lengths,
-                              dtype=torch.int64, device=dev).expand(B)
     with record_function("dense.sketch"):
         delta = ops.sketch_dense_batch(
             values, st.sketch.rows, st.sketch.width, st.sketch.seed, p=p,
@@ -131,6 +122,8 @@ def onepass_update_dense(st: worp.OnePassState, values: torch.Tensor,
         sk = countsketch.CountSketch(table=st.sketch.table + delta,
                                      seed=st.sketch.seed)
     with record_function("dense.refresh"):
+        lengths = torch.as_tensor(n if lengths is None else lengths,
+                                  dtype=torch.int64, device=dev).expand(B)
         offs = torch.arange(n, dtype=torch.int64, device=dev)
         keys = torch.where(offs < lengths[:, None],
                            hashing.to_int32(base[:, None] + offs),

@@ -100,3 +100,19 @@ def function(name: str, symbol: str, argtypes: list):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def kernel_info(name: str, variant: int, threads: int,
+                smem_bytes: int = 0) -> dict:
+    """Registers a thread, static shared memory, resident blocks per SM and
+    dynamic shared memory limit of kernel ``variant`` of source ``name``
+    at ``threads`` threads and ``smem_bytes`` of dynamic shared memory
+    (``worp_<name>_info``, through the CUDA occupancy calculator)."""
+    fn = function(name, f"worp_{name}_info",
+                  [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    out = (ctypes.c_int * 4)()
+    err = fn(variant, threads, smem_bytes, ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"{name} kernel info failed: CUDA error {err}")
+    return dict(zip(("registers", "static_smem", "blocks_per_sm",
+                     "max_dynamic_smem"), out))

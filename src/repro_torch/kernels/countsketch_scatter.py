@@ -3,7 +3,10 @@
 ``countsketch_scatter_batched`` takes B sparse signed streams and returns
 their (B, rows, width) CountSketch delta.  A CUDA tensor launches the
 hand-written kernel (or raises); a CPU tensor takes the plain version in
-``ref``.  ``launches`` counts kernel launches, and nothing else.
+``ref``.  The kernel's variant follows from the shape before the launch
+(``tiling.table_plan``): the shared-memory table where rows x width fits a
+block, else global atomics.  ``launches`` counts kernel launches, and
+nothing else; ``variant_launches`` splits them by variant.
 """
 from __future__ import annotations
 
@@ -16,10 +19,14 @@ from repro_torch.core import hashing, transforms
 from . import build, ref, tiling
 
 launches = 0
+variant_launches = {"smem": 0, "global": 0}
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p])
+_SMEM_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                  + [ctypes.c_float] + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p])
 SCHEMES = {transforms.PPSWOR: 0, transforms.PRIORITY: 1}
 _INT_MAX = 2**31 - 1
 
@@ -34,13 +41,16 @@ def countsketch_scatter_batched(keys: torch.Tensor, values: torch.Tensor,
                                 p: float | None = None,
                                 scheme: str = transforms.PPSWOR,
                                 transform_seeds=None,
-                                lengths=None) -> torch.Tensor:
+                                lengths=None, *,
+                                _variant: str | None = None) -> torch.Tensor:
     """Scatter B sparse signed streams; returns the (B, rows, width) delta.
 
     ``keys``/``values`` are (B, n) int32 / float32; slot (b, i) counts when
     ``i < lengths[b]`` and ``keys[b, i] != -1``.  Values may be negative
     (deletions) and duplicate keys accumulate.  With ``p`` set the bottom-k
-    transform of ``scheme`` is fused.  Seeds are uint32 values."""
+    transform of ``scheme`` is fused.  Seeds are uint32 values.
+    ``_variant`` ("smem" or "global") forces a kernel variant, for tests
+    and measurements."""
     if keys.device.type == "cpu":
         return ref.countsketch_scatter_batched_ref(
             keys, values, rows, width, seeds, p=p,
@@ -57,26 +67,42 @@ def countsketch_scatter_batched(keys: torch.Tensor, values: torch.Tensor,
     _require(p is None or scheme in SCHEMES, f"unknown scheme {scheme!r}")
     B, n = keys.shape
     _require(B <= _INT_MAX and n <= _INT_MAX, f"shape {tuple(keys.shape)}")
-    delta = torch.zeros((B, rows, width), dtype=torch.float32,
-                        device=keys.device)
+    dev = keys.device
     if B * n == 0:
-        return delta
-    seeds32 = hashing.int32_arg(seeds, B, keys.device)
+        return torch.zeros((B, rows, width), dtype=torch.float32, device=dev)
+    seeds32 = hashing.int32_arg(seeds, B, dev)
     tseeds32 = hashing.int32_arg(
-        0 if transform_seeds is None else transform_seeds, B, keys.device)
-    lens32 = tiling.lengths_arg(lengths, B, n, keys.device)
-    fn = build.function("countsketch_scatter", "worp_countsketch_scatter",
-                        _ARGTYPES)
-    with torch.cuda.device(keys.device):
-        err = fn(keys.data_ptr(), values.data_ptr(), seeds32.data_ptr(),
-                 tseeds32.data_ptr(), lens32.data_ptr(), delta.data_ptr(),
-                 B, n, rows, width, int(p is not None),
-                 -1.0 / p if p is not None else 0.0, SCHEMES.get(scheme, 0),
-                 tiling.grid_1d(B * n), tiling.THREADS_PER_BLOCK,
-                 torch.cuda.current_stream().cuda_stream)
+        0 if transform_seeds is None else transform_seeds, B, dev)
+    lens32 = tiling.lengths_arg(lengths, B, n, dev)
+    plan, delta = tiling.table_launch(B, n, lengths, rows, width, dev,
+                                      _variant)
+    transform = (int(p is not None), -1.0 / p if p is not None else 0.0,
+                 SCHEMES.get(scheme, 0))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if plan.variant == "smem":
+            ends = None if plan.one_per_stream \
+                else tiling.block_ends(lens32, plan.chunk)
+            fn = build.function("countsketch_scatter",
+                                "worp_countsketch_scatter_smem",
+                                _SMEM_ARGTYPES)
+            err = fn(keys.data_ptr(), values.data_ptr(), seeds32.data_ptr(),
+                     tseeds32.data_ptr(), lens32.data_ptr(),
+                     None if ends is None else ends.data_ptr(),
+                     delta.data_ptr(), B, n, rows, width, plan.chunk,
+                     *transform, plan.blocks, plan.threads, plan.smem_bytes,
+                     stream)
+        else:
+            fn = build.function("countsketch_scatter",
+                                "worp_countsketch_scatter", _ARGTYPES)
+            err = fn(keys.data_ptr(), values.data_ptr(), seeds32.data_ptr(),
+                     tseeds32.data_ptr(), lens32.data_ptr(),
+                     delta.data_ptr(), B, n, rows, width, *transform,
+                     plan.blocks, plan.threads, stream)
     if err:
         raise RuntimeError(f"countsketch_scatter kernel launch failed: CUDA "
                            f"error {err}")
     global launches
     launches += 1
+    variant_launches[plan.variant] += 1
     return delta

@@ -15,7 +15,8 @@
 // product with +-1 is exact, so the result equals the plain version bit for
 // bit.
 //
-// Bound: per key, 7 rows x (two hash_u32 + a modulo), some 420 integer
+// Bound: per key, 7 rows x (two hash_u32 + a mask, hashing.cuh's bucket of
+// a power-of-two width; a modulo otherwise), some 420 integer
 // operations, against 4 B of key read, 7 random 4 B table reads (whole
 // 32 B sectors move) and 28 B written.  At the deployment shape the integer
 // work and the (B, rows, k) output write weigh about alike; fusing the
@@ -25,6 +26,7 @@
 #include <cuda_runtime.h>
 
 #include "hashing.cuh"
+#include "kernel_info.cuh"
 
 namespace {
 
@@ -65,4 +67,12 @@ extern "C" int worp_countsketch_query(const void* tables, const void* keys,
       static_cast<const int32_t*>(seeds), static_cast<float*>(out), B, k,
       rows, width);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers, static shared memory, blocks per SM and dynamic shared memory
+// (worp::kernel_info) of the query kernel at `threads` threads.
+extern "C" int worp_countsketch_query_info(int variant, int threads,
+                                           int smem_bytes, int* out) {
+  return worp::kernel_info(countsketch_query_kernel, threads, smem_bytes,
+                           out);
 }

@@ -8,27 +8,53 @@
 //   delta[b, r, hash(key, row_salt(seed_b, r)) % W] += sign_r(key) * v'
 // where v' = v * r_x^{-1/p} with r_x = Exp1 (ppswor) or U(0,1] (priority)
 // when has_p, else v' = v.  Slot (b, i) counts only when i < lengths[b] and
-// key != -1.  The caller zeroes delta.
+// key != -1.
 //
-// Design: one thread per (b, i) slot.  It tests the mask, computes the
-// transform once, then walks the rows and atomically adds sign * v' into the
-// global (B, rows, W) delta.  Float atomics sum in an order that changes
-// from run to run, so the result matches the plain version within float
-// tolerance, not bit for bit.
+// Two entries, chosen by shape before the launch (kernels/tiling.py
+// table_plan), never by a failed launch:
+//   * worp_countsketch_scatter_smem, where the rows x width table fits a
+//     block's shared memory (rows 7 with width <= 8192): one block per
+//     (stream, chunk), the table in shared memory, the block body and its
+//     flush in smem_table.cuh.  At the sparse plane's deployment (B = 4096
+//     streams of n = 5120, 7 x 2048) each stream is one block, which writes
+//     its 57 KB delta with plain stores into a torch.empty delta: no
+//     zeroing pass and no global atomics.
+//   * worp_countsketch_scatter, for larger tables: one thread per (b, i)
+//     slot, the mask, the transform once, then rows global atomicAdds into
+//     a zeroed delta.
+// Both sum in an order that changes from run to run, so the result matches
+// the plain version within float tolerance, not bit for bit.
 //
-// Bound: per slot, 7 rows x (two hash_u32 + a modulo) plus the transform's
-// hash, log and pow: some 450 integer operations against 8 bytes read and
-// 7 atomics, so at the deployment shape the kernel is bound by integer issue
-// rate and by atomic throughput to L2 on hot (Zipf-head) buckets, not by
-// device-memory bytes.  The next step is one block per stream holding its
-// 7 x 2048 x 4 B = 57 KB table in shared memory (shared-memory atomics,
-// one coalesced write of the table), which also removes the separate
-// zeroed delta and the table + delta pass.
+// Budget: 57,344 B of shared memory a block at the defaults and 32
+// registers a thread, so 4 blocks of 512 threads an SM (chip_smoke.py
+// prints both).  The bucket of a power-of-two width is hash & (W - 1), bit
+// for bit hash % W (hashing.cuh).
+//
+// Bound: per live slot, 7 rows x (two hash_u32 + a mask) plus the
+// transform's hash, log and pow: some 360 32-bit operations against 8 bytes
+// read a slot and each stream's 57 KB table written once, so at the
+// deployment the integer issue rate bounds it (0.449 ms, PERF.md), not
+// device-memory bytes (0.12 ms).  The global-atomic design ran 147 M
+// atomics to L2 in 2.06-2.61 ms (H100 80GB HBM3, 700.00 W).  Zipf keys put
+// about 18 % of a stream's slots on key 0, so a warp's lanes often add to
+// the same 7 cells.  A shared-memory float atomicAdd is a compare-and-swap
+// loop on this card, so k lanes on one cell retry k times in turn: with
+// each lane adding alone, a stream of one key (chip_smoke.py's hot-key
+// cell) took 4.21 ms against the Zipf deployment's 0.877 ms, more than all
+// the hashing.  So the scatter combines a warp's lanes that hold one key
+// (__match_any_sync, then a shuffle sum to the lowest lane), which alone
+// hashes the key and makes the 7 shared-memory adds (smem_table.cuh
+// combine_lanes).  With it the deployment took 0.645 ms, 70 % of its bound
+// (1.178 ms when lanes were matched cell by cell in every row), and the
+// hot-key cell 0.538 ms; the global variant 2.056 ms (chip_smoke.py, H100
+// 80GB HBM3, 700.00 W).
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "hashing.cuh"
+#include "kernel_info.cuh"
+#include "smem_table.cuh"
 
 namespace {
 
@@ -62,9 +88,62 @@ __global__ void countsketch_scatter_kernel(
   }
 }
 
+__global__ void __launch_bounds__(worp::kTableThreads, 3)
+    countsketch_scatter_smem(const int32_t* __restrict__ keys,
+                             const float* __restrict__ values,
+                             worp::TableArgs args) {
+  extern __shared__ float table[];
+  worp::table_block(worp::SparseSlots{keys, values}, args, table);
+}
+
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
+// The shared-memory variant: `blocks` blocks of `threads` threads and
+// `smem_bytes` (rows x width x 4) of dynamic shared memory; block_ends is
+// null for one block per stream (delta written whole), else the (B,)
+// inclusive prefix sum of chunk counts (delta zeroed by the caller).
+// Launches on `stream`; returns a CUDA error code (0 on success).
+extern "C" int worp_countsketch_scatter_smem(
+    const void* keys, const void* values, const void* seeds,
+    const void* tseeds, const void* lengths, const void* block_ends,
+    void* delta, int B, int n, int rows, int width, int chunk, int has_p,
+    float neg_inv_p, int scheme, int blocks, int threads, int smem_bytes,
+    void* stream) {
+  const int err = worp::prepare_table_kernel(countsketch_scatter_smem,
+                                             smem_bytes);
+  if (err) return err;
+  const worp::TableArgs args{
+      static_cast<const int32_t*>(seeds),
+      static_cast<const int32_t*>(tseeds),
+      static_cast<const int32_t*>(lengths),
+      static_cast<const int32_t*>(block_ends),
+      static_cast<float*>(delta), B, n, rows, width, chunk, has_p, scheme,
+      neg_inv_p};
+  countsketch_scatter_smem<<<blocks, threads, smem_bytes,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(keys), static_cast<const float*>(values),
+      args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Registers, static shared memory, blocks per SM and dynamic shared memory
+// (worp::kernel_info) of variant 0 (global atomics) or 1 (shared memory).
+extern "C" int worp_countsketch_scatter_info(int variant, int threads,
+                                             int smem_bytes, int* out) {
+  if (variant == 1) {
+    const int err = worp::prepare_table_kernel(countsketch_scatter_smem,
+                                               smem_bytes);
+    if (err) return err;
+    return worp::kernel_info(countsketch_scatter_smem, threads, smem_bytes,
+                             out);
+  }
+  return worp::kernel_info(countsketch_scatter_kernel, threads, smem_bytes,
+                           out);
+}
+
+// The global-atomic variant: one thread per slot, `blocks` x `threads`
+// covering B * n.  Launches on `stream`; returns cudaGetLastError() (0 on
+// success).
 extern "C" int worp_countsketch_scatter(
     const void* keys, const void* values, const void* seeds,
     const void* tseeds, const void* lengths, void* delta, int B, int n,

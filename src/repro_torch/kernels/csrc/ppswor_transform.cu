@@ -29,6 +29,7 @@
 #include <cuda_runtime.h>
 
 #include "hashing.cuh"
+#include "kernel_info.cuh"
 
 namespace {
 
@@ -78,4 +79,14 @@ extern "C" int worp_ppswor_transform(const void* keys, const void* values,
         static_cast<float*>(out), n, ts, neg_inv_p);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers, static shared memory, blocks per SM and dynamic shared memory
+// (worp::kernel_info) of variant 0 (float32) or 1 (bfloat16).
+extern "C" int worp_ppswor_transform_info(int variant, int threads,
+                                          int smem_bytes, int* out) {
+  if (variant == 1) {
+    return worp::kernel_info(ppswor_transform_bf16, threads, smem_bytes, out);
+  }
+  return worp::kernel_info(ppswor_transform_f32, threads, smem_bytes, out);
 }

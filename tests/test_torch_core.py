@@ -73,7 +73,8 @@ def test_countsketch_update_estimate_match_reference(rows, width):
     seed = 2**31 + 5
     jsk = jcs.update(jcs.init(rows, width, seed), jnp.asarray(keys),
                      jnp.asarray(vals))
-    tsk = tcs.update(tcs.init(rows, width, seed), _t(keys), _t(vals))
+    tsk = tcs.update(tcs.init(rows, width, seed, device="cpu"), _t(keys),
+                     _t(vals))
     np.testing.assert_allclose(tsk.table.numpy(), np.asarray(jsk.table),
                                rtol=2e-5, atol=2e-5)
     # estimates read the SAME table in both packages: bit for bit
@@ -90,7 +91,8 @@ def test_countsketch_batched_equals_per_stream():
     vals = torch.stack([_t(_stream(s, 200)[1]) for s in range(3)])
     batched = tcs.update(tcs.init(6, 384, seeds), keys, vals)
     for b in range(3):
-        one = tcs.update(tcs.init(6, 384, int(seeds[b])), keys[b], vals[b])
+        one = tcs.update(tcs.init(6, 384, int(seeds[b]), device="cpu"),
+                         keys[b], vals[b])
         assert torch.equal(batched.table[b], one.table)
         assert torch.equal(tcs.estimate(batched, keys)[b],
                            tcs.estimate(one, keys[b]))
@@ -98,11 +100,11 @@ def test_countsketch_batched_equals_per_stream():
 
 def test_countsketch_merge_and_seed_check():
     k, v = _stream(1)
-    a = tcs.update(tcs.init(5, 384, 9), _t(k), _t(v))
-    b = tcs.update(tcs.init(5, 384, 9), _t(k), -_t(v))
+    a = tcs.update(tcs.init(5, 384, 9, device="cpu"), _t(k), _t(v))
+    b = tcs.update(tcs.init(5, 384, 9, device="cpu"), _t(k), -_t(v))
     assert not tcs.merge(a, b).table.abs().max() > 1e-3
     with pytest.raises(ValueError, match="different hash seeds"):
-        tcs.merge(a, tcs.init(5, 384, 10))
+        tcs.merge(a, tcs.init(5, 384, 10, device="cpu"))
 
 
 @pytest.mark.parametrize("k", [1, 8, 64])
@@ -161,7 +163,7 @@ def _jax_state(st):
 def test_sample_from_estimates_ties_and_underfull(k):
     """Underfull candidate buffers (-1 slots) and tied estimates: the port
     picks the same slots, threshold and zeroed padding as the reference."""
-    st = tw.onepass_init(5, 384, 10, 3, 2**31 + 1)
+    st = tw.onepass_init(5, 384, 10, 3, 2**31 + 1, device="cpu")
     cand = torch.tensor([4, -1, 7, 9, -1, 11, -1, 2, -1, -1], dtype=torch.int32)
     st = st._replace(cand_keys=cand)
     est = torch.tensor([2.0, 9.0, -2.0, 2.0, 1.0, 0.5, 3.0, -7.0, 0.0, 2.0])
@@ -177,7 +179,7 @@ def test_sample_from_estimates_ties_and_underfull(k):
 
 
 def test_sample_k_too_large_raises():
-    st = tw.onepass_init(5, 384, 10, 3, 4)
+    st = tw.onepass_init(5, 384, 10, 3, 4, device="cpu")
     with pytest.raises(ValueError, match="needs k < candidates"):
         tw.onepass_sample(st, 10, 1.0)
 
@@ -191,7 +193,8 @@ def test_onepass_update_merge_sample_match_reference(scheme, p):
     js = [jw.onepass_update(jw.onepass_init(rows, width, C, 11, 2**31 + 3),
                             jnp.asarray(kk), jnp.asarray(vv), p, scheme)
           for kk, vv in ((ka, va), (kb, vb))]
-    ts = [tw.onepass_update(tw.onepass_init(rows, width, C, 11, 2**31 + 3),
+    ts = [tw.onepass_update(tw.onepass_init(rows, width, C, 11, 2**31 + 3,
+                                            device="cpu"),
                             _t(kk), _t(vv), p, scheme)
           for kk, vv in ((ka, va), (kb, vb))]
     for j, t in zip(js, ts):
@@ -212,8 +215,8 @@ def test_onepass_update_merge_sample_match_reference(scheme, p):
 
 
 def test_onepass_merge_rejects_seed_mismatch():
-    a = tw.onepass_init(5, 384, 8, 1, 2)
-    b = tw.onepass_init(5, 384, 8, 1, 3)
+    a = tw.onepass_init(5, 384, 8, 1, 2, device="cpu")
+    b = tw.onepass_init(5, 384, 8, 1, 3, device="cpu")
     with pytest.raises(ValueError, match="different seed_transform"):
         tw.onepass_merge(a, b)
 
@@ -234,3 +237,26 @@ def test_sampler_registry():
     assert samp.keys.shape == (2, 4) and samp.threshold.shape == (2,)
     est = spec.estimate(st, st.cand_keys)
     assert est.shape == (2, 16)
+
+
+def test_core_entry_points_default_to_the_card(monkeypatch):
+    """With no device, plain seeds put the state on the card, and without
+    a card the entry points raise instead of running on the CPU; a tensor
+    seed keeps its own device."""
+    spec = tsampler.make_sampler("onepass", tsampler.SamplerConfig(
+        rows=5, width=384, candidates=16))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for init in (lambda: tcs.init(5, 384, 3),
+                 lambda: tw.onepass_init(5, 384, 10, 3, 4),
+                 lambda: spec.init(3, 4),
+                 lambda: spec.init(torch.tensor([3]), 4, device="cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init()
+    seeds = torch.tensor([3, 2**32 - 1])
+    for st in (tw.onepass_init(5, 384, 10, seeds, 4),
+               spec.init(seeds, torch.tensor([4, 5])),
+               spec.init(3, 4, device="cpu")):
+        assert {t.device.type for t in (st.sketch.table, st.sketch.seed,
+                                         st.cand_keys, st.seed_transform)} \
+            == {"cpu"}
+    assert tcs.init(5, 384, seeds).table.device.type == "cpu"

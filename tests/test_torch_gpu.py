@@ -15,18 +15,27 @@ max(1, max|want|), and, cell by cell, to the float32 rounding bound of their
 own terms (``ref.scatter_tolerance``).  The standalone transform is held to
 the tolerances of tests/test_kernels.py: rtol 1e-5 / atol 1e-6 in float32,
 rtol 2e-2 / atol 1e-2 in bfloat16 (one rounding of the factor may flip).
+
+The scatter and the dense update have two variants, chosen by shape
+(``tiling.table_plan``): a shared-memory table per block, and global
+atomics for tables too large for shared memory.  The cells run both,
+through the wrappers' private ``_variant`` keyword where the shape alone
+would pick the other, and check which one each launch took by its
+``variant_launches`` counter.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import countsketch, worp
+from repro_torch.core.sampler import SamplerConfig, make_sampler
 from repro_torch.data.pipeline import TurnstileZipfStream
 from repro_torch.engine import EngineConfig, SketchEngine
 from repro_torch.kernels import countsketch_query as tq
 from repro_torch.kernels import countsketch_scatter as ts
 from repro_torch.kernels import countsketch_update as tu
 from repro_torch.kernels import ppswor_transform as tt
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, tiling
 
 pytestmark = pytest.mark.gpu
 
@@ -60,8 +69,17 @@ def _streams(B, n, seed, hi=50_000):
     return keys, vals, seeds, tseeds
 
 
+def _check_sum(got, want, count_mass):
+    """Both bounds of a summing kernel: the scale-aware allclose and each
+    cell's float32 rounding bound."""
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=_atol(want))
+    assert bool(((got - want).abs() <= ref.scatter_tolerance(
+        *count_mass)).all())
+
+
+@pytest.mark.parametrize("variant", ["smem", "global"])
 @pytest.mark.parametrize("case", sorted(SCATTER_CASES))
-def test_cuda_scatter_matches_plain(case):
+def test_cuda_scatter_matches_plain(case, variant):
     _need_card()
     opts = dict(SCATTER_CASES[case])
     keys, vals, seeds, tseeds = _streams(4, 300, seed=3)
@@ -73,12 +91,14 @@ def test_cuda_scatter_matches_plain(case):
     want = ref.countsketch_scatter_batched_ref(
         keys, vals, 6, 1000, seeds, transform_seeds=tseeds, lengths=lengths,
         **opts)
-    before = ts.launches
+    before = (ts.launches, ts.variant_launches[variant])
     got = ts.countsketch_scatter_batched(
         keys.cuda(), vals.cuda(), 6, 1000, seeds.cuda(),
         transform_seeds=tseeds.cuda(),
-        lengths=None if lengths is None else lengths.cuda(), **opts).cpu()
-    assert ts.launches == before + 1
+        lengths=None if lengths is None else lengths.cuda(), **opts,
+        _variant=variant).cpu()
+    assert (ts.launches, ts.variant_launches[variant]) == (before[0] + 1,
+                                                           before[1] + 1)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=_atol(want))
     tol = ref.scatter_tolerance(*ref.countsketch_scatter_mass_ref(
         keys, vals, 6, 1000, seeds, transform_seeds=tseeds, lengths=lengths,
@@ -174,19 +194,21 @@ def _dense_opts(opts, device):
     return kw
 
 
+@pytest.mark.parametrize("variant", ["smem", "global"])
 @pytest.mark.parametrize("case", sorted(UPDATE_CASES))
-def test_cuda_update_matches_plain(case):
+def test_cuda_update_matches_plain(case, variant):
     _need_card()
     B, n, rows, width, opts = UPDATE_CASES[case]
     _, vals, seeds, tseeds = _streams(B, n, seed=5)
     kw = _dense_opts(opts, "cpu")
     want = ref.countsketch_update_batched_ref(vals, rows, width, seeds,
                                               transform_seeds=tseeds, **kw)
-    before = tu.launches
+    before = (tu.launches, tu.variant_launches[variant])
     got = tu.countsketch_update_batched(
         vals.cuda(), rows, width, seeds.cuda(), transform_seeds=tseeds.cuda(),
-        **_dense_opts(opts, "cuda")).cpu()
-    assert tu.launches == before + 1
+        **_dense_opts(opts, "cuda"), _variant=variant).cpu()
+    assert (tu.launches, tu.variant_launches[variant]) == (before[0] + 1,
+                                                           before[1] + 1)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=_atol(want))
     tol = ref.scatter_tolerance(*ref.countsketch_update_mass_ref(
         vals, rows, width, seeds, transform_seeds=tseeds, **kw))
@@ -290,3 +312,161 @@ def test_cuda_new_wrappers_reject_what_the_kernels_do_not_take():
         tt.ppswor_transform(keys.cpu(), vals[0], 1.0, 0)
     with pytest.raises(ValueError, match="contiguous"):
         tq.countsketch_query(torch.zeros((384, 5), device="cuda").T, keys, 0)
+
+
+# -- the shared-memory table kernels: their plans and edges -----------------
+
+def _scatter_case(keys, vals, rows, width, seeds, tseeds, lengths=None,
+                  variant=None, p=1.0):
+    """The scatter of (B, n) CPU inputs on the card against its plain
+    version within both bounds; returns the kernel's delta (on the CPU) and
+    the variant it launched."""
+    before = dict(ts.variant_launches)
+    got = ts.countsketch_scatter_batched(
+        keys.cuda(), vals.cuda(), rows, width, seeds.cuda(), p=p,
+        transform_seeds=tseeds.cuda(),
+        lengths=None if lengths is None else torch.tensor(lengths).cuda(),
+        _variant=variant).cpu()
+    kw = dict(p=p, transform_seeds=tseeds,
+              lengths=None if lengths is None else torch.tensor(lengths))
+    _check_sum(got, ref.countsketch_scatter_batched_ref(
+        keys, vals, rows, width, seeds, **kw),
+        ref.countsketch_scatter_mass_ref(keys, vals, rows, width, seeds,
+                                         **kw))
+    ran = [v for v in before if ts.variant_launches[v] == before[v] + 1]
+    assert len(ran) == 1
+    return got, ran[0]
+
+
+def _update_case(vals, rows, width, seeds, tseeds, variant=None, **kw):
+    """The dense update of (B, n) CPU values on the card against its plain
+    version within both bounds; returns the kernel's delta (on the CPU)
+    and the variant it launched."""
+    before = dict(tu.variant_launches)
+    got = tu.countsketch_update_batched(
+        vals.cuda(), rows, width, seeds.cuda(), p=1.0,
+        transform_seeds=tseeds.cuda(),
+        **{k: torch.tensor(v).cuda() for k, v in kw.items()},
+        _variant=variant).cpu()
+    kw = {k: torch.tensor(v) for k, v in kw.items()}
+    _check_sum(got, ref.countsketch_update_batched_ref(
+        vals, rows, width, seeds, p=1.0, transform_seeds=tseeds, **kw),
+        ref.countsketch_update_mass_ref(vals, rows, width, seeds, p=1.0,
+                                        transform_seeds=tseeds, **kw))
+    ran = [v for v in before if tu.variant_launches[v] == before[v] + 1]
+    assert len(ran) == 1
+    return got, ran[0]
+
+
+@pytest.mark.parametrize("variant", ["smem", "global"])
+def test_cuda_scatter_hot_key(variant):
+    """One key repeated n times: every lane of a warp adds to the same 7
+    cells."""
+    _need_card()
+    _, vals, seeds, tseeds = _streams(4, 5000, seed=11)
+    keys = torch.full((4, 5000), 12345, dtype=torch.int32)
+    keys[1, ::3] = 7
+    got, ran = _scatter_case(keys, vals, 7, 2048, seeds, tseeds,
+                             variant=variant)
+    assert ran == variant
+    assert int((got[0] != 0).sum()) <= 7
+
+
+def test_cuda_scatter_one_block_per_stream_writes_whole_delta():
+    """Where each stream is one block, the delta comes from torch.empty and
+    every cell is written: an all-padding stream and an empty stream among
+    live ones are exactly zero even where the memory held NaNs."""
+    _need_card()
+    B, n = 1200, 600  # enough streams to fill the card one block each
+    keys, vals, seeds, tseeds = _streams(B, n, seed=12)
+    keys[1] = -1
+    lengths = [n] * B
+    lengths[2], lengths[3] = 0, 234
+    plan = tiling.table_plan(B, n, np.array(lengths), 7, 2048,
+                             tiling.sm_count("cuda"))
+    assert plan.one_per_stream
+    junk = torch.full((B, 7, 2048), float("nan"), device="cuda")
+    del junk  # the caching allocator hands this block to torch.empty
+    got, ran = _scatter_case(keys, vals, 7, 2048, seeds, tseeds,
+                             lengths=lengths)
+    assert ran == "smem" and got.isfinite().all()
+    assert not got[1].any() and not got[2].any()
+
+
+@pytest.mark.parametrize("width", [384, 1984])
+@pytest.mark.parametrize("variant", ["smem", "global"])
+def test_cuda_tables_at_widths_not_a_power_of_two(width, variant):
+    _need_card()
+    keys, vals, seeds, tseeds = _streams(3, 2000, seed=width)
+    _scatter_case(keys, vals, 7, width, seeds, tseeds, variant=variant)
+    _update_case(vals, 7, width, seeds, tseeds, variant=variant,
+                 lengths=[2000, 777, 0])
+
+
+def test_cuda_table_too_large_for_shared_memory_takes_global():
+    """rows 7 x width 16384 (458,752 B) does not fit a block: the wrappers
+    launch the global-atomic kernels, by shape."""
+    _need_card()
+    keys, vals, seeds, tseeds = _streams(2, 3000, seed=13)
+    assert _scatter_case(keys, vals, 7, 16384, seeds, tseeds)[1] == "global"
+    assert _update_case(vals, 7, 16384, seeds, tseeds,
+                        lengths=[3000, 1001])[1] == "global"
+    with pytest.raises(ValueError, match="does not fit"):
+        ts.countsketch_scatter_batched(keys.cuda(), vals.cuda(), 7, 16384,
+                                       seeds.cuda(), _variant="smem")
+
+
+def test_cuda_update_chunks_with_ragged_lengths_and_key_wrap():
+    """Dense streams of several chunks, lengths not a multiple of the
+    chunk, an empty stream, and a segment whose keys wrap through
+    0xFFFFFFFF in the middle of a chunk (that key is sketched)."""
+    _need_card()
+    n = 200_000
+    _, vals, seeds, tseeds = _streams(4, n, seed=14)
+    lengths = [n, 77_123, 0, 150_001]
+    base = [0, 2**31 - 500, 5, 2**32 - 100_000]
+    plan = tiling.table_plan(4, n, np.array(lengths), 7, 2048,
+                             tiling.sm_count("cuda"))
+    assert not plan.one_per_stream
+    assert any(length % plan.chunk for length in lengths)
+    got, ran = _update_case(vals, 7, 2048, seeds, tseeds, lengths=lengths,
+                            base_keys=base)
+    assert ran == "smem" and not got[2].any()
+    only = torch.zeros_like(vals)
+    only[3, 99_999] = 1.0  # key 0xFFFFFFFF alone
+    assert _update_case(only, 7, 2048, seeds, tseeds, lengths=lengths,
+                        base_keys=base)[0][3].abs().sum() > 0
+
+
+def test_cuda_single_segment_over_several_chunks():
+    """#4: one segment (B = 1) planned over several chunks."""
+    _need_card()
+    n = 150_000
+    vals = torch.from_numpy(
+        np.random.default_rng(15).normal(size=n).astype(np.float32))
+    plan = tiling.table_plan(1, n, np.array([n]), 7, 2048,
+                             tiling.sm_count("cuda"))
+    assert not plan.one_per_stream and plan.blocks >= 2
+    seed, tseed, base = 2**31 + 9, 3, 2**32 - 70_000
+    before = (tu.single_launches, tu.variant_launches["smem"])
+    got = tu.countsketch_update(vals.cuda(), 7, 2048, seed, p=1.0,
+                                transform_seed=tseed, base_key=base).cpu()
+    assert (tu.single_launches, tu.variant_launches["smem"]) == (
+        before[0] + 1, before[1] + 1)
+    _check_sum(got, ref.countsketch_update_ref(
+        vals, base, 7, 2048, seed, p=1.0, transform_seed=tseed),
+        [t[0] for t in ref.countsketch_update_mass_ref(
+            vals[None], 7, 2048, seed, p=1.0, transform_seeds=tseed,
+            base_keys=base)])
+
+
+def test_core_entry_points_default_to_the_card():
+    """No device and plain seeds: the state lands on the card."""
+    _need_card()
+    spec = make_sampler("onepass", SamplerConfig(rows=5, width=384,
+                                                 candidates=16))
+    for st in (worp.onepass_init(5, 384, 10, 3, 4), spec.init(3, 4)):
+        assert {t.device.type for t in (st.sketch.table, st.sketch.seed,
+                                         st.cand_keys, st.seed_transform)} \
+            == {"cuda"}
+    assert countsketch.init(5, 384, 3).table.device.type == "cuda"

@@ -158,12 +158,12 @@ def test_estimate_batched_bitwise_with_even_rows(rows):
 
 
 def test_cpu_tensors_never_count_as_launches():
-    before = (ts.launches, tq.launches)
+    before = (ts.launches, dict(ts.variant_launches), tq.launches)
     keys, vals, seeds, tseeds = _streams(2, 50, seed=1)
     table = ops.sketch_sparse_batch(_t(keys), _t(vals), 5, 384, _t(seeds),
                                     p=1.0, transform_seeds=_t(tseeds))
     ops.estimate_batched(table, _t(keys), _t(seeds))
-    assert (ts.launches, tq.launches) == before
+    assert (ts.launches, ts.variant_launches, tq.launches) == before
 
 
 def test_wrappers_reject_other_devices():
@@ -230,5 +230,103 @@ def test_c_signatures_pass_pointers_as_void_p():
     64-bit device address)."""
     assert ts._ARGTYPES[:6] == [ctypes.c_void_p] * 6
     assert ts._ARGTYPES[-1] is ctypes.c_void_p
+    assert ts._SMEM_ARGTYPES[:7] == [ctypes.c_void_p] * 7
+    assert ts._SMEM_ARGTYPES[-1] is ctypes.c_void_p
     assert tq._ARGTYPES[:4] == [ctypes.c_void_p] * 4
     assert tq._ARGTYPES[-1] is ctypes.c_void_p
+
+
+# one gemma2_2b decoder layer's 11 gradient leaves (chip_smoke.py LEAVES)
+GEMMA_LAYER = [2304] * 4 + [2304 * 9216] * 3 + [2304 * 4 * 256] * 2 \
+    + [8 * 256 * 2304] * 2
+PLAN_CASES = {
+    "sparse_cell": (4096, 5120, [5120] * 4096, 7, 2048),
+    "gemma2_2b_layer": (11, max(GEMMA_LAYER), GEMMA_LAYER, 7, 2048),
+    "one_segment_21M": (1, 2304 * 9216, [2304 * 9216], 7, 2048),
+    "one_segment_1M": (1, 10**6, [10**6], 7, 2048),
+    "ragged": (9, 200_000, [200_000, 77_123, 0, 1, 511, 512, 513,
+                            199_999, 65_536], 7, 2048),
+    "width_1984": (3, 50_000, [50_000, 0, 12_345], 5, 1984),
+    "all_empty": (3, 100, [0, 0, 0], 7, 2048),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_table_plan_covers_every_live_slot_once(case):
+    """The chunks of a shared-memory plan tile each stream's live slots
+    [0, lengths[b]) exactly once; no block lies wholly past its stream's
+    length, except the one block of an empty stream where each stream owns
+    one block (it writes the stream's zeros); the grid is within its
+    limits; the card-side block ends equal the host's."""
+    B, n, lens, rows, width = PLAN_CASES[case]
+    lens = np.asarray(lens, np.int64)
+    plan = tiling.table_plan(B, n, lens, rows, width, 132)
+    assert plan.variant == "smem" and plan.smem_bytes == rows * width * 4
+    assert plan.smem_bytes <= tiling.SMEM_PER_BLOCK_OPTIN
+    assert plan.threads == tiling.TABLE_THREADS <= 1024
+    assert 0 < plan.blocks <= tiling.MAX_GRID_X
+    assert plan.chunk > 0 and plan.chunk % plan.threads == 0
+    blocks = tiling.plan_blocks(plan, lens)
+    assert blocks.shape == (plan.blocks, 3)
+    b, start, end = blocks.T
+    covered = np.zeros(B, np.int64)
+    order = np.lexsort((start, b))
+    for s, e, stream in zip(start[order], end[order], b[order]):
+        assert s == covered[stream]  # contiguous, no overlap, no gap
+        covered[stream] = e
+    assert np.array_equal(covered, lens)
+    if plan.one_per_stream:
+        assert np.array_equal(b, np.arange(B)) and not start.any()
+    else:
+        assert (end > start).all()
+        assert (end - start <= plan.chunk).all()
+        ends = tiling.block_ends(torch.from_numpy(lens).to(torch.int32),
+                                 plan.chunk)
+        assert ends.dtype == torch.int32
+        assert ends.tolist() == tiling.block_ends(lens, plan.chunk).tolist()
+
+
+@pytest.mark.parametrize("rows,width,fits", [
+    (7, 2048, True), (5, 1000, True), (7, 8192, True), (7, 16384, False),
+    (1, tiling.SMEM_PER_BLOCK_OPTIN // 4, True),
+    (1, tiling.SMEM_PER_BLOCK_OPTIN // 4 + 1, False)])
+def test_table_plan_variant_by_shape(rows, width, fits):
+    """Shared memory exactly when the rows x width float32 table fits a
+    block; a forced "smem" on a table that does not fit raises, a forced
+    "global" is one thread per slot."""
+    lens = np.array([300, 0])
+    plan = tiling.table_plan(2, 300, lens, rows, width, 132)
+    assert plan.variant == ("smem" if fits else "global")
+    assert tiling.table_fits(rows, width) == fits
+    glob = tiling.table_plan(2, 300, None, rows, width, 132,
+                             variant="global")
+    assert glob == (plan if not fits else glob)
+    assert glob.variant == "global" and glob.blocks == tiling.grid_1d(600)
+    assert glob.threads == tiling.THREADS_PER_BLOCK
+    if not fits:
+        with pytest.raises(ValueError, match="does not fit"):
+            tiling.table_plan(2, 300, lens, rows, width, 132, variant="smem")
+    with pytest.raises(ValueError, match="unknown kernel variant"):
+        tiling.table_plan(2, 300, lens, rows, width, 132, variant="bogus")
+
+
+def test_table_plan_deployment_shapes():
+    """The sparse cell gets one block per stream; the gemma2_2b layer and
+    one 21.2 M segment get many chunks of tens of thousands of slots, and
+    the padded layer's dead slots get no block."""
+    sparse = tiling.table_plan(*PLAN_CASES["sparse_cell"][:2],
+                               np.full(4096, 5120), 7, 2048, 132)
+    assert sparse.one_per_stream and sparse.blocks == 4096
+    B, n, lens, rows, width = PLAN_CASES["gemma2_2b_layer"]
+    layer = tiling.table_plan(B, n, np.array(lens), rows, width, 132)
+    assert not layer.one_per_stream and 16_384 <= layer.chunk <= 262_144
+    assert layer.blocks * layer.chunk < 1.1 * sum(lens) < 0.4 * B * n
+    one = tiling.table_plan(1, lens[4], np.array([lens[4]]), 7, 2048, 132)
+    assert not one.one_per_stream and one.blocks >= 132
+
+
+def test_host_lengths_clamp_and_broadcast():
+    assert tiling.host_lengths(None, 3, 9).tolist() == [9, 9, 9]
+    assert tiling.host_lengths(4, 2, 9).tolist() == [4, 4]
+    for lens in ([-3, 4, 2**31 + 5], torch.tensor([-3, 4, 2**31 + 5])):
+        assert tiling.host_lengths(lens, 3, 9).tolist() == [0, 4, 9]

@@ -300,7 +300,8 @@ def test_transform_bfloat16_matches_pallas():
 
 def test_cpu_tensors_never_count_as_launches():
     counters = lambda: (tu.launches, tu.single_launches,  # noqa: E731
-                        tq.single_launches, tt.launches)
+                        dict(tu.variant_launches), tq.single_launches,
+                        tt.launches)
     before = counters()
     vals, seeds, tseeds = _segments(2, 50, seed=1)
     ops.sketch_dense_batch(_t(vals), 5, 384, _t(seeds), p=1.0,
@@ -330,5 +331,7 @@ def test_wrappers_reject_other_devices():
 def test_c_signatures_pass_pointers_as_void_p():
     assert tu._ARGTYPES[:6] == [ctypes.c_void_p] * 6
     assert tu._ARGTYPES[-1] is ctypes.c_void_p
+    assert tu._SMEM_ARGTYPES[:7] == [ctypes.c_void_p] * 7
+    assert tu._SMEM_ARGTYPES[-1] is ctypes.c_void_p
     assert tt._ARGTYPES[:3] == [ctypes.c_void_p] * 3
     assert tt._ARGTYPES[-1] is ctypes.c_void_p
