@@ -19,35 +19,51 @@ before it and read just after:
 * Single-stream entry points.  ``ops.sketch_dense_vector`` at n = 1 M and at
   one gemma2_2b ``wg`` leaf (21.2 M), ``ops.query_rows``/``ops.estimate``
   with 512 keys, ``ops.transform`` in float32 and bfloat16 (the shapes of
-  benchmarks/sketch_throughput.py).
+  benchmarks/sketch_throughput.py), and ``ops.query_rows_batched`` (the
+  per-row reads of those two tables).
 
-The summing kernels (scatter, dense update) have two variants, chosen by
-shape before the launch: the shared-memory table (one block per stream
-chunk) wherever rows x width fits a block, as at every shape of the three
-paths, and global atomics for larger tables.  The paths must run the
-shared-memory variant; the script also checks and times the global one at
-the same shapes (forced through the wrappers' private ``_variant``).
+Every estimate of the sparse and dense paths (candidate refresh, sample)
+is one launch of the estimate kernel, which takes the median of rows in
+registers; the row-read kernel serves ``query_rows`` and tables of more
+than 16 rows, and the paths must not launch it.  The summing kernels
+(scatter, dense update) have two variants, chosen by shape before the
+launch: the shared-memory table (one block per stream chunk) wherever rows
+x width fits a block, as at every shape of the three paths, and global
+atomics for larger tables.  The paths must run the shared-memory variant;
+the script also checks and times the global one at the same shapes (forced
+through the wrappers' private ``_variant``).  The transform has a 16-byte
+vector variant for aligned tensors and a scalar one, chosen by alignment
+(the script reaches the scalar one through views that start one element
+in).
 
 Phases (each prints its own lines and its wall time; any failure raises and
 the script exits non-zero without the final ``ok`` line):
   1. the card, and the kernels built from ``src/repro_torch/kernels/csrc``
-     with their registers, shared memory and blocks per SM;
+     with ptxas's registers, stack frames and spills, and their shared
+     memory and blocks per SM;
   2. each batched kernel against its plain PyTorch version on the card,
      both variants of the scatter at the deployment shape, a hot-key
-     stream, and a table too large for shared memory;
+     stream, and a table too large for shared memory; the estimate at the
+     flush shape, on special values and at 17 rows (the row read);
   3. the sparse plane (the kernels) against the dense plane (the plain
      reference), from the same seeds and stream, and a ``torch.profiler``
      trace of the sparse plane's flush stages;
   4. the sparse path's times: kernels (both variants, and a hot-key
      stream), plain versions, library yardsticks, events/s, sample latency,
      peak memory;
-  5. the dense segment path against the plain path, its times (both
-     variants) and a trace;
-  6. the single-stream entry points against their plain versions, and
-     times (both variants of the dense segment);
+  5. the dense segment path against the plain path, the estimate at its
+     shape, its times (both variants) and a trace;
+  6. the single-stream entry points and ``query_rows_batched`` against
+     their plain versions (the transform at p = 0.5, 1, 1.5 and 2, both
+     variants, the edge key and n not a multiple of the vector width), and
+     times;
   7. one ``{"kernels": [...]}`` line, then the ``ok`` line.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
+``python3 chip_smoke.py --sass`` instead builds the transform factor alone,
+as it was (``-logf`` then ``powf``) and as it is, and prints the static
+SASS instruction counts of each (``cuobjdump -sass``); it needs the CUDA
+toolkit, not a card.
 """
 from __future__ import annotations
 
@@ -72,6 +88,8 @@ DEVICE = "cuda"
 VARIANTS = ("smem", "global")
 # kernels' registers, shared memory and blocks per SM, from phase 1
 OCCUPANCY: dict = {}
+TRANSFORM_PS = (0.5, 1.0, 1.5, 2.0)  # the transform's parity exponents
+EDGE_KEY = 17691050  # uniform01 == 1.0 under transform seed 0 (ROADMAP)
 
 # One gemma2_2b decoder layer's gradient leaves, one stream each: the widths
 # of src/repro/configs/gemma2_2b.py (d_model 2304, 8 heads, 4 KV heads,
@@ -102,11 +120,35 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # mix32 = 3 shifts + 3 xors + 2 multiplies = 8; hash_u32 = 2 mix32 + add +
 # xor + multiply = 19; row_salt = 3; a bucket = hash + mask (the width is a
 # power of two at every timed shape) = 20; a sign = salt xor + hash + and +
-# select = 22; an address = 2.  -logf and powf count as one operation each,
-# so these are lower bounds.
+# select = 22; an address = 2.  -logf and the power count as one operation
+# each (their SASS sequences are longer: ``--sass`` counts them), so these
+# are lower bounds.
 OPS_PER_ROW = 3 + 20 + 22 + 2
 SCATTER_OPS_PER_SLOT = ROWS * OPS_PER_ROW + 24 + 2 + 3   # uniform01, log+pow,
 QUERY_OPS_PER_KEY = ROWS * (OPS_PER_ROW + 1)             # mask; query: sign mul
+
+
+# A median-of-7 selection network: 13 comparators, the median on wire 3
+# (N. Devillard, "Fast median search: an ANSI C implementation", 1998).
+MEDIAN7_NETWORK = ((0, 5), (0, 3), (1, 6), (2, 4), (0, 1), (3, 5), (2, 6),
+                   (2, 3), (3, 6), (4, 5), (1, 4), (1, 3), (3, 4))
+
+
+def select_ops(rows: int) -> int:
+    """The least work the median of 7 reads needs: the min and the max that
+    ``MEDIAN7_NETWORK`` computes only where they reach the median, a NaN
+    test a row, the add and the multiply."""
+    if rows != 7:
+        raise ValueError(f"no median network is counted for {rows} rows")
+    need, ops = {3}, 0
+    for i, j in reversed(MEDIAN7_NETWORK):
+        ops += (i in need) + (j in need)
+        if i in need or j in need:
+            need |= {i, j}
+    return ops + rows + 2
+
+
+ESTIMATE_OPS_PER_KEY = QUERY_OPS_PER_KEY + select_ops(ROWS)
 # the dense update computes its key (an add) where the scatter loads and
 # tests it, and tests the length alone: the same count per live slot
 UPDATE_OPS_PER_SLOT = SCATTER_OPS_PER_SLOT
@@ -207,15 +249,17 @@ def check_sum(torch, what, got, want, tol):
 
 
 def check_bitwise(torch, what, got, want):
-    """A query's output against its plain version, bit for bit (NaN reads
-    NaN).  Prints a ``[parity]`` line and raises on a failure."""
+    """A query's output against its plain version, equal under ``==`` with
+    NaN equal to NaN (bit for bit but for the sign of a zero).  Prints a
+    ``[parity]`` line and raises on a failure."""
     torch.cuda.synchronize()
     ok = got.shape == want.shape and bool(
         ((got == want) | (got.isnan() & want.isnan())).all())
-    log(f"[parity] {what}: shape {tuple(got.shape)} bitwise "
-        f"{'ok' if ok else 'FAIL'}")
+    log(f"[parity] {what}: shape {tuple(got.shape)} equal (==, NaN equal to "
+        f"NaN) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{what}: the kernel is not bitwise")
+        raise AssertionError(f"{what}: the kernel disagrees with its plain "
+                             f"version")
 
 
 def bound(nbytes, ops):
@@ -223,6 +267,127 @@ def bound(nbytes, ops):
     operations, and which of the two bounds it."""
     tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def special_tables(torch, g, B: int, rows: int, width: int):
+    """(B, rows, width) float32 tables, a third of whose cells hold NaN,
+    +-inf, +-0, +-3e38 (above FLT_MAX / 2, so a sum of two overflows) or a
+    tied +-1, the rest N(0, 1), from the CPU generator ``g``."""
+    pool = torch.tensor([float("nan"), float("inf"), float("-inf"), 0.0,
+                         -0.0, 3e38, -3e38, 1.0, 1.0, -1.0])
+    t = torch.randn((B, rows, width), generator=g)
+    pick = pool[torch.randint(0, len(pool), t.shape, generator=g)]
+    return torch.where(torch.rand(t.shape, generator=g) < 0.33, pick, t)
+
+
+def check_estimate(torch, what, tables, keys, seeds):
+    """``countsketch_estimate_batched`` against the plain median of the
+    plain reads (``check_bitwise``); the estimate kernel must launch where
+    the rows fit it (``fuses``), else the row read.  Returns the
+    estimate."""
+    from repro_torch.core import countsketch
+    from repro_torch.kernels import countsketch_query as q
+    from repro_torch.kernels import ref
+
+    fused = q.fuses(tables.shape[1])
+    before = (q.launches, q.estimate_launches)
+    got = q.countsketch_estimate_batched(tables, keys, seeds)
+    ran = (q.launches - before[0], q.estimate_launches - before[1])
+    if ran != ((0, 1) if fused else (1, 0)):
+        raise AssertionError(f"estimate {what}: (row read, estimate) "
+                             f"launches {ran}")
+    check_bitwise(torch, f"estimate {what} "
+                  f"[{'estimate kernel' if fused else 'row read + median'}]",
+                  got, countsketch.median(
+                      ref.countsketch_query_batched_ref(tables, keys, seeds),
+                      1))
+    return got
+
+
+def check_no_row_sort(rows, what):
+    """The traced window must hold no bitonicSortKVInPlace: PyTorch's sort
+    of slices of at most 32 elements, which here was only the median's sort
+    over rows."""
+    found = [key for _, _, key in rows if "bitonicSort" in key]
+    log(f"[profile] {what}: sorts over rows (bitonicSortKVInPlace) in the "
+        f"trace: {len(found)}")
+    if found:
+        raise AssertionError(f"{what}: a sort over rows is still traced")
+
+
+def gather_index(torch, keys, seeds, width: int, rows: int = ROWS):
+    """(B, rows * k) int64 indices into each stream's flat (rows * width)
+    table of its (B, k) keys' buckets, row by row: the gather yardstick's
+    precomputed input."""
+    from repro_torch.core import hashing
+
+    B, k = keys.shape
+    out = torch.empty((B, rows * k), dtype=torch.int64, device=keys.device)
+    for r in range(rows):
+        salt = hashing.row_salt(seeds[:, None], r)
+        out[:, r * k:(r + 1) * k] = r * width + hashing.bucket_hash(
+            keys, salt, width)
+    return out
+
+
+def table_bytes_read(torch, tables, keys, seeds) -> int:
+    """The bytes of the distinct 32-byte sectors of ``tables`` that the
+    (B, k) keys' buckets touch: what a query of these keys must read."""
+    from repro_torch.core import hashing
+
+    B, rows, width = tables.shape
+    hit = torch.zeros(-(-tables.numel() // 8), dtype=torch.bool,
+                      device=tables.device)
+    base = torch.arange(B, device=tables.device)[:, None] * (rows * width)
+    for r in range(rows):
+        salt = hashing.row_salt(seeds[:, None], r)
+        hit[(base + r * width + hashing.bucket_hash(keys, salt, width))
+            // 8] = True
+    return int(hit.sum()) * 32
+
+
+def time_estimate(torch, what, tables, keys, seeds, iters, plain_iters,
+                  tag) -> dict:
+    """Times of the estimate at one shape: the estimate kernel, the row-read
+    kernel alone and with ``countsketch.median`` (the path it replaces),
+    the plain version and the gather yardstick (memory half only: the
+    row read's gather at precomputed indices), each kernel beside its bound
+    from these inputs."""
+    from repro_torch.core import countsketch
+    from repro_torch.kernels import countsketch_query as q
+    from repro_torch.kernels import ref
+
+    B, rows, width = tables.shape
+    n = keys.numel()
+    t = {
+        "estimate": cuda_ms(torch, lambda: q.countsketch_estimate_batched(
+            tables, keys, seeds), iters),
+        "row_read": cuda_ms(torch, lambda: q.countsketch_query_batched(
+            tables, keys, seeds), iters),
+        "row_read_median": cuda_ms(torch, lambda: countsketch.median(
+            q.countsketch_query_batched(tables, keys, seeds), 1),
+            max(2, iters // 4), warmup=1),
+        "plain": cuda_ms(torch, lambda: ref.countsketch_estimate_batched_ref(
+            tables, keys, seeds), plain_iters, warmup=1)}
+    gidx = gather_index(torch, keys, seeds, width, rows)
+    flat = tables.reshape(B, rows * width)
+    t["library"] = cuda_ms(torch, lambda: torch.gather(flat, 1, gidx), iters)
+    del gidx
+    read = table_bytes_read(torch, tables, keys, seeds)
+    row_ops = n * rows * (OPS_PER_ROW + 1)
+    t["bound"], t["bound_by"] = bound(n * 8 + read,
+                                      row_ops + n * select_ops(rows))
+    t["row_bound"], t["row_bound_by"] = bound(n * 4 + read + n * rows * 4,
+                                              row_ops)
+    log(f"[time] estimate {what} (B={B}, k={keys.shape[1]}): estimate "
+        f"kernel {t['estimate']:.4f} ms, bound {t['bound']:.4f} ms by "
+        f"{t['bound_by']}, {100 * t['bound'] / t['estimate']:.1f} % of bound; "
+        f"row read + countsketch.median {t['row_read_median']:.4f} ms (row "
+        f"read alone {t['row_read']:.4f} ms, bound {t['row_bound']:.4f} ms by "
+        f"{t['row_bound_by']}); plain {t['plain']:.4f} ms; gather yardstick "
+        f"(memory half only) {t['library']:.4f} ms; table sectors read "
+        f"{read / 1e6:.1f} MB {tag}")
+    return t
 
 
 def row_index(torch, keys, seeds, width: int, rows: int = ROWS):
@@ -253,9 +418,15 @@ def report_occupancy(tag):
             ("countsketch_update", 1, "smem", tiling.TABLE_THREADS, table),
             ("countsketch_update", 0, "global", tiling.THREADS_PER_BLOCK, 0),
             ("countsketch_query", 0, "", tiling.THREADS_PER_BLOCK, 0),
+            ("countsketch_query", 1, "estimate", tiling.THREADS_PER_BLOCK,
+             0),
             ("ppswor_transform", 0, "float32", tiling.THREADS_PER_BLOCK, 0),
             ("ppswor_transform", 1, "bfloat16", tiling.THREADS_PER_BLOCK,
-             0)):
+             0),
+            ("ppswor_transform", 2, "float32 vector",
+             tiling.THREADS_PER_BLOCK, 0),
+            ("ppswor_transform", 3, "bfloat16 vector",
+             tiling.THREADS_PER_BLOCK, 0)):
         info = build.kernel_info(name, variant, threads, smem)
         info.update(threads=threads, dynamic_smem=smem)
         OCCUPANCY[(name, label)] = info
@@ -264,6 +435,59 @@ def report_occupancy(tag):
             f"static smem {info['static_smem']} B, dynamic smem {smem} B "
             f"(limit {info['max_dynamic_smem']} B), {info['blocks_per_sm']} "
             f"blocks per SM {tag}")
+
+
+# ``--sass``: the transform factor alone, as it was (-logf, then powf
+# whatever the exponent) and as csrc/hashing.cuh has it now, one element a
+# thread; {E} is the exponent, run-time or a float32 constant
+FACTOR_PROBE = """#include "hashing.cuh"
+extern "C" __global__ void old_factor(const unsigned* keys, float* out,
+                                      unsigned tseed, float e) {
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  out[i] = powf(-logf(worp::uniform01(keys[i], tseed)), {E});
+}
+extern "C" __global__ void new_factor(const unsigned* keys, float* out,
+                                      unsigned tseed, float e) {
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  out[i] = worp::transform_factor(keys[i], tseed, worp::kPpswor, {E});
+}
+"""
+SASS_EXPONENTS = {"run-time": "e", "p=1": "-1.0f", "p=1.5": "(-1.0f / 1.5f)"}
+
+
+def factor_sass() -> int:
+    """Build the factor probe for each exponent and print each kernel's
+    static SASS instructions (no NOP) and its MUFU (special-function)
+    instructions, from ``cuobjdump -sass``."""
+    import re
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import build
+
+    nvcc = build.nvcc()
+    out_dir = build.BUILD_DIR / "factor_probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for label, e in SASS_EXPONENTS.items():
+        cu = out_dir / f"factor_probe_{label.replace('.', '_')}.cu"
+        cu.write_text(FACTOR_PROBE.replace("{E}", e))
+        cubin = cu.with_suffix(".cubin")
+        subprocess.run([nvcc, *build.NVCC_FLAGS[:4], "-I", str(build.CSRC),
+                        "-cubin", "-o", str(cubin), str(cu)], check=True,
+                       timeout=300)
+        sass = subprocess.run(
+            [str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        for fn in ("old_factor", "new_factor"):
+            body = sass.split(f"Function : {fn}")[1].split("Function :")[0]
+            ops = []
+            for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(.*?);", body):
+                words = m.group(1).split()
+                op = words[1] if words[0].startswith("@") else words[0]
+                ops += [] if op.startswith("NOP") else [op]
+            mufu = sum(op.startswith("MUFU") for op in ops)
+            log(f"[sass] {fn}, exponent {label}: {len(ops)} instructions, "
+                f"{mufu} MUFU")
+    return 0
 
 
 def plan_of(B, n, lengths, rows=ROWS, width=WIDTH):
@@ -432,7 +656,15 @@ def phase_parity(torch, seeds, tseeds, keys, vals, tag):
     tables = torch.randn((8, 5, 1000), generator=g).to(dev)
     check_query("W=1000,k=1", tables, k[:, :1].contiguous(), sd)
     check_query("B=1", tables[:1].contiguous(), k[:1].contiguous(), sd[:1])
-    results["query"] = 0.0
+
+    # the estimate kernel: the flush shape, special values at every row
+    # count it serves and at 17 rows (the row read and the plain median)
+    check_estimate(torch, "flush shape (candidates + batch)", table, qkeys,
+                   seeds)
+    for rows in (1, 2, 3, 4, 5, 6, 7, 8, 16, 17):
+        check_estimate(torch, f"rows={rows} W=1000 k=1000, NaN/+-inf/+-0/"
+                       f"+-3e38/ties", special_tables(torch, g, 8, rows,
+                                                      1000).to(dev), k, sd)
 
     # the dense update kernel at its edge shapes (its deployment shape is
     # checked in the dense phase)
@@ -557,7 +789,8 @@ def compare_samples(torch, what, samp, dst, tol, seeds, k, p, bad_streams):
 def trace_report(prof, ranges, wall_ms, what, tag, top: int = 12):
     """Print the named ranges (host time, and the device time of the
     PyTorch ops each launched), device time by kernel, and the device's busy
-    share over ``wall_ms`` of a ``torch.profiler`` trace."""
+    share over ``wall_ms`` of a ``torch.profiler`` trace.  Returns the
+    device items, (ms, count, name), largest first."""
     from torch.autograd import DeviceType
 
     # device-side activities only (kernels, copies, memsets): the host ops
@@ -587,12 +820,13 @@ def trace_report(prof, ranges, wall_ms, what, tag, top: int = 12):
     busy = sum(r[0] for r in rows if "Activity Buffer" not in r[2])
     if not rows:
         log(f"[profile] the profiler saw no device time: not measured {tag}")
-        return
+        return rows
     log(f"[profile] {what}: wall {wall_ms:.3f} ms, device busy "
         f"{busy:.3f} ms ({100 * busy / wall_ms:.1f} %), idle "
         f"{100 * (1 - busy / wall_ms):.1f} % (traced run) {tag}")
     for ms, count, key in rows[:top]:
         log(f"[profile]   {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+    return rows
 
 
 def profile_window(torch, steps, tag):
@@ -615,7 +849,9 @@ def profile_window(torch, steps, tag):
         eng.sample(K)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    trace_report(prof, RANGES, wall_ms, "2 flushes + sample", tag)
+    check_no_row_sort(trace_report(prof, RANGES, wall_ms,
+                                   "2 flushes + sample", tag),
+                      "sparse plane, 2 flushes + sample")
 
 
 def phase_sparse(torch, args, seeds, tseeds, tag):
@@ -649,24 +885,26 @@ def phase_sparse(torch, args, seeds, tseeds, tag):
     # -- phase 3: the sparse plane (kernels) and the dense plane (plain) --
     t_phase = time.perf_counter()
     policy = FlushPolicy(max_elems=4096)
-    s.launches = q.launches = 0
+    s.launches = q.launches = q.estimate_launches = 0
     s.variant_launches.update(dict.fromkeys(VARIANTS, 0))
     torch.cuda.reset_peak_memory_stats()
     eng, samp, flushes, ingest_s, sample_s = run_engine(torch, "sparse",
                                                         steps, policy)
-    scatter_launches, query_launches = s.launches, q.launches
+    scatter_launches, estimate_launches = s.launches, q.estimate_launches
     scatter_variants = dict(s.variant_launches)
     peak_mb = torch.cuda.max_memory_allocated() / 1e6
     log(f"[main] sparse plane: {flushes} flushes, scatter launches "
-        f"{scatter_launches} ({scatter_variants}), query launches "
-        f"{query_launches}")
+        f"{scatter_launches} ({scatter_variants}), estimate launches "
+        f"{estimate_launches}, row-read launches {q.launches}")
     if scatter_launches != flushes or flushes == 0:
         raise AssertionError("scatter launches do not match the flushes")
     if scatter_variants["smem"] != flushes:
         raise AssertionError("the sparse plane did not run the shared-memory "
                              "scatter")
-    if query_launches < flushes + 1:
-        raise AssertionError("query launches < flushes + 1")
+    if estimate_launches < flushes + 1:
+        raise AssertionError("estimate launches < flushes + 1")
+    if q.launches:
+        raise AssertionError("the sparse path launched the row-read kernel")
     st = eng.state
     if tuple(samp.keys.shape) != (B, K) or samp.keys.dtype != torch.int32:
         raise AssertionError(f"sample keys shape {tuple(samp.keys.shape)}")
@@ -754,29 +992,15 @@ def phase_sparse(torch, args, seeds, tseeds, tag):
     s_lib = cuda_ms(torch, scatter_lib, 20)
     del idx, sign, sv, flat, tv
 
-    query = lambda: q.countsketch_query_batched(table, qkeys,  # noqa: E731
-                                                seeds)
-    query_plain = lambda: ref.countsketch_query_batched_ref(  # noqa: E731
-        table, qkeys, seeds)
-    kq = qkeys.shape[1]
-    gidx = row_index(torch, qkeys, seeds, WIDTH)[0] \
-        - (torch.arange(B, device=dev)[:, None] * (ROWS * WIDTH))
-    flat_tables = table.reshape(B, ROWS * WIDTH)
-    query_lib = lambda: torch.gather(flat_tables, 1, gidx)  # noqa: E731
-    q_ms = cuda_ms(torch, query, 20)
-    q_plain = cuda_ms(torch, query_plain, 3, warmup=1)
-    q_lib = cuda_ms(torch, query_lib, 20)
-    del gidx
+    est_t = time_estimate(torch, "flush shape", table, qkeys, seeds, 20, 3,
+                          tag)
 
     # bounds from this run's inputs: each input read once, each output
     # written once; integer work for the slots/keys this data makes live
     live = int((keys1 != -1).sum())
     s_bytes = keys1.numel() * 8 + B * ROWS * WIDTH * 4
     s_ops = live * SCATTER_OPS_PER_SLOT
-    q_bytes = qkeys.numel() * 4 + table.numel() * 4 + B * ROWS * kq * 4
-    q_ops = qkeys.numel() * QUERY_OPS_PER_KEY
     s_bound, s_by = bound(s_bytes, s_ops)
-    q_bound, q_by = bound(q_bytes, q_ops)
     log(f"[time] scatter (B={B}, n={n1}): kernel {s_ms:.4f} ms (shared "
         f"memory; global atomics {s_var['global']:.4f} ms), plain "
         f"{s_plain:.4f} ms, index_add_ yardstick (memory half only) "
@@ -787,10 +1011,6 @@ def phase_sparse(torch, args, seeds, tseeds, tag):
         f"shared memory {s_hot['smem']:.4f} ms, global atomics "
         f"{s_hot['global']:.4f} ms; the hot key costs "
         f"{s_hot['smem'] - s_ms:+.4f} ms on the shared-memory kernel {tag}")
-    log(f"[time] query (B={B}, k={kq}): kernel {q_ms:.4f} ms, plain "
-        f"{q_plain:.4f} ms, gather yardstick (memory half only) "
-        f"{q_lib:.4f} ms, bound {q_bound:.4f} ms by {q_by} "
-        f"({q_bytes / 1e6:.1f} MB, {q_ops / 1e9:.2f} G int ops) {tag}")
     log(f"[phase] 4 sparse times: {time.perf_counter() - t_phase:.2f} s wall")
     plan = plan_of(B, n1, None)
     return [
@@ -807,12 +1027,19 @@ def phase_sparse(torch, args, seeds, tseeds, tag):
          "variants": variants_entry(
              "countsketch_scatter", scatter_variants, errs["scatter"],
              s_var, {"smem": plan}, hot_ms=s_hot)},
-        {"name": "countsketch_query_batched", "route": "cuda",
+        {"name": "countsketch_estimate_batched", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/countsketch_query.cu",
          "replaces": "src/repro/kernels/countsketch_query.py:150",
-         "launches": query_launches, "max_abs_err": errs["query"],
-         "parity": "bitwise", "ms": q_ms, "plain_ms": q_plain,
-         "bound_ms": q_bound, "bound_by": q_by, "library_ms": q_lib},
+         "launches": estimate_launches,  # the dense path's are added
+         "max_abs_err": 0.0,
+         "parity": "equal under == (NaN equal to NaN) to countsketch.median "
+                   "of the plain reads",
+         "ms": est_t["estimate"], "plain_ms": est_t["plain"],
+         "bound_ms": est_t["bound"], "bound_by": est_t["bound_by"],
+         "library_ms": est_t["library"],
+         "row_read_median_ms": est_t["row_read_median"],
+         "row_read_ms": est_t["row_read"],
+         "occupancy": OCCUPANCY.get(("countsketch_query", "estimate"))},
     ], errs
 
 
@@ -831,7 +1058,9 @@ def profile_dense(torch, cfg, values, sizes, tag):
         eng.update_dense(values, lengths=sizes)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    trace_report(prof, DENSE_RANGES, wall_ms, "1 update_dense", tag, top=8)
+    check_no_row_sort(trace_report(prof, DENSE_RANGES, wall_ms,
+                                   "1 update_dense", tag, top=8),
+                      "dense segments, 1 update_dense")
 
 
 def phase_dense(torch, args, tag):
@@ -886,21 +1115,25 @@ def phase_dense(torch, args, tag):
     del want, tol
     u_err, u_ratio = u_errs["smem"]
 
-    # peak of one update_dense, reckoned from its shapes: the values, the
-    # int32 keys, the (L, n_max + C) query keys, and the refresh's (L, rows,
-    # n_max + C) float32 reads with their sorted copy and int64 sort indices
+    # peak of one update_dense, reckoned from its shapes: the (L, n_max)
+    # values and int32 keys, and the (L, n_max + C) arrays live together in
+    # the candidate refresh's last sort (worp._dedup_topc's top_k): the
+    # query keys, the estimate and 10 more of 4 bytes, 3 of 8 (the argsort
+    # order, the segment ids, the sort's indices) and 2 boolean masks.  The
+    # estimate kernel writes one float a key, so the (L, rows, n_max + C)
+    # reads and their sort (16 bytes a read) are gone.
     nq = L * (n_max + cfg.candidates)
-    reckoned = L * n_max * 4 * 2 + nq * 4 + cfg.rows * nq * (4 + 4 + 8)
+    reckoned = L * n_max * 4 * 2 + nq * (12 * 4 + 3 * 8 + 2)
     log(f"[dense] reckoned peak of one update_dense: {reckoned / 1e9:.2f} GB "
-        f"(values {L * n_max * 4 / 1e9:.2f} GB, refresh reads "
-        f"{cfg.rows * nq * 4 / 1e9:.2f} GB, their sort "
-        f"{cfg.rows * nq * 12 / 1e9:.2f} GB)")
+        f"(values and keys {L * n_max * 8 / 1e9:.2f} GB, the refresh's "
+        f"arrays {nq * 74 / 1e9:.2f} GB; the sorts' own buffers are not "
+        f"counted)")
 
     # -- the main path: update_dense x DENSE_STEPS, then sample ----------
     del v0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    u.launches = q.launches = 0
+    u.launches = q.launches = q.estimate_launches = 0
     u.variant_launches.update(dict.fromkeys(VARIANTS, 0))
     eng = SketchEngine(cfg, device=DEVICE)
     update_s = []
@@ -916,19 +1149,21 @@ def phase_dense(torch, args, tag):
     samp = eng.sample(DENSE_K)
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
-    update_launches, query_launches = u.launches, q.launches
+    update_launches, estimate_launches = u.launches, q.estimate_launches
     update_variants = dict(u.variant_launches)
     peak = torch.cuda.max_memory_allocated()
     log(f"[main] dense segments: {DENSE_STEPS} update_dense calls, update "
-        f"launches {update_launches} ({update_variants}), query launches "
-        f"{query_launches}")
+        f"launches {update_launches} ({update_variants}), estimate launches "
+        f"{estimate_launches}, row-read launches {q.launches}")
     if update_launches != DENSE_STEPS:
         raise AssertionError("update launches do not match update_dense calls")
     if update_variants["smem"] != DENSE_STEPS:
         raise AssertionError("update_dense did not run the shared-memory "
                              "update")
-    if query_launches < DENSE_STEPS + 1:
-        raise AssertionError("query launches < update_dense calls + 1")
+    if estimate_launches < DENSE_STEPS + 1:
+        raise AssertionError("estimate launches < update_dense calls + 1")
+    if q.launches:
+        raise AssertionError("the dense path launched the row-read kernel")
     if tuple(samp.keys.shape) != (L, DENSE_K) \
             or samp.keys.dtype != torch.int32:
         raise AssertionError(f"sample keys shape {tuple(samp.keys.shape)}")
@@ -1005,6 +1240,20 @@ def phase_dense(torch, args, tag):
                              "stream")
     profile_dense(torch, cfg, torch.from_numpy(steps[0]).to(dev), sizes, tag)
 
+    # -- the estimate at the refresh's shape: the final tables, the
+    # candidates and the segment keys (-1 past each length) ---------------
+    offs = torch.arange(n_max, device=dev)
+    qkeys = torch.cat([st.cand_keys, torch.where(
+        offs < lengths[:, None], offs, -1).to(torch.int32)], 1).contiguous()
+    del offs
+    check_estimate(torch, "dense refresh shape", st.sketch.table, qkeys,
+                   st.sketch.seed)
+    torch.cuda.empty_cache()
+    est_t = time_estimate(torch, "dense refresh shape", st.sketch.table,
+                          qkeys, st.sketch.seed, 5, 1, tag)
+    del qkeys
+    torch.cuda.empty_cache()
+
     # -- times of the kernel at the deployment shape -----------------------
     v0 = torch.from_numpy(steps[0]).to(dev)
     u_var = {variant: cuda_ms(torch, lambda: u.countsketch_update_batched(
@@ -1057,15 +1306,16 @@ def phase_dense(torch, args, tag):
         "bound_by": u_by, "library_ms": u_lib, "variant": "smem",
         "variants": variants_entry("countsketch_update", update_variants,
                                    u_errs, u_var, {"smem": plan})}
-    return entry, steps[0][wg, :sizes[wg]], query_launches
+    return entry, steps[0][wg, :sizes[wg]], estimate_launches, est_t
 
 
 def phase_single(torch, wg_values, tag):
     """Phase 6: the single-stream entry points (benchmarks/
-    sketch_throughput.py's calls) against their plain versions, and times.
-    Returns the kernels-line entries of the single-segment update, the
-    single-table query and the transform."""
-    from repro_torch.core import hashing, transforms
+    sketch_throughput.py's calls) and ``query_rows_batched`` against their
+    plain versions, and times.  Returns the kernels-line entries of the
+    single-segment update, the batched and single-table row reads, the
+    single-table estimate and the transform."""
+    from repro_torch.core import countsketch, hashing, transforms
     from repro_torch.kernels import countsketch_query as q
     from repro_torch.kernels import countsketch_update as u
     from repro_torch.kernels import ops, ref
@@ -1081,25 +1331,39 @@ def phase_single(torch, wg_values, tag):
 
     # -- the path: counts zeroed just before, read just after --------------
     u.single_launches = q.single_launches = tr.launches = 0
+    q.launches = q.estimate_single_launches = 0
     u.variant_launches.update(dict.fromkeys(VARIANTS, 0))
+    tr.variant_launches.update(dict.fromkeys(tr.VARIANTS, 0))
     tables = [ops.sketch_dense_vector(vals[:n], ROWS, WIDTH, SINGLE_SEED,
                                       p=P) for n in SINGLE_N]
     rows_out = ops.query_rows(tables[-1], qkeys, SINGLE_SEED)
     est = ops.estimate(tables[-1], qkeys, SINGLE_SEED)
+    both = torch.stack(tables)
+    both_keys = qkeys.expand(len(SINGLE_N), -1).contiguous()
+    both_seeds = torch.full((len(SINGLE_N),), SINGLE_SEED, device=dev)
+    rows_both = ops.query_rows_batched(both, both_keys, both_seeds)
     t32 = ops.transform(keys_big, vals, P, 0)
     t16 = ops.transform(keys_big, vals_bf16, P, 0)
     torch.cuda.synchronize()
     launches = {"update": u.single_launches, "query": q.single_launches,
-                "transform": tr.launches}
+                "estimate": q.estimate_single_launches,
+                "query_batched": q.launches, "transform": tr.launches}
     single_variants = dict(u.variant_launches)
+    transform_variants = dict(tr.variant_launches)
     log(f"[main] single-stream entry points: sketch_dense_vector launches "
-        f"{launches['update']} ({single_variants}), query launches "
-        f"{launches['query']}, transform launches {launches['transform']}")
-    if launches != {"update": len(SINGLE_N), "query": 2, "transform": 2}:
+        f"{launches['update']} ({single_variants}), row-read launches "
+        f"{launches['query']} (one table) and {launches['query_batched']} "
+        f"(query_rows_batched), estimate launches {launches['estimate']}, "
+        f"transform launches {launches['transform']} ({transform_variants})")
+    if launches != {"update": len(SINGLE_N), "query": 1, "estimate": 1,
+                    "query_batched": 1, "transform": 2}:
         raise AssertionError("single-stream launches do not match the calls")
     if single_variants["smem"] != len(SINGLE_N):
         raise AssertionError("sketch_dense_vector did not run the "
                              "shared-memory update")
+    if transform_variants["vector"] != 2:
+        raise AssertionError("the aligned transforms did not run the vector "
+                             "variant")
 
     # -- parity against the plain versions ---------------------------------
     u_err, single_errs = 0.0, {}
@@ -1125,23 +1389,69 @@ def phase_single(torch, wg_values, tag):
     check_bitwise(torch, f"estimate k={SINGLE_KEYS}", est,
                   ref.countsketch_estimate_ref(tables[-1], qkeys,
                                                SINGLE_SEED))
-    t_err = {}
-    for name, got, v, rtol, atol in (("float32", t32, vals, 1e-5, 1e-6),
-                                     ("bfloat16", t16, vals_bf16, 2e-2,
-                                      1e-2)):
-        want = ref.ppswor_transform_ref(keys_big, v, P, 0)
+    check_bitwise(torch, f"query_rows_batched B={len(SINGLE_N)} "
+                  f"k={SINGLE_KEYS}", rows_both,
+                  ref.countsketch_query_batched_ref(both, both_keys,
+                                                    both_seeds))
+    del rows_both
+
+    t_err = {"float32": 0.0, "bfloat16": 0.0}
+
+    def check_transform(name, got, keys, v, p):
+        """The transform against its plain version: allclose at the
+        tolerances of tests/test_kernels.py, and the same infinities, with
+        their signs, where the plain version has them."""
+        rtol, atol = (1e-5, 1e-6) if v.dtype == torch.float32 \
+            else (2e-2, 1e-2)
+        want = ref.ppswor_transform_ref(keys, v, p, 0)
         torch.cuda.synchronize()
-        ok = got.dtype == want.dtype and torch.allclose(
-            got.float(), want.float(), rtol=rtol, atol=atol, equal_nan=True)
-        fin = want.isfinite()
-        t_err[name] = float((got.float() - want.float())[fin].abs().max())
-        log(f"[parity] transform {name} n={n_big}: max_abs_err "
-            f"{t_err[name]:.3e}; allclose rtol {rtol} atol {atol} "
-            f"{'ok' if ok else 'FAIL'}; nonfinite {int((~fin).sum())}")
+        g32, w32 = got.float(), want.float()
+        fin = w32.isfinite()
+        same_nonfinite = bool(((g32 == w32) | (g32.isnan() & w32.isnan()))[
+            ~fin].all())
+        ok = got.dtype == want.dtype and same_nonfinite and torch.allclose(
+            g32, w32, rtol=rtol, atol=atol, equal_nan=True)
+        err = float((g32 - w32)[fin].abs().max()) if fin.any() else 0.0
+        dt = "float32" if v.dtype == torch.float32 else "bfloat16"
+        t_err[dt] = max(t_err[dt], err)
+        log(f"[parity] transform {name} {dt} p={p} n={v.numel()}: "
+            f"max_abs_err {err:.3e}; allclose rtol {rtol} atol {atol} and "
+            f"the same +-inf: {'ok' if ok else 'FAIL'}; nonfinite "
+            f"{int((~fin).sum())} ("
+            + ", ".join(f"{x:g}" for x in w32[~fin][:4].tolist()) + ")")
         if not ok:
-            raise AssertionError(f"transform {name}: the kernel disagrees "
-                                 f"with its plain version")
-    del rows_out, est, t32, t16, want
+            raise AssertionError(f"transform {name} {dt} p={p}: the kernel "
+                                 f"disagrees with its plain version")
+
+    edge = int(ref.ppswor_transform_ref(
+        torch.tensor([EDGE_KEY], dtype=torch.int32, device=dev),
+        torch.ones(1, device=dev), 1.0, 0).isinf().all())
+    log(f"[parity] transform: key {EDGE_KEY} hits the uniform01 == 1.0 "
+        f"edge under seed 0: {bool(edge)}; it is among the n={n_big} keys: "
+        f"{EDGE_KEY < n_big}")
+    check_transform("path", t32, keys_big, vals, P)
+    check_transform("path", t16, keys_big, vals_bf16, P)
+    path_err = dict(t_err)
+    del t32, t16
+    for v in (vals, vals_bf16):
+        # the tensors (vector), views that start 4 (or 2) bytes in (scalar,
+        # by alignment; n - 1 is not a multiple of the vector width), and a
+        # prefix n - 3 long (the vector loop's tail)
+        for variant, what, cut, ps in (
+                ("vector", "", slice(None), TRANSFORM_PS),
+                ("scalar", " view [1:]", slice(1, None), TRANSFORM_PS),
+                ("vector", f" prefix [:{n_big - 3}]", slice(n_big - 3),
+                 (P,))):
+            for p in ps:
+                before = dict(tr.variant_launches)
+                got = ops.transform(keys_big[cut], v[cut], p, 0)
+                if tr.variant_launches[variant] != before[variant] + 1:
+                    raise AssertionError(f"transform: {variant} did not "
+                                         f"launch")
+                check_transform(variant + what, got, keys_big[cut], v[cut],
+                                p)
+                del got
+    del rows_out, est
 
     # -- times -------------------------------------------------------------
     table = tables[-1]
@@ -1166,7 +1476,7 @@ def phase_single(torch, wg_values, tag):
     qry = lambda: ops.query_rows(table, qkeys, SINGLE_SEED)  # noqa: E731
     qry_plain = lambda: ref.countsketch_query_ref(  # noqa: E731
         table, qkeys, SINGLE_SEED)
-    gidx = row_index(torch, qkeys[None], sd, WIDTH)[0].reshape(-1)
+    gidx = gather_index(torch, qkeys[None], sd, WIDTH).reshape(-1)
     flat_table = table.reshape(-1)
     qry_lib = lambda: torch.gather(flat_table, 0, gidx)  # noqa: E731
     # one call keeps the card busy for microseconds, so CUDA events over
@@ -1176,23 +1486,58 @@ def phase_single(torch, wg_values, tag):
               cuda_ms(torch, qry_lib, 200, warmup=5))
     q_ms, q_plain, q_lib = (device_ms(torch, f, 50) or t for f, t in zip(
         (qry, qry_plain, qry_lib), q_call))
-    q_bound, q_by = bound(SINGLE_KEYS * 4 + table.numel() * 4
-                          + ROWS * SINGLE_KEYS * 4,
+    read = table_bytes_read(torch, table[None], qkeys[None], sd)
+    q_bound, q_by = bound(SINGLE_KEYS * 4 + read + ROWS * SINGLE_KEYS * 4,
                           SINGLE_KEYS * QUERY_OPS_PER_KEY)
+    # the batched row read at the shape query_rows_batched launched it
+    nb = both_keys.numel()
+    bgidx = gather_index(torch, both_keys, both_seeds, WIDTH)
+    both_flat = both.reshape(len(SINGLE_N), -1)
+    qb_fns = (
+        lambda: ops.query_rows_batched(both, both_keys, both_seeds),
+        lambda: ref.countsketch_query_batched_ref(both, both_keys,
+                                                  both_seeds),
+        lambda: torch.gather(both_flat, 1, bgidx))
+    qb_call = [cuda_ms(torch, f, 200, warmup=5) for f in qb_fns]
+    qb_ms, qb_plain, qb_lib = (device_ms(torch, f, 50) or t
+                               for f, t in zip(qb_fns, qb_call))
+    qb_bound, qb_by = bound(
+        nb * 4 + table_bytes_read(torch, both, both_keys, both_seeds)
+        + ROWS * nb * 4, nb * QUERY_OPS_PER_KEY)
+    # the estimate: its kernel against the row read and the plain median
+    # (one launch against eight), device time per call from a trace
+    e_fns = {
+        "estimate": lambda: ops.estimate(table, qkeys, SINGLE_SEED),
+        "row_read_median": lambda: countsketch.median(
+            ops.query_rows(table, qkeys, SINGLE_SEED), 0),
+        "plain": lambda: ref.countsketch_estimate_ref(table, qkeys,
+                                                      SINGLE_SEED)}
+    e_call = {name: cuda_ms(torch, f, 200, warmup=5)
+              for name, f in e_fns.items()}
+    e_t = {name: device_ms(torch, f, 50) or e_call[name]
+           for name, f in e_fns.items()}
+    e_bound, e_by = bound(SINGLE_KEYS * 8 + read,
+                          SINGLE_KEYS * ESTIMATE_OPS_PER_KEY)
 
+    # the transform at p = 1 (a reciprocal) and p = 1.5 (powf), both
+    # variants; the plain version and the yardstick at p = 1
     factor = transforms._pow32(hashing.exp1(keys_big, 0), -1.0 / P)
-    factor16 = factor.to(torch.bfloat16)
     t_times = {}
-    for name, v, f, width in (("float32", vals, factor, 4),
-                              ("bfloat16", vals_bf16, factor16, 2)):
-        t_times[name] = (
-            cuda_ms(torch, lambda: ops.transform(keys_big, v, P, 0), 20),
-            cuda_ms(torch, lambda: ref.ppswor_transform_ref(keys_big, v, P,
-                                                            0), 3, warmup=1),
-            cuda_ms(torch, lambda: torch.mul(v, f), 20),
-            *bound(n_big * (4 + 2 * width),
-                   n_big * TRANSFORM_OPS_PER_ELEM))
-    del factor, factor16
+    for name, v, width in (("float32", vals, 4), ("bfloat16", vals_bf16, 2)):
+        f = factor.to(v.dtype)
+        # the scalar variant on views that start one element in (n - 1)
+        t = {(p, variant): cuda_ms(torch, lambda: tr.ppswor_transform(
+            keys_big[cut], v[cut], p, 0), 20)
+            for p in (1.0, 1.5) for variant, cut in (
+                ("vector", slice(None)), ("scalar", slice(1, None)))}
+        t["plain"] = cuda_ms(torch, lambda: ref.ppswor_transform_ref(
+            keys_big, v, P, 0), 3, warmup=1)
+        t["library"] = cuda_ms(torch, lambda: torch.mul(v, f), 20)
+        t["bound"], t["bound_by"] = bound(n_big * (4 + 2 * width),
+                                          n_big * TRANSFORM_OPS_PER_ELEM)
+        t_times[name] = t
+        del f
+    del factor
     plan = plan_of(1, n_big, None)
     log(f"[time] sketch_dense_vector (n={n_big}): kernel {s_ms:.4f} ms "
         f"(shared memory, {plan['blocks']} blocks of {plan['chunk']} slots; "
@@ -1206,13 +1551,35 @@ def phase_single(torch, wg_values, tag):
         f"ms by {q_by}; per call by CUDA events (host-bound): kernel "
         f"{q_call[0]:.4f} ms, plain {q_call[1]:.4f} ms, gather "
         f"{q_call[2]:.4f} ms {tag}")
-    for name, (k_ms, p_ms, l_ms, b_ms, b_by) in t_times.items():
-        log(f"[time] transform {name} (n={n_big}): kernel {k_ms:.4f} ms, "
-            f"plain {p_ms:.4f} ms, torch.mul by precomputed factors "
-            f"{l_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} {tag}")
+    log(f"[time] query_rows_batched (B={len(SINGLE_N)}, k={SINGLE_KEYS}), "
+        f"device time per call (traced): kernel {qb_ms:.4f} ms, plain "
+        f"{qb_plain:.4f} ms, gather yardstick (memory half only) "
+        f"{qb_lib:.4f} ms, bound {qb_bound:.6f} ms by {qb_by}; per call by "
+        f"CUDA events (host-bound): kernel {qb_call[0]:.4f} ms, plain "
+        f"{qb_call[1]:.4f} ms, gather {qb_call[2]:.4f} ms {tag}")
+    log(f"[time] estimate (k={SINGLE_KEYS}), device time per call "
+        f"(traced): estimate kernel {e_t['estimate']:.4f} ms, row read + "
+        f"countsketch.median {e_t['row_read_median']:.4f} ms, plain "
+        f"{e_t['plain']:.4f} ms, bound {e_bound:.6f} ms by {e_by}; per call "
+        f"by CUDA events (host-bound): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in e_call.items()) + f" {tag}")
+    for name, t in t_times.items():
+        log(f"[time] transform {name} (n={n_big}): p=1 vector "
+            f"{t[(1.0, 'vector')]:.4f} ms, scalar (n-1, a view one element "
+            f"in) {t[(1.0, 'scalar')]:.4f} ms; p=1.5 vector "
+            f"{t[(1.5, 'vector')]:.4f} ms, scalar {t[(1.5, 'scalar')]:.4f} "
+            f"ms; plain (p=1) {t['plain']:.4f} ms, torch.mul by precomputed "
+            f"factors {t['library']:.4f} ms, bound {t['bound']:.4f} ms by "
+            f"{t['bound_by']}, "
+            f"{100 * t['bound'] / t[(1.0, 'vector')]:.1f} % of bound at p=1 "
+            f"(vector) {tag}")
     log(f"[phase] 6 single-stream entry points: "
         f"{time.perf_counter() - t_phase:.2f} s wall")
     f32, bf16 = t_times["float32"], t_times["bfloat16"]
+
+    def transform_variants_entry(t):
+        return {v: {"launches": transform_variants[v], "ms": t[(1.0, v)],
+                    "ms_p1.5": t[(1.5, v)]} for v in tr.VARIANTS}
     return [
         {"name": "countsketch_update", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/countsketch_update.cu",
@@ -1232,18 +1599,43 @@ def phase_single(torch, wg_values, tag):
          "bound_ms": q_bound, "bound_by": q_by, "library_ms": q_lib,
          "timing": "device time per call from a torch.profiler trace",
          "call_ms": q_call[0]},
+        {"name": "countsketch_query_batched", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/countsketch_query.cu",
+         "replaces": "src/repro/kernels/countsketch_query.py:150",
+         "launches": launches["query_batched"], "max_abs_err": 0.0,
+         "parity": "bitwise", "ms": qb_ms, "plain_ms": qb_plain,
+         "bound_ms": qb_bound, "bound_by": qb_by, "library_ms": qb_lib,
+         "timing": "device time per call from a torch.profiler trace, at "
+                   "query_rows_batched's shape",
+         "call_ms": qb_call[0]},
+        {"name": "countsketch_estimate", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/countsketch_query.cu",
+         "replaces": "src/repro/kernels/countsketch_query.py:66",
+         "launches": launches["estimate"], "max_abs_err": 0.0,
+         "parity": "equal under == (NaN equal to NaN) to countsketch.median "
+                   "of the plain reads",
+         "ms": e_t["estimate"], "plain_ms": e_t["plain"],
+         "bound_ms": e_bound, "bound_by": e_by, "library_ms": q_lib,
+         "row_read_median_ms": e_t["row_read_median"],
+         "timing": "device time per call from a torch.profiler trace",
+         "call_ms": e_call["estimate"]},
         {"name": "ppswor_transform", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ppswor_transform.cu",
          "replaces": "src/repro/kernels/ppswor_transform.py:32",
          "launches": launches["transform"],
-         "max_abs_err": t_err["float32"],
+         "max_abs_err": path_err["float32"],
+         "max_abs_err_any_p": t_err["float32"],
          "parity": "float32 rtol 1e-5 atol 1e-6; bfloat16 rtol 2e-2 "
-                   "atol 1e-2",
-         "ms": f32[0], "plain_ms": f32[1], "bound_ms": f32[3],
-         "bound_by": f32[4], "library_ms": f32[2],
-         "bf16_max_abs_err": t_err["bfloat16"], "bf16_ms": bf16[0],
-         "bf16_plain_ms": bf16[1], "bf16_bound_ms": bf16[3],
-         "bf16_library_ms": bf16[2]},
+                   "atol 1e-2; the plain version's +-inf equal, signs "
+                   "included; p = 0.5, 1, 1.5, 2",
+         "ms": f32[(1.0, "vector")], "plain_ms": f32["plain"],
+         "bound_ms": f32["bound"], "bound_by": f32["bound_by"],
+         "library_ms": f32["library"], "variant": "vector",
+         "variants": transform_variants_entry(f32),
+         "bf16_max_abs_err": path_err["bfloat16"],
+         "bf16_ms": bf16[(1.0, "vector")], "bf16_plain_ms": bf16["plain"],
+         "bf16_bound_ms": bf16["bound"], "bf16_library_ms": bf16["library"],
+         "bf16_variants": transform_variants_entry(bf16)},
     ]
 
 
@@ -1251,7 +1643,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the generated streams and gradients")
+    ap.add_argument("--sass", action="store_true",
+                    help="only count the transform factor's SASS, old and "
+                         "new, and exit")
     args = ap.parse_args()
+    if args.sass:
+        return factor_sass()
 
     import torch
 
@@ -1303,12 +1700,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 5: dense segments; phase 6: single-stream entry points -----
-    entry, wg_values, dense_queries = phase_dense(torch, args, tag)
+    entry, wg_values, dense_estimates, dense_est = phase_dense(torch, args,
+                                                               tag)
     kernels.append(entry)
-    kernels.extend(phase_single(torch, wg_values, tag))
+    single = phase_single(torch, wg_values, tag)
+    kernels.extend(single)
 
     # -- phase 7: the kernels line and the ok line -------------------------
-    log(f"[main] batched query launches on the dense path: {dense_queries}; "
+    by_name = {k["name"]: k for k in kernels}
+    est = by_name["countsketch_estimate_batched"]
+    est["launches"] += dense_estimates
+    est["dense_shape"] = {
+        "ms": dense_est["estimate"], "plain_ms": dense_est["plain"],
+        "bound_ms": dense_est["bound"], "bound_by": dense_est["bound_by"],
+        "library_ms": dense_est["library"],
+        "row_read_median_ms": dense_est["row_read_median"],
+        "row_read_ms": dense_est["row_read"]}
+    log(f"[main] estimate launches on the dense path: {dense_estimates}; "
         f"worst err/bound of the update at its edge shapes "
         f"{errs['update_edge_ratio']:.3e}")
     log(json.dumps({"kernels": kernels}))

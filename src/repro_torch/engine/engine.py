@@ -11,8 +11,9 @@ logical stream, and ``reduce_streams`` collapses them in O(log B) merge
 rounds.
 
 The query plane (candidate refresh, estimate, sample) goes through
-``kernels.ops.estimate_batched``: one query-kernel launch for all B streams
-on the card.  Dense segments (``update_dense``) go through one launch of
+``kernels.ops.estimate_batched``: one launch of the estimate kernel, which
+reads each key's rows and takes their median in registers, for all B
+streams on the card.  Dense segments (``update_dense``) go through one launch of
 the dense update kernel; turnstile ingest is the data-plane layer in
 ``repro_torch.engine.planes``.
 """
@@ -92,7 +93,7 @@ def onepass_init_batched(cfg: EngineConfig,
 def _refresh_candidates(sk: countsketch.CountSketch, cand_keys, batch_keys):
     """Batched candidate refresh (the policy of ``worp.refresh_candidates``)
     with the estimates of (old candidates U batch keys) for all B streams
-    from one query launch."""
+    from one estimate-kernel launch."""
     all_keys = torch.cat([cand_keys, batch_keys.to(cand_keys.dtype)], 1)
     est = torch.abs(ops.estimate_batched(sk.table, all_keys, sk.seed))
     return worp._refresh_from_estimates(all_keys, est, cand_keys.shape[1])
@@ -105,9 +106,9 @@ def onepass_update_dense(st: worp.OnePassState, values: torch.Tensor,
 
     ``values[b, i]`` is the frequency increment of key ``base_keys[b] + i``
     (mod 2**32) for stream b; columns past ``lengths[b]`` are ignored.  The
-    candidate refresh queries the (C + n) per-stream keys through one query
-    launch; the segment's keys enter it as int32 with two's-complement wrap,
-    and -1 past ``lengths[b]``.  The kernel plans its blocks from the
+    candidate refresh estimates the (C + n) per-stream keys through one
+    estimate-kernel launch; the segment's keys enter it as int32 with
+    two's-complement wrap, and -1 past ``lengths[b]``.  The kernel plans its blocks from the
     lengths on the host: lengths given as host values cost no wait for the
     card, a CUDA tensor one read-back."""
     B, n = values.shape
@@ -147,7 +148,7 @@ def onepass_merge_batched(a: worp.OnePassState, b: worp.OnePassState):
 def onepass_sample_batched(st: worp.OnePassState, k: int, p: float,
                            scheme: str = transforms.PPSWOR) -> Sample:
     """Per-stream WOR samples (every Sample field grows a leading (B,)
-    axis); the candidate estimates come from one query launch."""
+    axis); the candidate estimates come from one estimate-kernel launch."""
     est = ops.estimate_batched(st.sketch.table, st.cand_keys, st.sketch.seed)
     return worp.onepass_sample_from_estimates(st, est, k, p, scheme)
 

@@ -8,7 +8,7 @@ until a ``FlushPolicy`` fires -- and they differ only in the dispatch step:
                    concatenated batch (the reference plane).
   ``SparsePlane``  ``ingest_sparse``: one scatter-kernel launch for the
                    sketch delta, then the candidate refresh through one
-                   query-kernel launch (the sampler-name registry below).
+                   estimate-kernel launch (the sampler-name registry below).
 
 The asynchronous and pipeline planes, and wire codecs other than ``none``,
 come with later slices of the port.
@@ -49,7 +49,7 @@ def onepass_update_sparse(st: worp.OnePassState, keys: torch.Tensor,
                           scheme: str = transforms.PPSWOR):
     """Turnstile fast path: B sparse signed batches through one scatter
     launch, then the candidate refresh of (C + n) keys per stream through
-    one query launch.
+    one estimate-kernel launch.
 
     ``(keys[b, i], values[b, i])`` is a signed update of stream b (negative
     values are deletions); ``keys == -1`` slots are padding.  The same

@@ -1,26 +1,40 @@
-// Batched CountSketch query (signed per-row reads) for Hopper (sm_90a).
+// Batched CountSketch query and estimate for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel
 //   repro/kernels/countsketch_query.py::countsketch_query_batched
-// (a one-hot MXU contraction over width blocks, the TPU's form of a gather).
+// (a one-hot MXU contraction over width blocks, the TPU's form of a gather),
+// and, with the median of rows folded in, the estimate built on it
+// (countsketch_estimate_batched: that kernel plus jnp.median over rows).
 //
-// Computes out[b, r, j] = tables[b, r, hash(key, row_salt(seed_b, r)) % W]
-//                         * sign_r(key)      for key = keys[b, j],
-// each stream against its own table and seed.  The median over rows stays
-// outside the kernel (jnp.median semantics, in PyTorch).
+// Two kernels, one thread per (b, j) key, each stream against its own table
+// and seed:
+//   countsketch_query_kernel     the row read, out[b, r, j] =
+//       tables[b, r, hash(key, row_salt(seed_b, r)) % W] * sign_r(key);
+//   countsketch_estimate_kernel  the estimate, out[b, j] = the median over
+//       r of those reads, with jnp.median semantics: the mean of the
+//       elements at ascending ranks (rows-1)/2 and rows/2, rounded as
+//       (lo + hi) * 0.5f even where they are one element, and NaN wherever
+//       a read is NaN.  That equals countsketch.median under == with NaN
+//       equal to NaN; a tie of -0 and +0 may pick either, as torch.sort
+//       may, so a zero's sign can differ.
 //
-// Design: a real gather, one thread per (b, j) key.  The thread hashes its
-// key once per row, reads one float and writes it signed; consecutive
-// threads write consecutive j, so the (B, rows, k) output is coalesced.  The
-// product with +-1 is exact, so the result equals the plain version bit for
-// bit.
+// Design: a real gather.  The thread hashes its key once per row and
+// issues every row's load before it uses one, so a key's reads are in
+// flight together; the estimate keeps them in registers (at most
+// kMaxFusedRows, with rows as a run-time bound on fully unrolled loops)
+// and ranks them with one comparison per pair, the later index ranking
+// above on a tie, so the ranks are a permutation and the two middle ranks
+// pick lo and hi.  Consecutive threads write consecutive j, so the (B,
+// rows, k) reads or the (B, k) estimates are coalesced.  The product with
+// +-1 is exact, so the row read equals its plain version bit for bit.
 //
-// Bound: per key, 7 rows x (two hash_u32 + a mask, hashing.cuh's bucket of
-// a power-of-two width; a modulo otherwise), some 420 integer
-// operations, against 4 B of key read, 7 random 4 B table reads (whole
-// 32 B sectors move) and 28 B written.  At the deployment shape the integer
-// work and the (B, rows, k) output write weigh about alike; fusing the
-// median into the kernel would cut the output 7x and is the next step.
+// Bound: per key, rows x (two hash_u32 + a mask, hashing.cuh's bucket of a
+// power-of-two width; a modulo otherwise), some 336 integer operations at
+// 7 rows, against 4 B of key read, 7 random 4 B table reads (whole 32 B
+// sectors move) and 28 B written by the row read, 4 B by the estimate.  The
+// rank count adds 79 operations at 7 rows, where a median network needs
+// 29; the estimate saves the (B, rows, k) write and the sort over rows
+// that read it back.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -29,6 +43,10 @@
 #include "kernel_info.cuh"
 
 namespace {
+
+// Rows the estimate kernel holds in registers (kernels/countsketch_query.py
+// MAX_FUSED_ROWS); more rows take the row read and the plain median.
+constexpr int kMaxFusedRows = 16;
 
 __global__ void countsketch_query_kernel(const float* __restrict__ tables,
                                          const int32_t* __restrict__ keys,
@@ -54,6 +72,69 @@ __global__ void countsketch_query_kernel(const float* __restrict__ tables,
   }
 }
 
+__global__ void countsketch_estimate_kernel(const float* __restrict__ tables,
+                                            const int32_t* __restrict__ keys,
+                                            const int32_t* __restrict__ seeds,
+                                            float* __restrict__ out, int B,
+                                            int k, int rows, int width) {
+  const int64_t idx =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<int64_t>(B) * k) return;
+  const int b = static_cast<int>(idx / k);
+  const uint32_t key = static_cast<uint32_t>(keys[idx]);
+  const uint32_t seed = static_cast<uint32_t>(seeds[b]);
+  const float* table = tables + static_cast<int64_t>(b) * rows * width;
+
+  // every row's load first, its sign as a bit: no load waits on another
+  float v[kMaxFusedRows];
+  uint32_t negative = 0u;
+#pragma unroll
+  for (int r = 0; r < kMaxFusedRows; ++r) {
+    if (r >= rows) break;
+    const uint32_t salt = worp::row_salt(seed, static_cast<uint32_t>(r));
+    const uint32_t bucket =
+        worp::bucket_hash(key, salt, static_cast<uint32_t>(width));
+    v[r] = table[static_cast<int64_t>(r) * width + bucket];
+    negative |= (worp::sign_hash(key, salt) < 0.0f ? 1u : 0u) << r;
+  }
+  bool nan = false;
+  int rank[kMaxFusedRows];
+#pragma unroll
+  for (int r = 0; r < kMaxFusedRows; ++r) {
+    if (r >= rows) break;
+    v[r] = __fmul_rn(v[r], (negative >> r) & 1u ? -1.0f : 1.0f);
+    nan |= v[r] != v[r];
+    rank[r] = 0;
+  }
+  // rank = the elements below, ties broken by index: for each pair i < j,
+  // one of the two counts the other
+#pragma unroll
+  for (int i = 0; i < kMaxFusedRows; ++i) {
+    if (i >= rows) break;
+#pragma unroll
+    for (int j = i + 1; j < kMaxFusedRows; ++j) {
+      if (j >= rows) break;
+      if (v[j] < v[i]) {
+        ++rank[i];
+      } else {
+        ++rank[j];
+      }
+    }
+  }
+  const int lo_rank = (rows - 1) / 2;
+  const int hi_rank = rows / 2;
+  float lo = 0.0f;
+  float hi = 0.0f;
+#pragma unroll
+  for (int r = 0; r < kMaxFusedRows; ++r) {
+    if (r >= rows) break;
+    lo = rank[r] == lo_rank ? v[r] : lo;
+    hi = rank[r] == hi_rank ? v[r] : hi;
+  }
+  out[idx] = nan ? __int_as_float(0x7fc00000)
+                 : __fmul_rn(__fadd_rn(lo, hi), 0.5f);
+}
+
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success).
@@ -69,10 +150,33 @@ extern "C" int worp_countsketch_query(const void* tables, const void* keys,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The estimate of B streams: (B, k) float32 out, 1 <= rows <= 16 (the
+// wrapper checks).  Launches on `stream`; returns cudaGetLastError().
+extern "C" int worp_countsketch_estimate(const void* tables, const void* keys,
+                                         const void* seeds, void* out, int B,
+                                         int k, int rows, int width,
+                                         int blocks, int threads,
+                                         void* stream) {
+  if (rows < 1 || rows > kMaxFusedRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  countsketch_estimate_kernel<<<blocks, threads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(tables), static_cast<const int32_t*>(keys),
+      static_cast<const int32_t*>(seeds), static_cast<float*>(out), B, k,
+      rows, width);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Registers, static shared memory, blocks per SM and dynamic shared memory
-// (worp::kernel_info) of the query kernel at `threads` threads.
+// (worp::kernel_info) of variant 0 (the row read) or 1 (the estimate) at
+// `threads` threads.
 extern "C" int worp_countsketch_query_info(int variant, int threads,
                                            int smem_bytes, int* out) {
+  if (variant == 1) {
+    return worp::kernel_info(countsketch_estimate_kernel, threads, smem_bytes,
+                             out);
+  }
   return worp::kernel_info(countsketch_query_kernel, threads, smem_bytes,
                            out);
 }

@@ -4,8 +4,8 @@
 // repro_torch/core/hashing.py), in native uint32_t arithmetic, so a key
 // lands in the same bucket with the same sign and the same Exp[1] variate
 // on the card as in either Python package.  Built without fast math: the
-// uniform variate is exact, and -logf/powf stay within a few ulps of the
-// host libraries.
+// uniform variate is exact, and -logf and the power stay within a few ulps
+// of the host libraries.
 #pragma once
 #include <cstdint>
 
@@ -58,6 +58,21 @@ __device__ __forceinline__ uint32_t bucket_hash(uint32_t key, uint32_t salt,
   return (width & (width - 1u)) == 0u ? h & (width - 1u) : h % width;
 }
 
+// r^e for the exponent e = -1/p of Eq. 5.  The exponents of p = 1, 2 and
+// 0.5 are exact in float32 and take one correctly rounded intrinsic each
+// (a reciprocal, a reciprocal square root, a square and a reciprocal) in
+// place of powf's extended-precision log2 and exp2; the branch is uniform
+// across a launch.  Each stays within an ulp of powf and keeps its
+// infinities at r = -0.0 (the reference's uniform01 == 1.0 edge): -inf for
+// e = -1, +inf for e = -0.5 (hence the fabsf: rsqrt(-0) is -inf) and -2.
+// Every other exponent keeps powf.
+__device__ __forceinline__ float pow_neg_inv_p(float r, float neg_inv_p) {
+  if (neg_inv_p == -1.0f) return __frcp_rn(r);
+  if (neg_inv_p == -0.5f) return __frsqrt_rn(fabsf(r));
+  if (neg_inv_p == -2.0f) return __frcp_rn(__fmul_rn(r, r));
+  return powf(r, neg_inv_p);
+}
+
 // r_x^{-1/p}, the factor of Eq. 5 in float32; neg_inv_p is -1/p rounded to
 // float32 by the caller.
 __device__ __forceinline__ float transform_factor(uint32_t key, uint32_t tseed,
@@ -65,7 +80,7 @@ __device__ __forceinline__ float transform_factor(uint32_t key, uint32_t tseed,
                                                   float neg_inv_p) {
   const float u = uniform01(key, tseed);
   const float r = scheme == kPpswor ? -logf(u) : u;
-  return powf(r, neg_inv_p);
+  return pow_neg_inv_p(r, neg_inv_p);
 }
 
 // v / r_x^{1/p} (Eq. 5).

@@ -8,10 +8,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import countsketch, transforms
+from repro_torch.core import transforms
 
-from .countsketch_query import (countsketch_estimate, countsketch_query,
-                                countsketch_query_batched)
+from .countsketch_query import (countsketch_estimate,
+                                countsketch_estimate_batched,
+                                countsketch_query, countsketch_query_batched)
 from .countsketch_scatter import countsketch_scatter_batched
 from .countsketch_update import countsketch_update, countsketch_update_batched
 from .ppswor_transform import ppswor_transform
@@ -75,14 +76,16 @@ def query_rows_batched(tables, keys, seeds) -> torch.Tensor:
 
 
 def estimate(table, keys, seed) -> torch.Tensor:
-    """R.Est of one table: (k,) median over rows of one query launch."""
+    """R.Est of one table: (k,) median over rows, one estimate-kernel
+    launch."""
     return countsketch_estimate(table, keys, seed)
 
 
 def estimate_batched(tables, keys, seeds) -> torch.Tensor:
-    """Batched R.Est: (B, k) median over rows (``jnp.median`` semantics) of
-    one query launch -- the engine's single query chokepoint."""
-    return countsketch.median(query_rows_batched(tables, keys, seeds), 1)
+    """Batched R.Est: (B, k) median over rows (``jnp.median`` semantics),
+    one estimate-kernel launch that takes the median in registers -- the
+    engine's single query chokepoint."""
+    return countsketch_estimate_batched(tables, keys, seeds)
 
 
 def transform(keys, values, p: float, transform_seed) -> torch.Tensor:

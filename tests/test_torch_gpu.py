@@ -7,27 +7,34 @@ the JAX package, so it also runs on a machine with a card and no JAX:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: the query reads one float and multiplies it by +-1, so it must
-be bit for bit.  The scatter and the dense update sum many transformed
-values per bucket with float atomics, whose order varies from run to run,
-and their fused -log/pow may differ from PyTorch's by a few ulps, so they
-are held to the reference's scale-aware bound, rtol 1e-4 and atol 1e-5 *
-max(1, max|want|), and, cell by cell, to the float32 rounding bound of their
-own terms (``ref.scatter_tolerance``).  The standalone transform is held to
-the tolerances of tests/test_kernels.py: rtol 1e-5 / atol 1e-6 in float32,
-rtol 2e-2 / atol 1e-2 in bfloat16 (one rounding of the factor may flip).
+be bit for bit; the estimate, whose median of rows is
+``countsketch.median``'s arithmetic, must equal it under ``==`` with NaN
+equal to NaN (a tie of -0 and +0 may pick either).  The scatter and the
+dense update sum many transformed values per bucket with float atomics,
+whose order varies from run to run, and their fused -log/pow may differ
+from PyTorch's by a few ulps, so they are held to the reference's
+scale-aware bound, rtol 1e-4 and atol 1e-5 * max(1, max|want|), and, cell
+by cell, to the float32 rounding bound of their own terms
+(``ref.scatter_tolerance``).  The standalone transform is held to the
+tolerances of tests/test_kernels.py: rtol 1e-5 / atol 1e-6 in float32,
+rtol 2e-2 / atol 1e-2 in bfloat16 (one rounding of the factor may flip),
+with the plain version's infinities (the uniform01 == 1.0 edge) equal,
+signs included.
 
 The scatter and the dense update have two variants, chosen by shape
 (``tiling.table_plan``): a shared-memory table per block, and global
 atomics for tables too large for shared memory.  The cells run both,
 through the wrappers' private ``_variant`` keyword where the shape alone
 would pick the other, and check which one each launch took by its
-``variant_launches`` counter.
+``variant_launches`` counter.  The transform's scalar variant is reached
+through views that start one element in, which its alignment rule sends
+there.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import countsketch, worp
+from repro_torch.core import countsketch, hashing, worp
 from repro_torch.core.sampler import SamplerConfig, make_sampler
 from repro_torch.data.pipeline import TurnstileZipfStream
 from repro_torch.engine import EngineConfig, SketchEngine
@@ -129,6 +136,74 @@ def test_cuda_query_bitwise_equals_plain(rows, width, k):
     assert torch.equal(got, want)
 
 
+def _special_tables(rng, B, rows, width):
+    """Tables a third of whose cells hold NaN, +-inf, +-0, +-3e38 (two of
+    which overflow in a sum) or a tied +-1."""
+    pool = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 3e38, -3e38, 1.0,
+                     1.0, -1.0], np.float32)
+    t = rng.normal(size=(B, rows, width)).astype(np.float32)
+    pick = pool[rng.integers(0, len(pool), t.shape)]
+    return torch.from_numpy(np.where(rng.random(t.shape) < 0.33, pick, t))
+
+
+def _same(got, want) -> bool:
+    return got.shape == want.shape and bool(
+        ((got == want) | (got.isnan() & want.isnan())).all())
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 6, 7, 8, 16, 17])
+def test_cuda_estimate_bitwise_equals_plain(rows):
+    """The estimate kernel against countsketch.median of the plain reads,
+    bit for bit, batched and B = 1, on special values and at k not a
+    multiple of a block; 17 rows take the row read and the plain median,
+    each launch on its own counter."""
+    _need_card()
+    rng = np.random.default_rng(rows)
+    B, width, k = 3, 1000, 777
+    tables = _special_tables(rng, B, rows, width)
+    keys = torch.from_numpy(
+        rng.integers(-2**31, 2**31 - 1, (B, k)).astype(np.int32))
+    keys[:, 0] = -1
+    seeds = torch.tensor([0, 2**31 + 7, 2**32 - 1])
+    want = countsketch.median(
+        ref.countsketch_query_batched_ref(tables, keys, seeds), 1)
+    fused = rows <= tq.MAX_FUSED_ROWS
+    counters = lambda: (tq.launches, tq.single_launches,  # noqa: E731
+                        tq.estimate_launches, tq.estimate_single_launches)
+    before = counters()
+    got = tq.countsketch_estimate_batched(tables.cuda(), keys.cuda(),
+                                          seeds.cuda()).cpu()
+    assert _same(got, want)
+    one = tq.countsketch_estimate(tables[1].cuda(), keys[1].cuda(),
+                                  int(seeds[1])).cpu()
+    assert _same(one, want[1])
+    assert _same(one, ref.countsketch_estimate_ref(tables[1], keys[1],
+                                                   int(seeds[1])))
+    after = [a - b for a, b in zip(counters(), before)]
+    assert after == ([0, 0, 1, 1] if fused else [1, 1, 0, 0])
+    assert got.isnan().any() and got.isfinite().any()
+
+
+def test_cuda_estimate_at_the_flush_shape():
+    """The sparse flush's refresh shape, 512 candidates + 5120 batch keys
+    over 7 x 2048 tables (256 streams of the 4096), and empty keys."""
+    _need_card()
+    rng = np.random.default_rng(21)
+    tables = torch.from_numpy(
+        rng.normal(size=(256, 7, 2048)).astype(np.float32))
+    keys = torch.from_numpy(
+        rng.integers(0, 2**20, (256, 5632)).astype(np.int32))
+    keys[:, :512] = -1
+    seeds = hashing.hash_u32(torch.arange(256), 5)
+    got = tq.countsketch_estimate_batched(tables.cuda(), keys.cuda(),
+                                          seeds.cuda()).cpu()
+    assert _same(got, ref.countsketch_estimate_batched_ref(tables, keys,
+                                                           seeds))
+    empty = tq.countsketch_estimate_batched(
+        tables.cuda(), keys[:, :0].contiguous().cuda(), seeds.cuda())
+    assert empty.shape == (256, 0)
+
+
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     _need_card()
     keys = torch.zeros((2, 8), dtype=torch.int64, device="cuda")
@@ -139,6 +214,13 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
         tq.countsketch_query_batched(
             torch.zeros((2, 384, 5), device="cuda").transpose(1, 2),
             keys.to(torch.int32), 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        tq.countsketch_estimate_batched(
+            torch.zeros((2, 384, 5), device="cuda").transpose(1, 2),
+            keys.to(torch.int32), 0)
+    with pytest.raises(ValueError, match="int32"):
+        tq.countsketch_estimate_batched(torch.zeros((2, 5, 384),
+                                                    device="cuda"), keys, 0)
     with pytest.raises(ValueError, match="unknown scheme"):
         ts.countsketch_scatter_batched(keys.to(torch.int32), vals, 5, 384,
                                        0, p=1.0, scheme="bogus")
@@ -153,7 +235,7 @@ def test_engine_on_card_matches_cpu():
     card = SketchEngine(cfg, flush_elems=256)
     cpu = SketchEngine(cfg, flush_elems=256, device="cpu")
     stream = TurnstileZipfStream(vocab_size=5000, alpha=1.2, seed=3)
-    before = (ts.launches, tq.launches)
+    before = (ts.launches, tq.launches, tq.estimate_launches)
     for t in range(3):
         batches = [stream.sparse_batch_at(t, b, 256) for b in range(4)]
         keys = np.stack([k for k, _ in batches])
@@ -162,7 +244,8 @@ def test_engine_on_card_matches_cpu():
         cpu.ingest(keys, vals)
     card_sample = card.sample(16)
     assert ts.launches == before[0] + 3
-    assert tq.launches >= before[1] + 4
+    assert tq.launches == before[1]  # every estimate is the estimate kernel
+    assert tq.estimate_launches >= before[2] + 4
     want = cpu.state.sketch.table
     torch.testing.assert_close(card.state.sketch.table.cpu(), want,
                                rtol=RTOL, atol=_atol(want))
@@ -236,33 +319,95 @@ def test_cuda_single_stream_update_and_query():
         base_keys=base))[0]
     assert bool(((got - want).abs() <= tol).all())
     keys = torch.arange(-256, 256, dtype=torch.int32)
-    before = (tq.launches, tq.single_launches)
+    before = (tq.launches, tq.single_launches, tq.estimate_single_launches)
     rows = tq.countsketch_query(want.cuda(), keys.cuda(), seed).cpu()
     est = tq.countsketch_estimate(want.cuda(), keys.cuda(), seed).cpu()
-    assert (tq.launches, tq.single_launches) == (before[0], before[1] + 2)
+    assert (tq.launches, tq.single_launches, tq.estimate_single_launches) \
+        == (before[0], before[1] + 1, before[2] + 1)
     assert torch.equal(rows, ref.countsketch_query_ref(want, keys, seed))
     assert torch.equal(est, ref.countsketch_estimate_ref(want, keys, seed))
 
 
+# the transform seed and key of the reference's uniform01 == 1.0 edge
+EDGE_SEED, EDGE_KEY = 0, 17691050
+
+
+def _on_card(x, misaligned):
+    """``x`` on the card; where ``misaligned``, as a view one element into
+    a copy, so it starts 4 (int32, float32) or 2 (bfloat16) bytes past 16."""
+    if not misaligned:
+        return x.cuda()
+    return torch.cat([x[:1], x]).cuda()[1:]
+
+
+def _check_transform(keys, vals, p, seed, variant="vector"):
+    """The transform of CPU keys/values on the card against its plain
+    version: allclose at the dtype's tolerance, the infinities equal with
+    their signs; the launch takes ``variant``, "scalar" through views one
+    element in (by alignment)."""
+    before = (tt.launches, dict(tt.variant_launches))
+    misaligned = variant == "scalar"
+    got = tt.ppswor_transform(_on_card(keys, misaligned),
+                              _on_card(vals, misaligned), p, seed).cpu()
+    assert tt.launches == before[0] + 1
+    assert tt.variant_launches[variant] == before[1][variant] + 1
+    want = ref.ppswor_transform_ref(keys, vals, p, seed)
+    assert got.dtype == vals.dtype
+    bf16 = vals.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=2e-2 if bf16 else 1e-5,
+                               atol=1e-2 if bf16 else 1e-6)
+    inf = want.isinf()
+    assert torch.equal(got.isinf(), inf) and torch.equal(got[inf], want[inf])
+    return want
+
+
+@pytest.mark.parametrize("variant", ["vector", "scalar"])
+@pytest.mark.parametrize("p", [0.5, 1.0, 1.5, 2.0])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_transform_matches_plain(dtype):
+def test_cuda_transform_matches_plain(dtype, p, variant):
+    """Both variants at p = 0.5, 1, 2 (the intrinsics) and 1.5 (powf), at n
+    not a multiple of the vector width, with the edge key among the keys,
+    so that its infinity's sign is compared."""
     _need_card()
     rng = np.random.default_rng(4)
+    n = 100_003
     keys = torch.from_numpy(
-        rng.integers(-2**31, 2**31 - 1, 100_000).astype(np.int32))
-    vals = torch.from_numpy(rng.normal(size=100_000).astype(np.float32)).to(
+        rng.integers(-2**31, 2**31 - 1, n).astype(np.int32))
+    keys[77] = EDGE_KEY
+    vals = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(
         getattr(torch, dtype))
-    before = tt.launches
-    for p in (0.5, 1.0, 2.0):
-        want = ref.ppswor_transform_ref(keys, vals, p, 2**32 - 3)
-        got = tt.ppswor_transform(keys.cuda(), vals.cuda(), p,
-                                  2**32 - 3).cpu()
-        assert got.dtype == vals.dtype
-        bf16 = dtype == "bfloat16"
-        torch.testing.assert_close(got.float(), want.float(),
-                                   rtol=2e-2 if bf16 else 1e-5,
-                                   atol=1e-2 if bf16 else 1e-6)
-    assert tt.launches == before + 3
+    vals[77] = -1.5
+    want = _check_transform(keys, vals, p, EDGE_SEED, variant=variant)
+    assert bool(want[77].isinf())
+    _check_transform(keys, vals, p, 2**32 - 3, variant=variant)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_transform_variant_by_alignment(dtype):
+    """A view that starts 4 (or 2) bytes in takes the scalar variant, by
+    alignment; lengths below and around the vector width take the vector
+    variant's tail."""
+    _need_card()
+    rng = np.random.default_rng(6)
+    keys = torch.from_numpy(
+        rng.integers(-2**31, 2**31 - 1, 5000).astype(np.int32)).cuda()
+    vals = torch.from_numpy(rng.normal(size=5000).astype(np.float32)).to(
+        getattr(torch, dtype)).cuda()
+    assert tt.variant(keys, vals) == "vector"
+    assert tt.variant(keys[1:], vals[1:]) == "scalar"
+    _check_transform(keys[1:].cpu(), vals[1:].cpu(), 1.0, 9)  # a copy
+    before = dict(tt.variant_launches)
+    got = tt.ppswor_transform(keys[1:], vals[1:], 1.0, 9)
+    assert tt.variant_launches["scalar"] == before["scalar"] + 1
+    torch.testing.assert_close(
+        got.float().cpu(),
+        ref.ppswor_transform_ref(keys[1:].cpu(), vals[1:].cpu(), 1.0,
+                                 9).float(),
+        rtol=2e-2 if dtype == "bfloat16" else 1e-5,
+        atol=1e-2 if dtype == "bfloat16" else 1e-6)
+    for n in (1, 3, 7, 8, 9, 17):
+        _check_transform(keys[:n].cpu(), vals[:n].cpu(), 1.0, 9)
 
 
 def test_update_dense_on_card_matches_cpu():
@@ -275,7 +420,7 @@ def test_update_dense_on_card_matches_cpu():
     cpu = SketchEngine(cfg, device="cpu")
     rng = np.random.default_rng(8)
     base, lengths = [0, 2**31 - 500, 2**32 - 300], [2000, 1000, 1500]
-    before = (tu.launches, tq.launches)
+    before = (tu.launches, tq.launches, tq.estimate_launches)
     for _ in range(3):
         vals = (rng.normal(size=(3, 2000))
                 * np.exp(1.5 * rng.normal(size=(3, 2000)))).astype(np.float32)
@@ -283,7 +428,8 @@ def test_update_dense_on_card_matches_cpu():
         cpu.update_dense(vals, base_keys=base, lengths=lengths)
     card_sample = card.sample(16)
     assert tu.launches == before[0] + 3
-    assert tq.launches >= before[1] + 4
+    assert tq.launches == before[1]  # every estimate is the estimate kernel
+    assert tq.estimate_launches >= before[2] + 4
     want = cpu.state.sketch.table
     torch.testing.assert_close(card.state.sketch.table.cpu(), want,
                                rtol=RTOL, atol=_atol(want))

@@ -24,13 +24,17 @@ import torch
 import jax.numpy as jnp
 
 from repro.kernels import ref as jref
-from repro.kernels.countsketch_query import countsketch_query_batched as jq
+from repro.kernels import ppswor_transform as jtransform
+from repro.kernels.countsketch_query import (
+    countsketch_estimate as jest, countsketch_estimate_batched as jest_b,
+    countsketch_query_batched as jq)
 from repro.kernels.countsketch_scatter import (
     countsketch_scatter_batched as jscatter)
 from repro_torch.core import hashing
 from repro_torch.kernels import build, ops, ref, tiling
 from repro_torch.kernels import countsketch_query as tq
 from repro_torch.kernels import countsketch_scatter as ts
+from repro_torch.kernels import ppswor_transform as tt
 
 RTOL = 1e-4
 
@@ -140,30 +144,121 @@ def test_plain_query_bitwise_equals_pallas_and_ref(rows, width, k):
     assert np.array_equal(single, oracle[1])
 
 
-@pytest.mark.parametrize("rows", [5, 6])
-def test_estimate_batched_bitwise_with_even_rows(rows):
-    """The median stays outside the kernel with jnp.median semantics: an
-    even row count averages the two middle reads, bit for bit."""
-    rng = np.random.default_rng(rows)
-    tables = rng.normal(size=(2, rows, 384)).astype(np.float32)
+def _special_tables(rng, B, rows, width, nonfinite):
+    """Tables a third of whose cells hold +-0, +-3e38 (above FLT_MAX / 2, so
+    a sum of two overflows) or a tied +-1, and with ``nonfinite`` also NaN
+    and +-inf; the rest N(0, 1)."""
+    pool = [0.0, -0.0, 3e38, -3e38, 1.0, 1.0, -1.0]
+    if nonfinite:
+        pool += [np.nan, np.inf, -np.inf]
+    pool = np.array(pool, np.float32)
+    t = rng.normal(size=(B, rows, width)).astype(np.float32)
+    pick = pool[rng.integers(0, len(pool), t.shape)]
+    return np.where(rng.random(t.shape) < 0.33, pick, t).astype(np.float32)
+
+
+def _equal(got, want) -> bool:
+    return got.shape == want.shape and np.array_equal(got, want,
+                                                      equal_nan=True)
+
+
+# rows and tables: N(0, 1), finite special values, and NaN/+-inf as well
+ESTIMATE_CASES = [pytest.param(5, "normal", id="5"),
+                  pytest.param(6, "normal", id="6")] + [
+    pytest.param(r, kind, id=f"{r}-{kind}")
+    for kind in ("normal", "special", "nonfinite")
+    for r in (1, 2, 3, 4, 5, 6, 7) if kind != "normal" or r not in (5, 6)]
+
+
+@pytest.mark.parametrize("rows,kind", ESTIMATE_CASES)
+def test_estimate_batched_bitwise_with_even_rows(rows, kind):
+    """The estimate has jnp.median semantics, equal under == (NaN equal
+    to NaN): an even row count averages the two middle reads as (lo + hi) *
+    0.5, two reads above FLT_MAX / 2 overflow, -inf and inf give NaN, and a
+    NaN read makes the estimate NaN.  Held against the JAX package's
+    estimates through the Pallas query (interpret mode) and its gather
+    oracle.  Where a table holds NaN or an infinity, only the oracle: the
+    Pallas query gathers by a one-hot contraction, whose 0 * inf is NaN for
+    every key of the block (a property of the TPU's gather, not of the
+    estimate)."""
+    rng = np.random.default_rng(rows + len(kind))
+    if kind == "normal":
+        tables = rng.normal(size=(2, rows, 384)).astype(np.float32)
+    else:
+        tables = _special_tables(rng, 2, rows, 384, kind == "nonfinite")
+    if kind == "special":
+        tables[0, :, ::2] = 3e38  # key pairs of these overflow to inf
     keys = rng.integers(0, 10_000, (2, 64)).astype(np.int32)
     seeds = np.array([5, 2**31], np.uint32)
-    want = np.asarray(jref.countsketch_estimate_batched_ref(
-        jnp.asarray(tables), jnp.asarray(keys), jnp.asarray(seeds)))
+    jt, jk, js = jnp.asarray(tables), jnp.asarray(keys), jnp.asarray(seeds)
+    want = np.asarray(jref.countsketch_estimate_batched_ref(jt, jk, js))
+    want1 = np.asarray(jref.countsketch_estimate_ref(jt[1], jk[1], js[1]))
     got = ops.estimate_batched(_t(tables), _t(keys), _t(seeds)).numpy()
-    assert np.array_equal(got, want)
-    assert np.array_equal(
-        ref.countsketch_estimate_batched_ref(_t(tables), _t(keys),
-                                             _t(seeds)).numpy(), want)
+    got1 = ops.estimate(_t(tables[1]), _t(keys[1]), int(seeds[1])).numpy()
+    assert _equal(got, want) and _equal(got1, want1)
+    assert _equal(ref.countsketch_estimate_batched_ref(
+        _t(tables), _t(keys), _t(seeds)).numpy(), want)
+    assert _equal(ref.countsketch_estimate_ref(
+        _t(tables[1]), _t(keys[1]), int(seeds[1])).numpy(), want1)
+    if kind != "nonfinite":
+        assert _equal(got, np.asarray(jest_b(jt, jk, js, interpret=True)))
+        assert _equal(got1, np.asarray(jest(jt[1], jk[1], js[1],
+                                            interpret=True)))
+    if kind == "special":
+        assert np.isinf(got[0]).any()  # the overflow reaches the estimate
+    if kind == "nonfinite":
+        assert np.isnan(got).any()
+
+
+@pytest.mark.parametrize("p", [0.5, 1.0, 1.5, 2.0])
+def test_transform_edge_key_matches_pallas(p):
+    """Key 17691050 under transform seed 0 draws uniform01 == 1.0, so its
+    r = -log 1 is -0.0 and its factor infinite: the plain transform gives
+    the same infinity, sign included, as the JAX package's Pallas kernel
+    (interpret mode), -inf * v at p = 1 and +inf * v at p = 0.5, 1.5, 2;
+    the other keys agree within rtol 1e-5."""
+    keys = np.array([17691050, 0, 1, 12345, -7, 2**31 - 1], np.int32)
+    vals = np.array([1.5, -2.0, 0.25, 3.0, -1.0, 7.0], np.float32)
+    want = np.asarray(jtransform.ppswor_transform(
+        jnp.asarray(keys), jnp.asarray(vals), p, 0, interpret=True))
+    got = ref.ppswor_transform_ref(_t(keys), _t(vals), p, 0).numpy()
+    assert np.isinf(want[0]) and got[0] == want[0]
+    assert got[0] == (-np.inf if p == 1.0 else np.inf)
+    np.testing.assert_allclose(got[1:], want[1:], rtol=1e-5, atol=0)
+
+
+def test_transform_variant_by_alignment():
+    """The transform's vector variant needs every tensor on 16 bytes; a
+    view that starts 4 bytes in takes the scalar one."""
+    x = torch.zeros(64)
+    k = torch.zeros(64, dtype=torch.int32)
+    assert tt.variant(k, x) == ("vector" if x.data_ptr() % 16 == 0
+                                and k.data_ptr() % 16 == 0 else "scalar")
+    assert tt.variant(k[1:], x[1:]) == "scalar"
+    assert tt.variant(k[4:], x[4:]) == tt.variant(k, x)
+    assert tt.VECTOR_WIDTH == {torch.float32: 4, torch.bfloat16: 8}
+
+
+def test_estimate_fuses_up_to_16_rows():
+    """The estimate kernel serves 1 to 16 rows; more take the row read and
+    the plain median, by shape."""
+    assert [tq.fuses(r) for r in (0, 1, 7, 16, 17)] == [False, True, True,
+                                                       True, False]
 
 
 def test_cpu_tensors_never_count_as_launches():
-    before = (ts.launches, dict(ts.variant_launches), tq.launches)
+    counters = lambda: (ts.launches, dict(ts.variant_launches),  # noqa: E731
+                        tq.launches, tq.estimate_launches,
+                        tq.estimate_single_launches,
+                        dict(tt.variant_launches))
+    before = counters()
     keys, vals, seeds, tseeds = _streams(2, 50, seed=1)
     table = ops.sketch_sparse_batch(_t(keys), _t(vals), 5, 384, _t(seeds),
                                     p=1.0, transform_seeds=_t(tseeds))
     ops.estimate_batched(table, _t(keys), _t(seeds))
-    assert (ts.launches, ts.variant_launches, tq.launches) == before
+    ops.estimate(table[0], _t(keys[0]), int(seeds[0]))
+    ops.transform(_t(keys[0]), _t(vals[0]), 1.0, 3)
+    assert counters() == before
 
 
 def test_wrappers_reject_other_devices():
@@ -176,6 +271,12 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="expected a CUDA or CPU tensor"):
         tq.countsketch_query_batched(torch.zeros((2, 5, 384), device="meta"),
                                      keys, 0)
+    with pytest.raises(ValueError, match="expected a CUDA or CPU tensor"):
+        tq.countsketch_estimate_batched(
+            torch.zeros((2, 5, 384), device="meta"), keys, 0)
+    with pytest.raises(ValueError, match="expected a CUDA or CPU tensor"):
+        tq.countsketch_estimate(torch.zeros((5, 384), device="meta"),
+                                keys[0], 0)
 
 
 def test_tiling_grid():
