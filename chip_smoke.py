@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Three paths, each driven with the kernels' launch counts set to 0 just
+Four paths, each driven with the kernels' launch counts set to 0 just
 before it and read just after:
 
 * Sparse plane.  Per-key analytics over B = 4096 independent turnstile
@@ -21,6 +21,18 @@ before it and read just after:
   with 512 keys, ``ops.transform`` in float32 and bfloat16 (the shapes of
   benchmarks/sketch_throughput.py), and ``ops.query_rows_batched`` (the
   per-row reads of those two tables).
+* Samplers.  The sparse plane's stream and engine defaults (B = 4096,
+  capacity 512, 8 cascade samplers) through the other samplers:
+  ``twopass`` (ingest, ``sample(k=64)``), ``tv`` (ingest, ``sample(k=8)``),
+  ``onepass`` with ``freeze``, 8 ``update_pass2`` calls and
+  ``sample_exact(k=64)``, and the ``perfect`` oracle (domain 2**20) on the
+  first 256 streams.  After each flush the first 256 streams are held
+  against the plain update of the state before it (the kernel path's
+  state, so that a near tie swapped once does not carry over); tables
+  within both bounds, candidate and pass-II keys identical but for near
+  ties, exact frequencies equal.  Cut: the plain reference runs on 256 of
+  the 4096 streams (per-stream seeds hash only the stream index, so they
+  are the same streams).
 
 Every estimate of the sparse and dense paths (candidate refresh, sample)
 is one launch of the estimate kernel, which takes the median of rows in
@@ -57,6 +69,13 @@ the script exits non-zero without the final ``ok`` line):
      their plain versions (the transform at p = 0.5, 1, 1.5 and 2, both
      variants, the edge key and n not a multiple of the vector width), and
      times;
+  samplers.  ``twopass``, ``tv``, ``onepass``'s exact second pass and
+     ``perfect`` against the plain path, their launches (a ``twopass``
+     flush 1 scatter + 2 estimates, a ``tv`` flush 2 + 2, a ``tv`` sample
+     r + 1 estimates, an ``update_pass2`` call 1 estimate, ``perfect``
+     none), traces of a flush and a sample each, times, the recall of the
+     exact two-pass sample against the perfect oracle, and the scatter and
+     the estimate at the TV cascade's shapes against their bounds;
   7. one ``{"kernels": [...]}`` line, then the ``ok`` line.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
@@ -85,6 +104,10 @@ RANGES = ("plane.concat", "plane.h2d", "plane.dispatch", "sparse.scatter",
           "sparse.refresh")
 DENSE_RANGES = ("dense.sketch", "dense.refresh")
 DEVICE = "cuda"
+# the samplers phase: the plain reference runs on the first SUB_B streams
+# (per-stream seeds hash only the stream index, so they are the same
+# streams); the TV cascade draws TV_K keys (its r = 8 draws)
+SUB_B, TV_K = 256, 8
 VARIANTS = ("smem", "global")
 # kernels' registers, shared memory and blocks per SM, from phase 1
 OCCUPANCY: dict = {}
@@ -222,7 +245,8 @@ def cell_check(torch, got, want, tol):
     fin = want.isfinite()
     same = (got == want) | (got.isnan() & want.isnan())
     err = torch.where(fin, (got - want).abs(), 0.0)
-    ok = bool(same[~fin].all()) and bool((err <= tol).all())
+    # a non-finite cell's bound may be NaN (a NaN old value in its mass)
+    ok = bool(same[~fin].all()) and bool(((err <= tol) | ~fin).all())
     ratio = torch.where(tol > 0, err / tol,
                         torch.where(err > 0, float("inf"), 0.0))
     return ok, float(err.max()), float(ratio.max())
@@ -1013,7 +1037,7 @@ def phase_sparse(torch, args, seeds, tseeds, tag):
         f"{s_hot['smem'] - s_ms:+.4f} ms on the shared-memory kernel {tag}")
     log(f"[phase] 4 sparse times: {time.perf_counter() - t_phase:.2f} s wall")
     plan = plan_of(B, n1, None)
-    return [
+    return (stream, steps), [
         {"name": "countsketch_scatter_batched", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/countsketch_scatter.cu",
          "replaces": "src/repro/kernels/countsketch_scatter.py:112",
@@ -1639,6 +1663,582 @@ def phase_single(torch, wg_values, tag):
     ]
 
 
+# -- the samplers phase ---------------------------------------------------
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch counters to 0."""
+    from repro_torch.kernels import countsketch_query as q
+    from repro_torch.kernels import countsketch_scatter as s
+    from repro_torch.kernels import countsketch_update as u
+    from repro_torch.kernels import ppswor_transform as tr
+
+    s.launches = u.launches = u.single_launches = tr.launches = 0
+    q.launches = q.single_launches = 0
+    q.estimate_launches = q.estimate_single_launches = 0
+    for m in (s, u, tr):
+        m.variant_launches.update(dict.fromkeys(m.variant_launches, 0))
+
+
+def read_counts() -> dict:
+    """The launch counters: the scatter (and its variants), the estimate,
+    the batched row read, and every other kernel's launches summed."""
+    from repro_torch.kernels import countsketch_query as q
+    from repro_torch.kernels import countsketch_scatter as s
+    from repro_torch.kernels import countsketch_update as u
+    from repro_torch.kernels import ppswor_transform as tr
+
+    return {"scatter": s.launches, "smem": s.variant_launches["smem"],
+            "global": s.variant_launches["global"],
+            "estimate": q.estimate_launches, "row_read": q.launches,
+            "other": (q.single_launches + q.estimate_single_launches
+                      + u.launches + u.single_launches + tr.launches)}
+
+
+def since(before: dict) -> dict:
+    now = read_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def expect_counts(what, got: dict, scatter=0, estimate=0):
+    """Raise unless the launches are exactly ``scatter`` shared-memory
+    scatters and ``estimate`` estimate-kernel launches, and nothing else."""
+    want = {"scatter": scatter, "smem": scatter, "global": 0,
+            "estimate": estimate, "row_read": 0, "other": 0}
+    log(f"[main] {what}: launches {got}")
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def sub_view(st):
+    """The first SUB_B streams of a batched state or sample, as views (no
+    path writes into a state's tensors: a flush makes new ones)."""
+    from repro_torch.engine.engine import _map
+
+    return _map(lambda x: x[:SUB_B], st)
+
+
+def flush_tolerance(torch, old_table, keys, vals, seeds, tseeds):
+    """Each cell's rounding bound for one flush into ``old_table``: the
+    flush's terms and the old value, in any order."""
+    from repro_torch.kernels import ref
+
+    rows, width = old_table.shape[-2:]
+    cnt, mass = ref.countsketch_scatter_mass_ref(keys, vals, rows, width,
+                                                 seeds, p=P,
+                                                 transform_seeds=tseeds)
+    return ref.scatter_tolerance(cnt + 1, mass + old_table.abs())
+
+
+def near_tie_streams(torch, keys, prio, err, c: int):
+    """(B,) streams whose c-th and (c+1)-st distinct priorities under the
+    buffer policy (``worp._dedup_topc``) lie within the sum of their
+    errors, ``err(keys)``: where rounding may swap the key kept."""
+    from repro_torch.core import worp
+
+    k2, _, p2 = worp._dedup_topc(keys, torch.zeros_like(prio), prio, c + 1)
+    e2 = err(k2)
+    return (p2[:, c - 1] - p2[:, c]) <= (e2[:, c - 1] + e2[:, c])
+
+
+def same_sets(torch, a, b):
+    return (torch.sort(a, 1).values == torch.sort(b, 1).values).all(1)
+
+
+def check_flush_table(torch, what, got, want, tol, scale, stats):
+    """A flush's kernel tables (of the first SUB_B streams) against the
+    plain update's from the same state, within both bounds.  The
+    scale-aware one takes its scale from the deployment's tables before
+    and after the flush (``scale``, all B streams): a retraction can take
+    a cell from the largest value back to about zero, leaving the rounding
+    of that value behind.  Returns the streams whose plain tables hold
+    non-finite cells (the uniform01 == 1.0 edge)."""
+    atol = max(scale_atol(t) for t in scale)
+    close = torch.allclose(got, want, rtol=RTOL, atol=atol, equal_nan=True)
+    cells, err, ratio = cell_check(torch, got, want, tol)
+    if not (close and cells):
+        over = torch.where(want.isfinite(), (got - want).abs()
+                           - RTOL * want.abs(), 0.0).flatten()
+        i = int(over.argmax())
+        raise AssertionError(
+            f"{what} tables disagree (max_abs_err {err:.3e}, worst err/bound"
+            f" {ratio:.3e}; allclose atol {atol:.3e}, worst cell {i}: got "
+            f"{float(got.flatten()[i])!r} want {float(want.flatten()[i])!r} "
+            f"bound {float(tol.flatten()[i])!r})")
+    st = stats.setdefault(what, {"max_abs_err": 0.0, "ratio": 0.0})
+    st["max_abs_err"] = max(st["max_abs_err"], err)
+    st["ratio"] = max(st["ratio"], ratio)
+    return (~want.isfinite()).flatten(1).any(1)
+
+
+def check_buffer(torch, what, got_keys, want_keys, all_keys, prio, err, c,
+                 bad, stats):
+    """A flush's kernel buffer (candidates, or the pass-II keys) against the
+    plain update's as key sets: a stream may differ only in a near tie of
+    its c-th and (c+1)-st priorities, or where its plain table is not
+    finite."""
+    same = same_sets(torch, got_keys, want_keys)
+    near = near_tie_streams(torch, all_keys, prio, err, c)
+    outside = int((~same & ~near & ~bad).sum())
+    st = stats.setdefault(what, {"checked": 0, "differ": 0, "near_tie": 0})
+    st["checked"] += same.numel()
+    st["differ"] += int((~same).sum())
+    st["near_tie"] += int(near.sum())
+    if outside:
+        raise AssertionError(f"{what}: {outside} streams differ from the "
+                             f"plain path outside near ties")
+    return same
+
+
+def check_refresh(torch, what, got_cand, want_sk, want_cand, old_cand, keys,
+                  tol, bad, stats):
+    """The candidate refresh of one flush (top-C of old candidates U batch
+    keys by |estimate|)."""
+    from repro_torch.core import countsketch
+    from repro_torch.kernels import ref
+
+    all_keys = torch.cat([old_cand, keys], 1)
+    est = countsketch.estimate(want_sk, all_keys).abs()
+    prio = torch.where(all_keys == -1, float("-inf"), est)
+
+    def err(k):
+        return ref.countsketch_query_batched_ref(tol, k, want_sk.seed).abs(
+            ).amax(1)
+
+    check_buffer(torch, what, got_cand, want_cand, all_keys, prio, err,
+                 old_cand.shape[1], bad, stats)
+    return err
+
+
+def check_twopass_flush(torch, spec, old, full, keys, vals, stats):
+    """One ``twopass`` flush of the kernels (the engine's states ``old``
+    before and ``full`` after it, their first SUB_B streams) against the
+    plain update of the same state: pass-I tables and candidates, pass-II
+    keys, and the exact frequencies of equal buffers bit for bit (the
+    stream's values are +-1)."""
+    from repro_torch.core import countsketch
+
+    snap, got = sub_view(old), sub_view(full)
+    want = spec.update(snap, keys, torch.where(keys == -1, 0.0, vals))
+    sk0 = snap.pass1.sketch
+    tol = flush_tolerance(torch, sk0.table, keys, vals, sk0.seed,
+                          snap.pass1.seed_transform)
+    bad = check_flush_table(torch, "twopass pass I", got.pass1.sketch.table,
+                            want.pass1.sketch.table, tol,
+                            (old.pass1.sketch.table, full.pass1.sketch.table),
+                            stats)
+    err = check_refresh(torch, "twopass pass-I candidates",
+                        got.pass1.cand_keys, want.pass1.sketch,
+                        want.pass1.cand_keys, snap.pass1.cand_keys, keys,
+                        tol, bad, stats)
+    # pass II: top-capacity of (buffer U batch keys) by online priority
+    est = countsketch.estimate(want.pass1.sketch, keys).abs()
+    all_keys = torch.cat([snap.pass2.keys, keys], 1)
+    prio = torch.cat([snap.pass2.priority,
+                      torch.where(keys == -1, float("-inf"), est)], 1)
+    same = check_buffer(torch, "twopass pass-II keys", got.pass2.keys,
+                        want.pass2.keys, all_keys, prio, err,
+                        snap.pass2.keys.shape[1], bad, stats)
+    gk, gi = torch.sort(got.pass2.keys, 1)
+    wk, wi = torch.sort(want.pass2.keys, 1)
+    equal = (torch.gather(got.pass2.freqs, 1, gi)
+             == torch.gather(want.pass2.freqs, 1, wi)).all(1)
+    if bool((same & ~equal).any()):
+        raise AssertionError("twopass pass-II frequencies differ from the "
+                             "plain path's")
+    return bad
+
+
+def check_tv_flush(torch, spec, old, full, keys, vals, stats):
+    """One ``tv`` flush of the kernels against the plain update of the same
+    state: the B x r cascade tables and candidates, the rHH's."""
+    from repro_torch.core import countsketch
+
+    snap, got = sub_view(old), sub_view(full)
+    want = spec.update(snap, keys, torch.where(keys == -1, 0.0, vals))
+    Bs, r = snap.transform_seeds.shape
+
+    def flat(t):
+        return t.reshape((Bs * r,) + t.shape[2:])
+
+    kf, vf = keys.repeat_interleave(r, 0), vals.repeat_interleave(r, 0)
+    tol = flush_tolerance(torch, flat(snap.sketches.table), kf, vf,
+                          flat(snap.sketches.seed),
+                          flat(snap.transform_seeds))
+    bad_f = check_flush_table(torch, "tv cascade", flat(got.sketches.table),
+                              flat(want.sketches.table), tol,
+                              (old.sketches.table, full.sketches.table),
+                              stats)
+    check_refresh(torch, "tv cascade candidates", flat(got.cand_keys),
+                  countsketch.CountSketch(table=flat(want.sketches.table),
+                                          seed=flat(want.sketches.seed)),
+                  flat(want.cand_keys), flat(snap.cand_keys), kf, tol, bad_f,
+                  stats)
+    sk0 = snap.rhh.sketch
+    tol = flush_tolerance(torch, sk0.table, keys, vals, sk0.seed,
+                          snap.rhh.seed_transform)
+    bad_r = check_flush_table(torch, "tv rHH", got.rhh.sketch.table,
+                              want.rhh.sketch.table, tol,
+                              (old.rhh.sketch.table, full.rhh.sketch.table),
+                              stats)
+    check_refresh(torch, "tv rHH candidates", got.rhh.cand_keys,
+                  want.rhh.sketch, want.rhh.cand_keys, snap.rhh.cand_keys,
+                  keys, tol, bad_r, stats)
+    return bad_f.reshape(Bs, r).any(1) | bad_r
+
+
+def sampler_engine(name: str, num_streams: int = None):
+    from repro_torch.engine import EngineConfig, FlushPolicy, SketchEngine
+
+    return SketchEngine(
+        EngineConfig(num_streams=num_streams or B, rows=ROWS, width=WIDTH,
+                     candidates=CANDIDATES, p=P, sampler=name,
+                     domain=VOCAB),
+        flush=FlushPolicy(max_elems=4096), device=DEVICE)
+
+
+def traced_ms(torch, fn, what, tag) -> float | None:
+    """Device busy ms of one call of ``fn`` from a torch.profiler trace
+    (its stage ranges, kernels by name and busy share printed; None when
+    the profiler saw no device time); the trace must hold no sort over
+    rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = trace_report(prof, RANGES, wall_ms, what, tag, top=8)
+    check_no_row_sort(rows, what)
+    busy = sum(r[0] for r in rows if "Activity Buffer" not in r[2])
+    return busy if rows else None
+
+
+def profile_sampler(torch, name, steps, k, tag, num_streams=None):
+    """A fresh engine of ``name``: one flush, then a second flush and a
+    sample each in a trace.  Returns their device ms."""
+    eng = sampler_engine(name, num_streams)
+    n = num_streams or B
+    eng.ingest(steps[0][0][:n], steps[0][1][:n])
+    flush_ms = traced_ms(torch, lambda: eng.ingest(steps[1][0][:n],
+                                                   steps[1][1][:n]),
+                         f"{name}, 1 flush", tag)
+    sample_ms = traced_ms(torch, lambda: eng.sample(k),
+                          f"{name}, sample(k={k})", tag)
+    return flush_ms, sample_ms
+
+
+def drive_sampler(torch, name, steps, k, check_flush, tag):
+    """The main path of sampler ``name`` at B streams: ingest the steps
+    (each fills one flush) and sample, with the launches counted; after
+    each flush, outside the timed calls, the first SUB_B streams against
+    the plain update of the state before it (``check_flush``)."""
+    dev = torch.device(DEVICE)
+    eng = sampler_engine(name)
+    stats, bad = {}, None
+    ingest_s, flushes, peak = 0.0, 0, 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_counts()
+    for keys, vals in steps:
+        old = eng.state  # a flush makes new tensors: this one stays intact
+        before = read_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng.ingest(keys, vals)
+        torch.cuda.synchronize()
+        ingest_s += time.perf_counter() - t0
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        flushes += eng.pending == 0
+        ran = since(before)
+        kt = torch.from_numpy(keys[:SUB_B]).to(dev)
+        vt = torch.from_numpy(vals[:SUB_B]).to(dev)
+        b = check_flush(torch, eng.spec, old, eng.state, kt, vt, stats)
+        if since(before) != ran:
+            raise AssertionError("the plain reference launched a kernel")
+        bad = b if bad is None else bad | b
+        del old, kt, vt
+    ingest_counts = read_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    samp = eng.sample(k)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    peak = max(peak, torch.cuda.max_memory_allocated())
+    sample_counts = since(ingest_counts)
+    sample_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        eng.sample(k)
+        torch.cuda.synchronize()
+        sample_ms.append((time.perf_counter() - t0) * 1e3)
+    events = sum(kk.size for kk, _ in steps)
+    for what, st in stats.items():
+        log(f"[main] {name} vs plain, {what}: {st}")
+    log(f"[time] {name} sparse plane: {flushes} flushes, {events} events in "
+        f"{ingest_s:.4f} s = {events / ingest_s:.4e} events/s; sample(k={k})"
+        f" first {first_ms:.3f} ms, 5 calls "
+        + " ".join(f"{x:.3f}" for x in sample_ms) + f" ms; peak memory "
+        f"{peak / 1e6:.1f} MB {tag}")
+    return {"eng": eng, "sample": samp, "bad": bad, "flushes": flushes,
+            "ingest": ingest_counts, "sample_launches": sample_counts,
+            "events_per_s": events / ingest_s, "sample_ms": sample_ms,
+            "first_sample_ms": first_ms, "peak_mb": peak / 1e6,
+            "stats": stats}
+
+
+def phase_samplers(torch, steps, stream, tag):
+    """The samplers phase: ``twopass`` and ``tv`` on the sparse plane,
+    ``onepass`` with freeze/update_pass2/sample_exact, and ``perfect``, at
+    the sparse plane's deployment, each against the plain path on the
+    first SUB_B streams; the scatter and the estimate at the TV cascade's
+    shapes.  Returns the launches of each kernel on these paths and the
+    kernels-line records of the new shapes."""
+    import numpy as np
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    launches = {"scatter": 0, "smem": 0, "estimate": 0}
+    out = {}
+
+    def add(counts):
+        for key in launches:
+            launches[key] += counts[key]
+
+    # -- twopass, sparse plane -------------------------------------------
+    tp = drive_sampler(torch, "twopass", steps, K, check_twopass_flush, tag)
+    f = tp["flushes"]
+    expect_counts(f"twopass, {f} flushes", tp["ingest"], scatter=f,
+                  estimate=2 * f)
+    expect_counts("twopass sample", tp["sample_launches"])
+    add(tp["ingest"])
+    want = tp["eng"].spec.sample(sub_view(tp["eng"].state), K)
+    got = sub_view(tp["sample"])
+    if not (torch.equal(got.keys, want.keys)
+            and torch.equal(got.freqs, want.freqs)):
+        raise AssertionError("twopass sample differs from the plain "
+                             "sample of the same state")
+    log(f"[main] twopass sample(k={K}) of the first {SUB_B} streams: keys and"
+        f" exact frequencies equal to the plain sample; streams with "
+        f"non-finite cells {int(tp['bad'].sum())}")
+    out["twopass"] = {k: tp[k] for k in ("events_per_s", "sample_ms",
+                                         "first_sample_ms", "peak_mb")}
+    del tp
+    torch.cuda.empty_cache()
+    out["twopass"]["flush_ms"], out["twopass"]["traced_sample_ms"] = \
+        profile_sampler(torch, "twopass", steps, K, tag)
+
+    # -- tv, sparse plane --------------------------------------------------
+    tv = drive_sampler(torch, "tv", steps, TV_K, check_tv_flush, tag)
+    f = tv["flushes"]
+    r = tv["eng"].cfg.num_samplers
+    expect_counts(f"tv, {f} flushes", tv["ingest"], scatter=2 * f,
+                  estimate=2 * f)
+    expect_counts(f"tv sample ({r} draws and the rHH read)",
+                  tv["sample_launches"], estimate=r + 1)
+    add(tv["ingest"])
+    add(tv["sample_launches"])
+    want = tv["eng"].spec.sample(sub_view(tv["eng"].state), TV_K)
+    got = sub_view(tv["sample"])
+    if not torch.equal(got.keys, want.keys):
+        raise AssertionError("tv sample keys differ from the plain sample of "
+                             "the same state")
+    if not bool(tv["sample"].threshold.isnan().all()):
+        raise AssertionError("tv sample threshold is not NaN")
+    fresh = (tv["sample"].keys != -1).sum(1).float()
+    log(f"[main] tv sample(k={TV_K}) of the first {SUB_B} streams: keys "
+        f"equal to the plain sample's (estimate kernel == plain median); "
+        f"threshold NaN; fresh draws a stream mean {float(fresh.mean()):.3f}"
+        f" min {int(fresh.min())}; streams with non-finite cells "
+        f"{int(tv['bad'].sum())}")
+    out["tv"] = {k: tv[k] for k in ("events_per_s", "sample_ms",
+                                    "first_sample_ms", "peak_mb")}
+    tv_state = tv["eng"].state
+    del tv
+    torch.cuda.empty_cache()
+    out["tv"]["flush_ms"], out["tv"]["traced_sample_ms"] = profile_sampler(
+        torch, "tv", steps, TV_K, tag)
+
+    # -- the scatter and the estimate at the TV cascade's shapes ----------
+    out["tv_shapes"] = time_tv_shapes(torch, tv_state, steps, tag)
+    del tv_state
+    torch.cuda.empty_cache()
+
+    # -- perfect, sparse plane, on the sub-batch: no kernel ----------------
+    pe = sampler_engine("perfect", SUB_B)
+    reset_counts()
+    before = read_counts()
+    t0 = time.perf_counter()
+    for keys, vals in steps:
+        pe.ingest(keys[:SUB_B], vals[:SUB_B])
+    pe.flush()
+    torch.cuda.synchronize()
+    perfect_s = time.perf_counter() - t0
+    expect_counts("perfect, sparse plane (no sketch, no kernel)",
+                  since(before))
+    devices = {t.device.type for t in (pe.state.freqs,
+                                       pe.state.seed_transform)}
+    if devices != {dev.type}:
+        raise AssertionError(f"perfect state on {devices}")
+    for b in range(4):
+        agg = stream.aggregate_freqs(b, STEPS, INSERTS).astype(np.float32)
+        if not np.array_equal(pe.state.freqs[b].cpu().numpy(), agg):
+            raise AssertionError("perfect frequencies differ from the "
+                                 "stream's aggregate")
+    exact = pe.sample(K)
+    out["perfect"] = {"ingest_s": perfect_s}
+    out["perfect"]["flush_ms"], out["perfect"]["traced_sample_ms"] = \
+        profile_sampler(torch, "perfect", steps, K, tag, num_streams=SUB_B)
+    log(f"[main] perfect (B={SUB_B}, domain {VOCAB}): state on the card, no "
+        f"kernel launched, frequencies equal to the stream's aggregate "
+        f"(streams 0-3); {STEPS} steps in {perfect_s:.4f} s {tag}")
+
+    # -- onepass: freeze, update_pass2, sample_exact -----------------------
+    eng = sampler_engine("onepass")
+    for keys, vals in steps:
+        eng.ingest(keys, vals)
+    eng.freeze()
+    spec = eng.spec
+    frozen = sub_view(eng.state)  # pass II leaves it as it is
+    plain2 = spec.init2(frozen)
+    reset_counts()
+    call_ms = []
+    for keys, vals in steps:
+        before = read_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.update_pass2(keys, vals)
+        torch.cuda.synchronize()
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+        expect_counts("update_pass2 call", since(before), estimate=1)
+        plain2 = spec.update2(plain2, frozen,
+                              torch.from_numpy(keys[:SUB_B]).to(dev),
+                              torch.from_numpy(vals[:SUB_B]).to(dev))
+    add(read_counts())
+    before = read_counts()
+    t0 = time.perf_counter()
+    samp = eng.sample_exact(K)
+    torch.cuda.synchronize()
+    exact_ms = [(time.perf_counter() - t0) * 1e3]
+    for _ in range(5):
+        t0 = time.perf_counter()
+        eng.sample_exact(K)
+        torch.cuda.synchronize()
+        exact_ms.append((time.perf_counter() - t0) * 1e3)
+    expect_counts("sample_exact", since(before))
+    got2 = sub_view(eng.pass2)
+    if not all(torch.equal(a, b) for a, b in zip(got2, plain2)):
+        raise AssertionError("pass-II buffers differ from the plain path's "
+                             "(the priorities are estimates equal under ==)")
+    want = spec.sample2(plain2, K)
+    sub = sub_view(samp)
+    if not (torch.equal(sub.keys, want.keys)
+            and torch.equal(sub.freqs, want.freqs)):
+        raise AssertionError("sample_exact differs from the plain path's")
+    live = sub.keys != -1
+    agg = torch.gather(pe.state.freqs, 1,
+                       torch.where(live, sub.keys, 0).to(torch.int64))
+    if not bool(torch.isclose(sub.freqs, agg, rtol=1e-5)[live].all()):
+        raise AssertionError("sample_exact frequencies are not the stream's "
+                             "exact aggregated frequencies")
+    ex = exact.keys
+    hit = (sub.keys[:, :, None] == ex[:, None, :]).any(2).sum(1).float() / K
+    finite = frozen.sketch.table.isfinite().flatten(1).all(1)
+    fin = hit[finite]
+    n_exact = int((same_sets(torch, sub.keys, ex) & finite).sum())
+    log(f"[main] onepass freeze -> {STEPS} x update_pass2 -> sample_exact("
+        f"k={K}): pass-II buffers and sample equal to the plain path's on "
+        f"{SUB_B} streams; sampled frequencies equal the exact aggregate; "
+        f"recall of the perfect oracle's bottom-{K} over the "
+        f"{int(finite.sum())}"
+        f" finite streams: mean {float(fin.mean()):.4f} min "
+        f"{float(fin.min()):.4f}, {n_exact} streams exact")
+    if float(fin.min()) < 0.5:
+        raise AssertionError("exact two-pass recall below 0.5")
+    log(f"[time] update_pass2 (B={B}, n=5120 a call): "
+        + " ".join(f"{x:.3f}" for x in call_ms) + f" ms; sample_exact(k={K})"
+        f" first {exact_ms[0]:.3f} ms, 5 calls "
+        + " ".join(f"{x:.3f}" for x in exact_ms[1:]) + f" ms {tag}")
+    out["onepass_pass2"] = {"update_pass2_ms": call_ms,
+                            "sample_exact_ms": exact_ms,
+                            "recall_mean": float(fin.mean()),
+                            "recall_min": float(fin.min()),
+                            "exact_streams": n_exact}
+    pass2_ms = traced_ms(torch, lambda: eng.update_pass2(*steps[1]),
+                         "update_pass2, 1 call", tag)
+    out["onepass_pass2"]["traced_ms"] = pass2_ms
+    del eng, pe, frozen, plain2, samp, exact
+    torch.cuda.empty_cache()
+    log(f"[main] samplers phase launches on the main paths: {launches}")
+    log(f"[phase] samplers: {time.perf_counter() - t_phase:.2f} s wall")
+    return launches, out
+
+
+def time_tv_shapes(torch, st, steps, tag) -> dict:
+    """The scatter at the TV cascade's flush (B x r streams of one step) and
+    the estimate at its refresh (B x r x (C + n) keys) and draw (B x C
+    keys) shapes, each against its bound from these inputs, as phase 4
+    counts them; the scatter with its index_add_ yardstick."""
+    from repro_torch.core import transforms
+    from repro_torch.kernels import countsketch_scatter as s
+
+    dev = torch.device(DEVICE)
+    Bt, r = st.transform_seeds.shape
+    seeds = st.sketches.seed.reshape(-1)
+    tseeds = st.transform_seeds.reshape(-1)
+    keys = torch.from_numpy(steps[1][0]).to(dev).repeat_interleave(r, 0)
+    vals = torch.from_numpy(steps[1][1]).to(dev).repeat_interleave(r, 0)
+    before = dict(s.variant_launches)
+    s.countsketch_scatter_batched(keys, vals, ROWS, WIDTH, seeds, p=P,
+                                  transform_seeds=tseeds)
+    if launched(s, before) != "smem":
+        raise AssertionError("the TV cascade's scatter is not the "
+                             "shared-memory variant")
+    s_ms = cuda_ms(torch, lambda: s.countsketch_scatter_batched(
+        keys, vals, ROWS, WIDTH, seeds, p=P, transform_seeds=tseeds), 10)
+    live = int((keys != -1).sum())
+    s_bound, s_by = bound(keys.numel() * 8 + Bt * r * ROWS * WIDTH * 4,
+                          live * SCATTER_OPS_PER_SLOT)
+    tv_ = transforms.transform_values(keys, vals, P, tseeds[:, None])
+    idx, sign = row_index(torch, keys, seeds, WIDTH)
+    idx = idx.reshape(-1)
+    sv = (sign * tv_.repeat(1, ROWS)).reshape(-1)
+    del tv_, sign
+    flat = torch.zeros(Bt * r * ROWS * WIDTH, device=dev)
+    s_lib = cuda_ms(torch, lambda: flat.zero_().index_add_(0, idx, sv), 5)
+    del idx, sv, flat
+    torch.cuda.empty_cache()
+    plan = plan_of(Bt * r, keys.shape[1], None)
+    log(f"[time] scatter at the TV cascade's flush (B*r={Bt * r}, n="
+        f"{keys.shape[1]}): kernel {s_ms:.4f} ms ({plan['blocks']} blocks, "
+        f"one a stream: {plan['one_per_stream']}), index_add_ yardstick "
+        f"(memory half only) {s_lib:.4f} ms, bound {s_bound:.4f} ms by "
+        f"{s_by}, {100 * s_bound / s_ms:.1f} % of bound {tag}")
+    tables = st.sketches.table.reshape(Bt * r, ROWS, WIDTH)
+    cands = st.cand_keys.reshape(Bt * r, -1)
+    qkeys = torch.cat([cands, keys], 1).contiguous()
+    del keys, vals
+    check_estimate(torch, "TV cascade refresh shape", tables, qkeys, seeds)
+    refresh = time_estimate(torch, "TV cascade refresh shape", tables, qkeys,
+                            seeds, 5, 1, tag)
+    del qkeys
+    torch.cuda.empty_cache()
+    draw_tables = st.sketches.table[:, 0].contiguous()
+    draw_keys = st.cand_keys[:, 0].contiguous()
+    draw_seeds = st.sketches.seed[:, 0].contiguous()
+    check_estimate(torch, "TV draw shape", draw_tables, draw_keys,
+                   draw_seeds)
+    draw = time_estimate(torch, "TV draw shape", draw_tables, draw_keys,
+                         draw_seeds, 20, 3, tag)
+    return {"scatter": {"ms": s_ms, "bound_ms": s_bound, "bound_by": s_by,
+                        "library_ms": s_lib, "streams": Bt * r,
+                        "n": int(steps[1][0].shape[1])},
+            "estimate_refresh": refresh, "estimate_draw": draw}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -1695,7 +2295,8 @@ def main() -> int:
     cfg = EngineConfig(num_streams=B, rows=ROWS, width=WIDTH,
                        candidates=CANDIDATES, p=P)
     seeds, tseeds = derive_stream_seeds(cfg, device=dev)
-    kernels, errs = phase_sparse(torch, args, seeds, tseeds, tag)
+    (stream, steps), kernels, errs = phase_sparse(torch, args, seeds, tseeds,
+                                                  tag)
     del seeds, tseeds
     torch.cuda.empty_cache()
 
@@ -1705,6 +2306,11 @@ def main() -> int:
     kernels.append(entry)
     single = phase_single(torch, wg_values, tag)
     kernels.extend(single)
+    torch.cuda.empty_cache()
+
+    # -- the samplers phase: twopass, tv, onepass pass II, perfect -------
+    sampler_launches, samplers = phase_samplers(torch, steps, stream, tag)
+    del steps, stream
 
     # -- phase 7: the kernels line and the ok line -------------------------
     by_name = {k["name"]: k for k in kernels}
@@ -1719,6 +2325,21 @@ def main() -> int:
     log(f"[main] estimate launches on the dense path: {dense_estimates}; "
         f"worst err/bound of the update at its edge shapes "
         f"{errs['update_edge_ratio']:.3e}")
+    scatter = by_name["countsketch_scatter_batched"]
+    scatter["launches"] += sampler_launches["scatter"]
+    scatter["variants"]["smem"]["launches"] += sampler_launches["smem"]
+    scatter["tv_cascade_shape"] = samplers["tv_shapes"]["scatter"]
+    est["launches"] += sampler_launches["estimate"]
+    for key in ("refresh", "draw"):
+        t = samplers["tv_shapes"][f"estimate_{key}"]
+        est[f"tv_{key}_shape"] = {
+            "ms": t["estimate"], "plain_ms": t["plain"],
+            "bound_ms": t["bound"], "bound_by": t["bound_by"],
+            "library_ms": t["library"],
+            "row_read_median_ms": t["row_read_median"],
+            "row_read_ms": t["row_read"]}
+    log("[samplers] " + json.dumps({k: v for k, v in samplers.items()
+                                    if k != "tv_shapes"}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))

@@ -1,17 +1,75 @@
-"""Carry one-pass WORp state between the JAX package and the port.
+"""Carry sampler state between the JAX package and the port.
 
-Both functions speak numpy, so neither package imports the other: a JAX
-``OnePassState`` (batched or not) passes through ``np.asarray`` of its
-leaves into ``onepass_state_from_numpy``, and ``onepass_state_to_numpy``
-gives arrays the JAX ``OnePassState`` takes back.  A state continued in
-either package gives the same samples.
+Every function speaks numpy, so neither package imports the other.  A JAX
+state (batched or not) passes through ``np.asarray`` of its leaves, in
+``jax.tree_util.tree_leaves`` order, into ``state_from_numpy``, and
+``state_to_numpy`` gives the leaves in that order, which
+``jax.tree_util.tree_unflatten`` turns back into the JAX state.  The port's
+states are NamedTuples with the reference's fields, so the leaf orders
+agree.  uint32 leaves (seeds) travel as uint32 and live in the port as
+int64 tensors (``hashing.as_u32``).  A state continued in either package
+gives the same samples.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core import countsketch, hashing, worp
+from repro_torch.core import countsketch, hashing, tv_sampler, worp
+from repro_torch.core.sampler import PerfectState, TwoPassRunState
+
+# the nested state types of each carried state, field by field (None: a
+# tensor leaf)
+_FIELDS = {
+    countsketch.CountSketch: (None, None),
+    worp.OnePassState: (countsketch.CountSketch, None, None),
+    worp.TwoPassState: (None, None, None, None),
+    TwoPassRunState: (worp.OnePassState, worp.TwoPassState),
+    PerfectState: (None, None),
+    tv_sampler.TVSamplerState: (countsketch.CountSketch, None, None,
+                                worp.OnePassState),
+}
+
+
+def _leaf_from_numpy(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        return hashing.as_u32(a.astype(np.int64), device=device)
+    return torch.tensor(a, device=device)
+
+
+def state_from_numpy(kind, leaves, device):
+    """A port state of type ``kind`` (``worp.OnePassState``,
+    ``worp.TwoPassState``, ``sampler.TwoPassRunState``,
+    ``sampler.PerfectState``, ``tv_sampler.TVSamplerState`` or
+    ``countsketch.CountSketch``) from its numpy leaves in order."""
+    it = iter(leaves)
+
+    def leaf():
+        a = next(it, None)
+        if a is None:
+            raise ValueError(f"state_from_numpy: too few leaves for "
+                             f"{kind.__name__}")
+        return _leaf_from_numpy(a, device)
+
+    def build(k):
+        return k(*(build(f) if f is not None else leaf()
+                   for f in _FIELDS[k]))
+
+    st = build(kind)
+    if next(it, None) is not None:
+        raise ValueError(f"state_from_numpy: too many leaves for "
+                         f"{kind.__name__}")
+    return st
+
+
+def state_to_numpy(st) -> list:
+    """The numpy leaves of a port state, in the JAX state's leaf order;
+    int64 seed tensors come back as uint32."""
+    if isinstance(st, torch.Tensor):
+        a = st.detach().cpu().numpy()
+        return [a.astype(np.uint32) if a.dtype == np.int64 else a]
+    return [leaf for field in st for leaf in state_to_numpy(field)]
 
 
 def onepass_state_from_numpy(table, seed, cand_keys, seed_transform,
@@ -28,19 +86,11 @@ def onepass_state_from_numpy(table, seed, cand_keys, seed_transform,
             f"onepass_state_from_numpy: batch shapes disagree: table "
             f"{table.shape}, seed {seed.shape}, cand_keys {cand_keys.shape}, "
             f"seed_transform {seed_transform.shape}")
-    return worp.OnePassState(
-        sketch=countsketch.CountSketch(
-            table=torch.tensor(table, device=device),
-            seed=hashing.as_u32(seed.astype(np.int64), device=device)),
-        cand_keys=torch.tensor(cand_keys, device=device),
-        seed_transform=hashing.as_u32(seed_transform.astype(np.int64),
-                                      device=device))
+    return state_from_numpy(worp.OnePassState,
+                            (table, seed, cand_keys, seed_transform), device)
 
 
 def onepass_state_to_numpy(st: worp.OnePassState) -> tuple:
     """(table float32, seed uint32, cand_keys int32, seed_transform uint32)
     numpy arrays, in the order of the JAX state's leaves."""
-    return (st.sketch.table.detach().cpu().numpy().astype(np.float32),
-            st.sketch.seed.cpu().numpy().astype(np.uint32),
-            st.cand_keys.cpu().numpy().astype(np.int32),
-            st.seed_transform.cpu().numpy().astype(np.uint32))
+    return tuple(state_to_numpy(st))

@@ -63,7 +63,7 @@ def int32_arg(x, n: int, device) -> torch.Tensor:
         n).contiguous()
 
 
-def _mul32(x: torch.Tensor, c) -> torch.Tensor:
+def mul32(x: torch.Tensor, c) -> torch.Tensor:
     """(x * c) mod 2**32 for x in [0, 2**32) and c a uint32 constant or
     tensor, without any int64 product overflowing: x is split into 16-bit
     halves, so each partial product stays below 2**48."""
@@ -75,9 +75,9 @@ def _mul32(x: torch.Tensor, c) -> torch.Tensor:
 def _mix32(x: torch.Tensor) -> torch.Tensor:
     """Low-bias 32-bit integer finalizer (avalanching mixer)."""
     x = x ^ (x >> 16)
-    x = _mul32(x, _M1)
+    x = mul32(x, _M1)
     x = x ^ (x >> 15)
-    x = _mul32(x, _M2)
+    x = mul32(x, _M2)
     x = x ^ (x >> 16)
     return x
 
@@ -87,7 +87,7 @@ def hash_u32(keys, salt) -> torch.Tensor:
     ``salt``; ``salt`` broadcasts against ``keys``."""
     k = as_u32(keys)
     s = as_u32(salt, device=k.device)
-    return _mix32(_mix32((k + s) & MASK32) ^ _mul32(s, _ROW_SALT))
+    return _mix32(_mix32((k + s) & MASK32) ^ mul32(s, _ROW_SALT))
 
 
 def uniform01(keys, salt) -> torch.Tensor:
@@ -113,12 +113,19 @@ def bucket_hash(keys, salt, width: int) -> torch.Tensor:
     return hash_u32(keys, salt) % int(width)
 
 
+def key_hash_to_domain(keys, salt, n: int) -> torch.Tensor:
+    """KeyHash: map integer-encoded keys into [n] (paper Eq. 13), as int32
+    with two's-complement wrap for n > 2**31, as the reference's
+    ``astype(int32)``."""
+    return to_int32(hash_u32(keys, salt) % int(n))
+
+
 def row_salt(seed, row) -> torch.Tensor:
     """Per-row salt for multi-row sketches: decorrelated via golden-ratio
     step; ``seed`` and ``row`` broadcast."""
     seed = as_u32(seed)
     row = as_u32(row, device=seed.device)
-    return (seed + _mul32((row + 1) & MASK32, _ROW_SALT)) & MASK32
+    return (seed + mul32((row + 1) & MASK32, _ROW_SALT)) & MASK32
 
 
 # ---------------------------------------------------------------------------

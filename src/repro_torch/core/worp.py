@@ -1,13 +1,21 @@
-"""One-pass WORp: without-replacement ell_p sampling via an rHH sketch
-(paper Sec. 5), in PyTorch.
+"""WORp: without-replacement ell_p sampling via rHH sketches (paper Secs.
+4-5), in PyTorch.
 
+One-pass WORp (Sec. 5)
   state   = CountSketch of transformed elements + a top-C candidate buffer
   sample  = top-k keys by estimated |nu*|, threshold = (k+1)-st estimate,
             frequencies recovered via Eq. (6).
 
+Two-pass WORp (Sec. 4, Algorithm 2)
+  pass I  = CountSketch R of transformed elements
+  pass II = top-C buffer T keyed by FROZEN priorities |R.Est|, accumulating
+            exact frequencies (Lemma 4.2: priorities never change during
+            pass II, so a key in the final buffer was kept from its first
+            pass-II appearance and its count is exact).
+  sample  = top-k stored keys by exact |nu*| = |nu_x| / r_x^{1/p}.
+
 States are NamedTuples of tensors with optional leading batch axes (the
 engine's B streams); every function here works on one stream or on B.
-Two-pass WORp comes with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -16,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from . import countsketch, hashing, transforms
+from .device import resolve_device
 from .perfect import Sample
 
 _EMPTY = -1
@@ -155,6 +164,110 @@ def onepass_sample(st: OnePassState, k: int, p: float,
     approximate frequencies nu' via Eq. (6)."""
     est = countsketch.estimate(st.sketch, st.cand_keys)
     return onepass_sample_from_estimates(st, est, k, p, scheme)
+
+
+# ---------------------------------------------------------------------------
+# Two-pass WORp (Algorithm 2)
+# ---------------------------------------------------------------------------
+
+class TwoPassState(NamedTuple):
+    """Pass-II structure T: exact frequencies keyed by frozen priorities."""
+    keys: torch.Tensor            # (..., capacity) int32 (-1 = empty)
+    freqs: torch.Tensor           # (..., capacity) float32 exact nu_x
+    priority: torch.Tensor        # (..., capacity) float32 frozen |R.Est|
+    seed_transform: torch.Tensor  # (...) int64 uint32 seeds of r_x
+
+
+def twopass_init(capacity: int, seed_transform, device=None) -> TwoPassState:
+    """Empty buffer; the batch shape is the shape of ``seed_transform``.  It
+    lives on ``device``, else on a tensor seed's device, else on the
+    card."""
+    if device is not None or not isinstance(seed_transform, torch.Tensor):
+        device = resolve_device(device)
+    seed = hashing.as_u32(seed_transform, device=device)
+    shape = seed.shape + (capacity,)
+    return TwoPassState(
+        keys=torch.full(shape, _EMPTY, dtype=torch.int32, device=seed.device),
+        freqs=torch.zeros(shape, dtype=torch.float32, device=seed.device),
+        priority=torch.full(shape, _NEG, dtype=torch.float32,
+                            device=seed.device),
+        seed_transform=seed)
+
+
+def _twopass_combine(st: TwoPassState, keys, values, prio) -> TwoPassState:
+    nk, nv, np_ = _dedup_topc(torch.cat([st.keys, keys], -1),
+                              torch.cat([st.freqs, values], -1),
+                              torch.cat([st.priority, prio], -1),
+                              st.keys.shape[-1])
+    return TwoPassState(keys=nk, freqs=nv, priority=np_,
+                        seed_transform=st.seed_transform)
+
+
+def twopass_update_from_priorities(st: TwoPassState, keys, values,
+                                   prio) -> TwoPassState:
+    """``twopass_update`` with the |R.Est| priorities precomputed -- the
+    seam that lets the engine obtain the priorities of all B streams from
+    one estimate-kernel launch."""
+    keys = keys.to(torch.int32)
+    prio = torch.where(keys == _EMPTY, _NEG, torch.abs(prio))
+    return _twopass_combine(st, keys, values.to(torch.float32), prio)
+
+
+def twopass_update(st: TwoPassState, frozen: countsketch.CountSketch, keys,
+                   values) -> TwoPassState:
+    """Pass-II step: accumulate exact frequencies of top-priority keys.
+    ``frozen`` is the (merged, global) pass-I sketch: its priorities do not
+    change during pass II."""
+    keys = keys.to(torch.int32)
+    prio = countsketch.estimate(frozen, keys)
+    return twopass_update_from_priorities(st, keys, values, prio)
+
+
+def twopass_merge(a: TwoPassState, b: TwoPassState) -> TwoPassState:
+    check_merge_seeds("twopass_merge",
+                      seed_transform=(a.seed_transform, b.seed_transform))
+    return _twopass_combine(a, b.keys, b.freqs, b.priority)
+
+
+def _exact_magnitudes(st: TwoPassState, p: float, scheme: str):
+    """nu* of the stored keys and |nu*| with empty slots at -inf."""
+    safe_keys = torch.where(st.keys == _EMPTY, 0, st.keys)
+    tstar = transforms.transform_frequencies(
+        safe_keys, st.freqs, p, st.seed_transform[..., None], scheme)
+    return tstar, torch.where(st.keys == _EMPTY, _NEG, torch.abs(tstar))
+
+
+def twopass_sample(st: TwoPassState, k: int, p: float,
+                   scheme: str = transforms.PPSWOR) -> Sample:
+    """Final sample: top-k stored keys by EXACT |nu*|, exact frequencies."""
+    _check_sample_k(k, st.keys.shape[-1], "twopass_sample", "capacity")
+    tstar, mag = _exact_magnitudes(st, p, scheme)
+    top_mag, top_i = top_k(mag, k + 1)
+    sel = top_i[..., :k]
+    return Sample(keys=torch.gather(st.keys, -1, sel),
+                  freqs=torch.gather(st.freqs, -1, sel),
+                  threshold=top_mag[..., k],
+                  transformed=torch.gather(tstar, -1, sel))
+
+
+def twopass_extended_sample(st: TwoPassState, k: int, p: float,
+                            scheme: str = transforms.PPSWOR):
+    """Sec. 4.1's second practical optimization: certify a larger effective
+    sample.  Any key with nu* >= L + nu*_(k+1) / 3 (L the least retained
+    priority) must be stored; returns a boolean mask over the stored slots
+    and the threshold (the least certified nu*)."""
+    _check_sample_k(k, st.keys.shape[-1], "twopass_extended_sample",
+                    "capacity")
+    _, mag = _exact_magnitudes(st, p, scheme)
+    err = top_k(mag, k + 1)[0][..., k] / 3.0
+    live_prio = torch.where(st.keys == _EMPTY, float("inf"), st.priority)
+    # under k + 1 stored keys err = -inf (and an empty buffer has L = inf):
+    # a non-finite bar certifies nothing
+    bar = live_prio.min(-1).values + err
+    bar = torch.where(torch.isfinite(bar), bar, float("inf"))
+    certified = (st.keys != _EMPTY) & (mag >= bar[..., None])
+    tau = torch.where(certified, mag, float("inf")).min(-1).values
+    return certified, tau
 
 
 def failure_test(sk: countsketch.CountSketch, sample: Sample, k: int,

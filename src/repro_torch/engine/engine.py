@@ -3,19 +3,24 @@
 A *batched state* is a sampler state whose every tensor has a leading
 stream axis: for one-pass WORp, ``OnePassState.sketch.table`` is
 (B, rows, width), ``seed_transform`` is (B,), and so on.  The core
-functions take that axis natively, so the engine calls them directly.
+functions and the registry's specs take that axis natively, so the engine
+calls them directly.  ``SketchEngine(cfg, sampler="onepass"|"twopass"|
+"perfect"|"tv")`` picks the sampler from the registry.
 
 Seeding: independent streams hash their own sketch/transform seeds from the
 engine seed (default); ``shared_seeds`` makes the B streams shards of one
 logical stream, and ``reduce_streams`` collapses them in O(log B) merge
 rounds.
 
-The query plane (candidate refresh, estimate, sample) goes through
-``kernels.ops.estimate_batched``: one launch of the estimate kernel, which
-reads each key's rows and takes their median in registers, for all B
-streams on the card.  Dense segments (``update_dense``) go through one launch of
-the dense update kernel; turnstile ingest is the data-plane layer in
-``repro_torch.engine.planes``.
+Every read of a sketch goes through ``kernels.ops.estimate_batched``: one
+launch of the estimate kernel, which reads each key's rows and takes their
+median in registers, for all B streams on the card.  That covers the
+candidate refresh, the one-pass sample, ``estimate``, the merges of the
+sketch-backed samplers, the TV cascade's draws and the pass-II priorities
+(``update_pass2``).  Dense segments (``update_dense``) go through one launch
+of the dense update kernel; turnstile ingest is the data-plane layer in
+``repro_torch.engine.planes``.  The perfect oracle holds no sketch and runs
+its spec's plain PyTorch on the engine's device.
 """
 from __future__ import annotations
 
@@ -25,14 +30,12 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core import countsketch, hashing, transforms, worp
+from repro_torch.core import countsketch, hashing, transforms, tv_sampler, worp
 from repro_torch.core import sampler as core_sampler
 from repro_torch.core.device import resolve_device
 from repro_torch.core.perfect import Sample
 from repro_torch.core.sampler import SamplerSpec
 from repro_torch.kernels import ops
-
-_NOT_PORTED = "not ported yet: it comes with a later slice of the port"
 
 
 class EngineConfig(NamedTuple):
@@ -40,18 +43,22 @@ class EngineConfig(NamedTuple):
     rows: int = 7
     width: int = 2048
     candidates: int = 512     # one-pass candidate buffer per stream
+    capacity: int = 512       # two-pass exact-frequency buffer per stream
     p: float = 1.0
     scheme: str = transforms.PPSWOR
     seed: int = 0x5EED
     shared_seeds: bool = False  # True => streams are mergeable shards
     sampler: str = "onepass"    # registry key (see repro_torch.core.sampler)
+    domain: int = 4096          # "perfect" sampler: frequency-vector size
+    num_samplers: int = 8       # "tv" sampler: cascade length r
 
 
 def sampler_config(cfg: EngineConfig) -> core_sampler.SamplerConfig:
     """Project the engine config onto the registry's SamplerConfig."""
     return core_sampler.SamplerConfig(
-        rows=cfg.rows, width=cfg.width, candidates=cfg.candidates, p=cfg.p,
-        scheme=cfg.scheme)
+        rows=cfg.rows, width=cfg.width, candidates=cfg.candidates,
+        capacity=cfg.capacity, p=cfg.p, scheme=cfg.scheme, domain=cfg.domain,
+        num_samplers=cfg.num_samplers)
 
 
 def engine_spec(cfg: EngineConfig) -> SamplerSpec:
@@ -77,6 +84,23 @@ def derive_stream_seeds(cfg: EngineConfig, offset: int = 0, device=None):
          + offset) & hashing.MASK32
     return (hashing.hash_u32(b, cfg.seed),
             hashing.hash_u32(b, (cfg.seed & hashing.MASK32) ^ 0xA5A5A5A5))
+
+
+def init_batched(cfg: EngineConfig, device=None):
+    """Batched initial state of cfg's registered sampler on ``device`` (the
+    card unless the caller asks otherwise)."""
+    return engine_spec(cfg).init(*derive_stream_seeds(cfg, device=device))
+
+
+def estimate_sketch(sk: countsketch.CountSketch, keys) -> torch.Tensor:
+    """R.Est of a sketch of any batch shape ``(...)`` for (..., n) keys:
+    the batch flattened into one estimate-kernel launch."""
+    rows, width = sk.table.shape[-2:]
+    n = keys.shape[-1]
+    est = ops.estimate_batched(
+        sk.table.reshape(-1, rows, width).contiguous(),
+        keys.to(torch.int32).reshape(-1, n).contiguous(), sk.seed.reshape(-1))
+    return est.reshape(keys.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +177,68 @@ def onepass_sample_batched(st: worp.OnePassState, k: int, p: float,
     return worp.onepass_sample_from_estimates(st, est, k, p, scheme)
 
 
+# ---------------------------------------------------------------------------
+# batched two-pass WORp
+# ---------------------------------------------------------------------------
+
+def twopass_init_batched(cfg: EngineConfig,
+                         device=None) -> worp.TwoPassState:
+    _, t_seeds = derive_stream_seeds(cfg, device=device)
+    return worp.twopass_init(cfg.capacity, t_seeds)
+
+
+def twopass_update_batched(st: worp.TwoPassState,
+                           frozen: countsketch.CountSketch, keys, values):
+    """Pass-II step of B streams against the batched frozen pass-I sketch:
+    the priorities of the (B, n) keys from one estimate-kernel launch."""
+    keys = keys.to(torch.int32)
+    prio = ops.estimate_batched(frozen.table, keys, frozen.seed)
+    return worp.twopass_update_from_priorities(st, keys, values, prio)
+
+
+# the core functions take the stream axis natively
+twopass_merge_batched = worp.twopass_merge
+twopass_sample_batched = worp.twopass_sample
+
+
+def twopass_run_merge_batched(a, b):
+    """Stream-wise merge of two batched ``TwoPassRunState``s; pass I's
+    candidate refresh through the estimate kernel."""
+    return core_sampler.TwoPassRunState(
+        pass1=onepass_merge_batched(a.pass1, b.pass1),
+        pass2=worp.twopass_merge(a.pass2, b.pass2))
+
+
+# ---------------------------------------------------------------------------
+# batched TV cascade
+# ---------------------------------------------------------------------------
+
+def tv_merge_batched(a: tv_sampler.TVSamplerState,
+                     b: tv_sampler.TVSamplerState):
+    """Stream-wise merge of two batched TV states: the B x r cascade
+    sketches' candidate refresh is one estimate-kernel launch, the rHH's
+    another."""
+    sk = countsketch.merge(a.sketches, b.sketches)
+    B, r, rows, width = sk.table.shape
+    C = a.cand_keys.shape[-1]
+    cand = _refresh_candidates(
+        countsketch.CountSketch(table=sk.table.reshape(B * r, rows, width),
+                                seed=sk.seed.reshape(B * r)),
+        a.cand_keys.reshape(B * r, C), b.cand_keys.reshape(B * r, C))
+    return tv_sampler.TVSamplerState(
+        sketches=sk, cand_keys=cand.reshape(B, r, C),
+        transform_seeds=a.transform_seeds,
+        rhh=onepass_merge_batched(a.rhh, b.rhh))
+
+
+def tv_sample_batched(st: tv_sampler.TVSamplerState, k: int, p: float,
+                      scheme: str = transforms.PPSWOR) -> Sample:
+    """Per-stream TV samples: each of the r cascade draws is one
+    estimate-kernel launch for all B streams, and one more reads the rHH
+    estimates of every candidate."""
+    return tv_sampler.sample(st, k, p, scheme, estimate=estimate_sketch)
+
+
 def reduce_streams(st, merge_batched):
     """Collapse a batched state's B streams to ONE state in ceil(log2 B)
     batched merge rounds (valid when the streams share seeds).  Each round
@@ -189,11 +275,27 @@ def _map2(fn, a, b):
 
 
 # ---------------------------------------------------------------------------
+# the engine's kernel routes by sampler name: a sketch-backed sampler reads
+# its sketches through the estimate kernel; a sampler without an entry runs
+# its spec (the two-pass sample reads no sketch, the perfect oracle none)
+# ---------------------------------------------------------------------------
+
+_MERGES = {"onepass": onepass_merge_batched,
+           "twopass": twopass_run_merge_batched,
+           "tv": tv_merge_batched}
+_SAMPLES = {"onepass": onepass_sample_batched, "tv": tv_sample_batched}
+_ESTIMATE_SKETCHES = {"onepass": lambda st: st.sketch,
+                      "twopass": lambda st: st.pass1.sketch,
+                      "tv": lambda st: st.rhh.sketch}
+
+
+# ---------------------------------------------------------------------------
 # stateful engine
 # ---------------------------------------------------------------------------
 
 class SketchEngine:
-    """Holds the batched state of B sampler streams on one device.
+    """Holds the batched state of B sampler streams on one device, plus an
+    exact pass-II state once ``freeze`` starts one.
 
     ``device=None`` means the card; with no card the engine raises unless
     the caller passes ``device="cpu"``, which runs the plain PyTorch
@@ -223,6 +325,8 @@ class SketchEngine:
             plane, self.spec,
             self.spec.init(*derive_stream_seeds(cfg, device=self.device)),
             policy=policy)
+        self._merge = _MERGES.get(cfg.sampler, self.spec.merge)
+        self.pass2 = None
 
     @property
     def num_streams(self) -> int:
@@ -249,7 +353,9 @@ class SketchEngine:
 
     def update(self, keys, values):
         """Sparse element batches (B, n), applied at once through the
-        sparse kernel path after any pending ingest buffer."""
+        sparse kernel path.  Any pending ingest buffer drains FIRST, so the
+        elements apply in call order (the streaming two-pass state depends
+        on it)."""
         from repro_torch.engine import planes
 
         self.flush()
@@ -306,10 +412,6 @@ class SketchEngine:
             base_keys=base_keys, lengths=lengths, scheme=self.cfg.scheme)
         return self
 
-    def freeze(self):
-        raise NotImplementedError(
-            f"SketchEngine.freeze (the exact second pass) is {_NOT_PORTED}")
-
     def merge_with(self, other: "SketchEngine"):
         """Stream-wise union with another engine of an identical config."""
         ocfg = getattr(other, "cfg", None)
@@ -327,7 +429,7 @@ class SketchEngine:
                 "requires identical EngineConfig (per-stream hash seeds and "
                 "state shapes must agree, or the merged sketch is garbage); "
                 "mismatched fields: " + ", ".join(diff))
-        self.state = onepass_merge_batched(self.state, other.state)
+        self.state = self._merge(self.state, other.state)
         return self
 
     def sample(self, k: int) -> Sample:
@@ -337,20 +439,71 @@ class SketchEngine:
     def sample_state(self, state, k: int) -> Sample:
         """Per-stream WOR samples of an arbitrary batched state of this
         engine's sampler, without touching the engine's own state."""
-        return onepass_sample_batched(state, k, self.cfg.p, self.cfg.scheme)
+        route = _SAMPLES.get(self.cfg.sampler)
+        if route is None:
+            return self.spec.sample(state, k)
+        return route(state, k, self.cfg.p, self.cfg.scheme)
 
     def estimate(self, keys) -> torch.Tensor:
         """Per-stream transformed-domain estimates for (B, n) keys."""
         self.flush()
-        st = self.state
-        return ops.estimate_batched(st.sketch.table,
-                                    self._to_device(keys, torch.int32),
-                                    st.sketch.seed)
+        keys = self._to_device(keys, torch.int32)
+        sketch_of = _ESTIMATE_SKETCHES.get(self.cfg.sampler)
+        if sketch_of is None:
+            return self.spec.estimate(self.state, keys)
+        sk = sketch_of(self.state)
+        return ops.estimate_batched(sk.table, keys, sk.seed)
 
+    # -- exact pass II (samplers with a frozen-priority second pass) --------
+    def freeze(self):
+        """Freeze the pass-I priorities and start the exact second pass."""
+        if not self.spec.two_phase:
+            raise ValueError(
+                f"freeze: sampler {self.cfg.sampler!r} has no exact second "
+                f"pass (two-phase samplers: onepass, twopass)")
+        self.flush()
+        self.pass2 = self.spec.init2(self.state)
+        return self
+
+    def _frozen_sketch(self):
+        """The batched frozen pass-I CountSketch behind the pass-II
+        priorities (None for a sampler that registered no accessor with
+        ``planes.register_frozen_sketch``)."""
+        from repro_torch.engine import planes
+
+        getter = planes.frozen_sketch_getter(self.cfg.sampler)
+        return getter(self.state) if getter is not None else None
+
+    def _require_pass2(self):
+        if self.pass2 is None:
+            raise RuntimeError("call freeze() before pass II")
+
+    def update_pass2(self, keys, values):
+        """Exact-frequency pass-II replay of (B, n) batches; the priorities
+        against the FROZEN pass-I sketch come from one estimate-kernel
+        launch for all B streams (``twopass_update_batched``)."""
+        self._require_pass2()
+        keys = self._to_device(keys, torch.int32)
+        values = self._to_device(values, torch.float32)
+        frozen = self._frozen_sketch()
+        if frozen is None:
+            self.pass2 = self.spec.update2(self.pass2, self.state, keys,
+                                           values)
+        else:
+            self.pass2 = twopass_update_batched(self.pass2, frozen, keys,
+                                                values)
+        return self
+
+    def sample_exact(self, k: int) -> Sample:
+        """The exact two-pass sample of the pass-II state."""
+        self._require_pass2()
+        return self.spec.sample2(self.pass2, k)
+
+    # -- shard collapse -----------------------------------------------------
     def collapse(self):
         """Merge all B streams into one state (requires shared_seeds)."""
         if not self.cfg.shared_seeds:
             raise ValueError("collapse() requires shared_seeds=True "
                              "(independent streams are not mergeable)")
         self.flush()
-        return reduce_streams(self.state, onepass_merge_batched)
+        return reduce_streams(self.state, self._merge)

@@ -6,9 +6,13 @@ until a ``FlushPolicy`` fires -- and they differ only in the dispatch step:
 
   ``DensePlane``   the sampler spec's plain PyTorch update on the
                    concatenated batch (the reference plane).
-  ``SparsePlane``  ``ingest_sparse``: one scatter-kernel launch for the
-                   sketch delta, then the candidate refresh through one
-                   estimate-kernel launch (the sampler-name registry below).
+  ``SparsePlane``  ``ingest_sparse``: every sketch-backed sampler takes
+                   its registered kernel path (the sampler-name registry
+                   below): scatter-kernel launches for the sketch deltas,
+                   then estimate-kernel launches for the candidate refresh
+                   (and the two-pass buffer's online priorities).  The
+                   perfect oracle, which holds no sketch, takes its spec's
+                   update.
 
 The asynchronous and pipeline planes, and wire codecs other than ``none``,
 come with later slices of the port.
@@ -21,7 +25,8 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from repro_torch.core import countsketch, transforms, worp
+from repro_torch.core import countsketch, transforms, tv_sampler, worp
+from repro_torch.core import sampler as core_sampler
 from repro_torch.core.sampler import SamplerSpec
 from repro_torch.engine.engine import _leaves, _refresh_candidates
 from repro_torch.kernels import ops
@@ -29,10 +34,13 @@ from repro_torch.kernels import ops
 # ---------------------------------------------------------------------------
 # sparse kernel paths by sampler name: a sampler opts into the scatter-kernel
 # plane with ``@register_sparse_path(name)`` (signature
-# ``fn(state, keys, values, p, scheme)``).
+# ``fn(state, keys, values, p, scheme)``).  ``register_frozen_sketch``
+# likewise exposes the pass-II frozen CountSketch for the batched-priority
+# path of ``SketchEngine.update_pass2``.
 # ---------------------------------------------------------------------------
 
 _SPARSE_PATHS: dict = {}
+_FROZEN_SKETCH: dict = {}
 
 
 def register_sparse_path(name: str):
@@ -41,6 +49,24 @@ def register_sparse_path(name: str):
         return fn
 
     return deco
+
+
+def register_frozen_sketch(name: str):
+    def deco(fn):
+        _FROZEN_SKETCH[name] = fn
+        return fn
+
+    return deco
+
+
+register_frozen_sketch("onepass")(lambda st: st.sketch)
+register_frozen_sketch("twopass")(lambda st: st.pass1.sketch)
+
+
+def frozen_sketch_getter(name: str):
+    """The registered frozen pass-I sketch accessor for ``name`` (None when
+    the sampler registered none)."""
+    return _FROZEN_SKETCH.get(name)
 
 
 @register_sparse_path("onepass")
@@ -67,15 +93,78 @@ def onepass_update_sparse(st: worp.OnePassState, keys: torch.Tensor,
                              seed_transform=st.seed_transform)
 
 
+# the core function takes the stream axis natively
+twopass_update_from_priorities_batched = worp.twopass_update_from_priorities
+
+
+@register_sparse_path("twopass")
+def twopass_run_update_sparse(st, keys: torch.Tensor, values: torch.Tensor,
+                              p: float, scheme: str = transforms.PPSWOR):
+    """Sparse kernel path of the streaming "twopass" state
+    (``core.sampler.TwoPassRunState``): pass I is the one-pass path (one
+    scatter launch, one estimate launch for its refresh); the pass-II
+    buffer's online priorities of the batch keys are one more estimate
+    launch."""
+    p1 = onepass_update_sparse(st.pass1, keys, values, p, scheme)
+    with record_function("sparse.refresh"):
+        prio = ops.estimate_batched(p1.sketch.table, keys, p1.sketch.seed)
+        p2 = twopass_update_from_priorities_batched(st.pass2, keys, values,
+                                                    prio)
+    return core_sampler.TwoPassRunState(pass1=p1, pass2=p2)
+
+
+@register_sparse_path("tv")
+def tv_update_sparse(st: tv_sampler.TVSamplerState, keys: torch.Tensor,
+                     values: torch.Tensor, p: float,
+                     scheme: str = transforms.PPSWOR):
+    """Sparse kernel path of the batched TV cascade: the B x r cascade
+    sketches (each with its own hash and transform seed) flatten into one
+    scatter launch, their candidate refresh into one estimate launch, and
+    the rHH takes the one-pass path."""
+    B, r = st.transform_seeds.shape
+    rows, width = st.sketches.table.shape[-2:]
+    C = st.cand_keys.shape[-1]
+    flat_seeds = st.sketches.seed.reshape(B * r)
+    # stream b feeds all r of its cascade samplers
+    keys_f = keys.repeat_interleave(r, 0)
+    vals_f = values.repeat_interleave(r, 0)
+    with record_function("sparse.scatter"):
+        delta = ops.sketch_sparse_batch(
+            keys_f, vals_f, rows, width, flat_seeds, p=p, scheme=scheme,
+            transform_seeds=st.transform_seeds.reshape(B * r))
+        tables = st.sketches.table.reshape(B * r, rows, width) + delta
+        del delta
+    with record_function("sparse.refresh"):
+        cand = _refresh_candidates(
+            countsketch.CountSketch(table=tables, seed=flat_seeds),
+            st.cand_keys.reshape(B * r, C), keys_f)
+    del keys_f, vals_f
+    return tv_sampler.TVSamplerState(
+        sketches=countsketch.CountSketch(
+            table=tables.reshape(B, r, rows, width), seed=st.sketches.seed),
+        cand_keys=cand.reshape(B, r, C),
+        transform_seeds=st.transform_seeds,
+        rhh=onepass_update_sparse(st.rhh, keys, values, p, scheme))
+
+
+def _holds_sketch(state) -> bool:
+    if isinstance(state, countsketch.CountSketch):
+        return True
+    return isinstance(state, tuple) and any(_holds_sketch(f) for f in state)
+
+
 def ingest_sparse(spec: SamplerSpec, state, keys, values):
     """Route one batched sparse signed update through the sampler's kernel
-    path."""
+    path.  A sampler with no sketch (the perfect oracle) takes its spec's
+    update; a sketch-backed sampler without a registered path raises."""
     path = _SPARSE_PATHS.get(spec.name)
-    if path is None:
+    if path is not None:
+        return path(state, keys, values, spec.cfg.p, spec.cfg.scheme)
+    if _holds_sketch(state):
         raise NotImplementedError(
-            f"sampler {spec.name!r} has no sparse kernel path (not ported "
-            f"yet); registered: {sorted(_SPARSE_PATHS)}")
-    return path(state, keys, values, spec.cfg.p, spec.cfg.scheme)
+            f"sampler {spec.name!r} holds a sketch but has no sparse kernel "
+            f"path; registered: {sorted(_SPARSE_PATHS)}")
+    return spec.update(state, keys, values)
 
 
 # ---------------------------------------------------------------------------

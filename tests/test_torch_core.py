@@ -225,8 +225,8 @@ def test_sampler_registry():
     cfg = tsampler.SamplerConfig(rows=5, width=384, candidates=16)
     spec = tsampler.make_sampler("onepass", cfg)
     assert spec is tsampler.make_sampler("onepass", cfg)
-    assert tsampler.available() == ("onepass",)
-    assert not spec.two_phase
+    assert tsampler.available() == ("onepass", "perfect", "tv", "twopass")
+    assert spec.two_phase
     with pytest.raises(KeyError, match="unknown sampler"):
         tsampler.make_sampler("nope", cfg)
     k, v = _stream(5, 100)

@@ -226,21 +226,26 @@ def test_failed_flush_keeps_the_buffer(monkeypatch):
 def test_not_ported_paths_raise():
     cfg = EngineConfig(num_streams=2, rows=5, width=384, candidates=16)
     eng = SketchEngine(cfg, device="cpu")
-    other = SketchEngine(cfg, device="cpu")
-    other.cfg = other.cfg._replace(sampler="perfect")
+    perfect = SketchEngine(cfg, sampler="perfect", device="cpu")
     with pytest.raises(ValueError, match="no dense kernel path"):
-        other.update_dense(np.zeros((2, 8), np.float32))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        eng.freeze()
+        perfect.update_dense(np.zeros((2, 8), np.float32))
+    assert eng.freeze().pass2.keys.shape == (2, cfg.capacity)
+    with pytest.raises(ValueError, match="second pass"):
+        perfect.freeze()
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tplanes.make_plane("sparse", eng.spec, eng.state, codec="q8")
     with pytest.raises(ValueError, match="unknown data plane"):
         tplanes.make_plane("async", eng.spec, eng.state)
     assert tplanes.available_planes() == ("dense", "sparse")
+    # the perfect oracle holds no sketch: its spec's update; a
+    # sketch-backed sampler with no registered path raises
+    keys = torch.tensor([[3], [-1]], dtype=torch.int32)
+    got = tplanes.ingest_sparse(perfect.spec, perfect.state, keys,
+                                torch.ones((2, 1)))
+    assert got.freqs[0, 3] == 1 and got.freqs.sum() == 1
     with pytest.raises(NotImplementedError, match="no sparse kernel path"):
-        tplanes.ingest_sparse(eng.spec._replace(name="perfect"), eng.state,
-                              torch.zeros((2, 1), dtype=torch.int32),
-                              torch.zeros((2, 1)))
+        tplanes.ingest_sparse(eng.spec._replace(name="unregistered"),
+                              eng.state, keys, torch.zeros((2, 1)))
 
 
 def test_engine_defaults_to_the_card(monkeypatch):

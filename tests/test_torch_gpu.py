@@ -616,3 +616,104 @@ def test_core_entry_points_default_to_the_card():
                                          st.cand_keys, st.seed_transform)} \
             == {"cuda"}
     assert countsketch.init(5, 384, 3).table.device.type == "cuda"
+
+
+def _separated(B, n, seed, domain=400):
+    """Integer-valued keys and values, keys % 7 == 0 twenty times heavier:
+    well separated, and exact in any summation order."""
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, domain, (B, n)).astype(np.int32)
+    vals = np.round((rng.random((B, n)) + 0.5)
+                    * (1 + (keys % 7 == 0) * 20)).astype(np.float32)
+    return keys, vals
+
+
+def _sampler_pair(name, B=4):
+    cfg = EngineConfig(num_streams=B, rows=5, width=256, candidates=32,
+                       capacity=32, sampler=name, domain=400, num_samplers=3)
+    return (SketchEngine(cfg, flush_elems=40),
+            SketchEngine(cfg, flush_elems=40, device="cpu"))
+
+
+def _launches():
+    return (ts.launches, ts.variant_launches["smem"], tq.estimate_launches,
+            tq.launches)
+
+
+@pytest.mark.parametrize("name", ["twopass", "tv"])
+def test_sampler_sparse_path_on_card_matches_cpu(name):
+    """The twopass and tv sparse paths on the card (scatter and estimate
+    kernels) against the same engine on the CPU (plain versions): tables
+    within both bounds' allclose, buffers and sample keys identical, exact
+    frequencies equal; the launches per flush as the paths state them."""
+    _need_card()
+    card, cpu = _sampler_pair(name)
+    keys, vals = _separated(4, 120, seed=1)
+    before = _launches()
+    for i in range(3):
+        sl = slice(40 * i, 40 * i + 40)
+        card.ingest(keys[:, sl], vals[:, sl])
+        cpu.ingest(keys[:, sl], vals[:, sl])
+    card.flush()
+    ran = tuple(a - b for a, b in zip(_launches(), before))
+    per_flush = (1, 1, 2, 0) if name == "twopass" else (2, 2, 2, 0)
+    assert ran == tuple(3 * x for x in per_flush)
+    got, want = card.state, cpu.state
+    if name == "twopass":
+        pairs = [(got.pass1.sketch.table, want.pass1.sketch.table)]
+        assert torch.equal(got.pass1.cand_keys.cpu(), want.pass1.cand_keys)
+        assert torch.equal(got.pass2.keys.cpu(), want.pass2.keys)
+        assert torch.equal(got.pass2.freqs.cpu(), want.pass2.freqs)
+    else:
+        pairs = [(got.sketches.table, want.sketches.table),
+                 (got.rhh.sketch.table, want.rhh.sketch.table)]
+        assert torch.equal(got.cand_keys.cpu(), want.cand_keys)
+        assert torch.equal(got.rhh.cand_keys.cpu(), want.rhh.cand_keys)
+    for g, w in pairs:
+        torch.testing.assert_close(g.cpu(), w, rtol=RTOL, atol=_atol(w))
+    before = _launches()
+    samp = card.sample(3)
+    assert samp.keys.device.type == "cuda"
+    ran = tuple(a - b for a, b in zip(_launches(), before))
+    # twopass reads no sketch; tv: r draws and one read of the rHH
+    assert ran == ((0, 0, 0, 0) if name == "twopass" else (0, 0, 4, 0))
+    want = cpu.sample(3)
+    assert torch.equal(samp.keys.cpu(), want.keys)
+    if name == "tv":
+        assert bool(samp.threshold.isnan().all())
+
+
+def test_update_pass2_is_one_estimate_launch():
+    _need_card()
+    card, cpu = _sampler_pair("onepass")
+    keys, vals = _separated(4, 120, seed=2)
+    for eng in (card, cpu):
+        eng.ingest(keys, vals)
+        eng.freeze()
+    assert card.pass2.keys.device.type == "cuda"
+    for i in range(2):
+        sl = slice(60 * i, 60 * i + 60)
+        before = _launches()
+        card.update_pass2(keys[:, sl], vals[:, sl])
+        assert tuple(a - b for a, b in zip(_launches(), before)) \
+            == (0, 0, 1, 0)
+        cpu.update_pass2(keys[:, sl], vals[:, sl])
+    got, want = card.sample_exact(5), cpu.sample_exact(5)
+    assert torch.equal(got.keys.cpu(), want.keys)
+    assert torch.equal(got.freqs.cpu(), want.freqs)
+
+
+def test_perfect_sampler_launches_no_kernel():
+    _need_card()
+    card, cpu = _sampler_pair("perfect")
+    keys, vals = _separated(4, 120, seed=3)
+    before = (_launches(), tu.launches, tu.single_launches, tt.launches,
+              tq.single_launches, tq.estimate_single_launches)
+    card.ingest(keys, vals)
+    cpu.ingest(keys, vals)
+    samp = card.sample(5)
+    assert (_launches(), tu.launches, tu.single_launches, tt.launches,
+            tq.single_launches, tq.estimate_single_launches) == before
+    assert card.state.freqs.device.type == "cuda"
+    assert torch.equal(card.state.freqs.cpu(), cpu.state.freqs)
+    assert torch.equal(samp.keys.cpu(), cpu.sample(5).keys)

@@ -70,14 +70,41 @@ def test_row_salt_bitwise(seed):
     assert int(got[0, 5]) == int(jh.row_salt(jnp.uint32(seed), jnp.uint32(5)))
 
 
+def _ordinal(x):
+    """float32 -> int64 in the order of the floats, -0 and +0 both 0 (as
+    ``np.testing.assert_array_max_ulp`` counts)."""
+    i = x.view(np.int32).astype(np.int64)
+    return np.where(i < 0, -2**31 - i, i)
+
+
 def test_exp1_within_ulps():
     """exp1 = -log(uniform01): the uniform is bitwise, the log may differ by
-    a few ulps between PyTorch's and XLA's CPU implementations."""
+    a few ulps between PyTorch's and XLA's CPU implementations.  A failure
+    names the key, salt, uniform and both logs of the worst element."""
     k = _keys(3, 4096)
     for salt in SALTS:
         want = np.asarray(jh.exp1(jnp.asarray(k), jnp.uint32(salt)))
         got = th.exp1(torch.from_numpy(k), salt).numpy()
-        np.testing.assert_array_max_ulp(got, want, maxulp=4)
+        ulps = np.abs(_ordinal(got) - _ordinal(want))
+        i = int(np.argmax(ulps))
+        u = float(th.uniform01(torch.from_numpy(k[i:i + 1]), salt)[0])
+        assert ulps[i] <= 4, (
+            f"{ulps[i]} ulp at key {int(k[i])}, salt {salt:#x}: uniform01 "
+            f"{u!r}, port {got[i]!r}, reference {want[i]!r}")
+
+
+@pytest.mark.parametrize("n", [1, 7, 1000, 2**20, 2**31 - 1, 2**31 + 5,
+                               2**32 - 1])
+@pytest.mark.parametrize("salt", [0, 0x5A17AB1E, 2**32 - 1])
+def test_key_hash_to_domain_bitwise(n, salt):
+    """KeyHash (Eq. 13) into [n], int32 with the reference's wrap above
+    2**31."""
+    k = _keys(n % 97)
+    want = np.asarray(jh.key_hash_to_domain(jnp.asarray(k), jnp.uint32(salt),
+                                            n))
+    got = th.key_hash_to_domain(torch.from_numpy(k), salt, n)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("salt", [0, 0x5A17AB1E, 2**32 - 1])
