@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Four paths, each driven with the kernels' launch counts set to 0 just
+Five paths, each driven with the kernels' launch counts set to 0 just
 before it and read just after:
 
 * Sparse plane.  Per-key analytics over B = 4096 independent turnstile
@@ -33,6 +33,18 @@ before it and read just after:
   ties, exact frequencies equal.  Cut: the plain reference runs on 256 of
   the 4096 streams (per-stream seeds hash only the stream index, so they
   are the same streams).
+* Deterministic flush, async and pipeline planes.  Under
+  ``torch.use_deterministic_algorithms(True)`` the scatter takes its "det"
+  variant (each cell summed in an order fixed by slot index) and the
+  flush's segment sums the sorted segment-sum kernel; ``onepass`` at B =
+  4096 on the ``sparse`` and ``async`` planes, 8 steps, must then give the
+  same state and ``sample(k=64)`` bit for bit, as ``twopass``, ``tv`` and
+  ``perfect`` must on the first 256 streams.  In the default mode the two
+  planes' ingest rates and traced busy shares are recorded (the async
+  plane's overlap, measured and not claimed).  The ``pipeline`` plane
+  (4 shards, 2 flushes at B = 4096) is held to the sparse plane within the
+  summing tolerances, its async sub-planes to its sparse ones bit for bit,
+  and a stalled producer's tail must be published by the interval timer.
 
 Every estimate of the sparse and dense paths (candidate refresh, sample)
 is one launch of the estimate kernel, which takes the median of rows in
@@ -76,6 +88,12 @@ the script exits non-zero without the final ``ok`` line):
      none), traces of a flush and a sample each, times, the recall of the
      exact two-pass sample against the perfect oracle, and the scatter and
      the estimate at the TV cascade's shapes against their bounds;
+  determinism.  the det scatter at the flush and the TV cascade shapes
+     (three launches identical, each cell within its bound of the plain
+     version and of the atomics variant) and the segment sum (equal to the
+     CPU's bit for bit), with their times and the NaN fill of
+     ``torch.empty`` in the mode; async against sparse bit for bit; the
+     overlap; the pipeline; the interval timer;
   7. one ``{"kernels": [...]}`` line, then the ``ok`` line.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
@@ -439,6 +457,9 @@ def report_occupancy(tag):
     for name, variant, label, threads, smem in (
             ("countsketch_scatter", 1, "smem", tiling.TABLE_THREADS, table),
             ("countsketch_scatter", 0, "global", tiling.THREADS_PER_BLOCK, 0),
+            ("countsketch_scatter", 2, "det", 32 * min(ROWS,
+                                                       tiling.DET_MAX_WARPS),
+             tiling.det_smem_bytes(ROWS, WIDTH)),
             ("countsketch_update", 1, "smem", tiling.TABLE_THREADS, table),
             ("countsketch_update", 0, "global", tiling.THREADS_PER_BLOCK, 0),
             ("countsketch_query", 0, "", tiling.THREADS_PER_BLOCK, 0),
@@ -450,7 +471,8 @@ def report_occupancy(tag):
             ("ppswor_transform", 2, "float32 vector",
              tiling.THREADS_PER_BLOCK, 0),
             ("ppswor_transform", 3, "bfloat16 vector",
-             tiling.THREADS_PER_BLOCK, 0)):
+             tiling.THREADS_PER_BLOCK, 0),
+            ("segment_sum", 0, "", tiling.THREADS_PER_BLOCK, 0)):
         info = build.kernel_info(name, variant, threads, smem)
         info.update(threads=threads, dynamic_smem=smem)
         OCCUPANCY[(name, label)] = info
@@ -514,12 +536,13 @@ def factor_sass() -> int:
     return 0
 
 
-def plan_of(B, n, lengths, rows=ROWS, width=WIDTH):
-    """The shared-memory plan the wrappers launch for these shapes."""
+def plan_of(B, n, lengths, rows=ROWS, width=WIDTH, variant=None):
+    """The shared-memory (or forced ``variant``'s) plan the wrappers launch
+    for these shapes."""
     from repro_torch.kernels import tiling
 
     p = tiling.table_plan(B, n, tiling.host_lengths(lengths, B, n), rows,
-                          width, tiling.sm_count(DEVICE))
+                          width, tiling.sm_count(DEVICE), variant)
     return {"blocks": p.blocks, "threads": p.threads, "chunk": p.chunk,
             "one_per_stream": p.one_per_stream, "smem_bytes": p.smem_bytes}
 
@@ -779,12 +802,14 @@ def compare_tables(torch, what, got, want, tol):
     return bad_streams
 
 
-def compare_samples(torch, what, samp, dst, tol, seeds, k, p, bad_streams):
+def compare_samples(torch, what, samp, dst, tol, seeds, k, p, bad_streams,
+                    excused=None, excuse=""):
     """The kernel path's sample keys against the plain state read through
     the plain estimate (``worp.onepass_sample``).  A stream's key set may
     differ only where the k-th and (k+1)-st |estimate| differ by less than
     the sum of their error bounds (a key's bound is the largest bound of the
-    cells its rows read), or where the plain table is not finite."""
+    cells its rows read), or where the plain table is not finite, or where
+    ``excused`` (a (B,) mask, for the reason ``excuse``) holds."""
     from repro_torch.core import countsketch, worp
     from repro_torch.kernels import ref
 
@@ -798,11 +823,16 @@ def compare_samples(torch, what, samp, dst, tol, seeds, k, p, bad_streams):
     near_tie = (top_mag[:, k - 1] - top_mag[:, k]) <= pair_err.sum(1)
     same = (torch.sort(samp.keys, 1).values
             == torch.sort(dsamp.keys, 1).values).all(1)
-    mismatch = int((~same & ~(near_tie | bad_streams)).sum())
+    if excused is None:
+        excused = torch.zeros_like(same)
+    mismatch = int((~same & ~(near_tie | bad_streams | excused)).sum())
     n = samp.keys.shape[0]
     log(f"[main] {what} sample key sets: {int(same.sum())}/{n} identical, "
         f"{int(near_tie.sum())} near-tie streams, {int((~same).sum())} "
-        f"differ, {mismatch} differ outside near ties / non-finite streams")
+        f"differ"
+        + (f", {int((~same & excused & ~near_tie).sum())} of them outside "
+           f"near ties excused ({excuse})" if excuse else "")
+        + f", {mismatch} differ outside near ties / non-finite streams")
     if mismatch:
         raise AssertionError(f"{what} sample key sets differ from the plain "
                              f"path's")
@@ -1671,24 +1701,29 @@ def reset_counts() -> None:
     from repro_torch.kernels import countsketch_scatter as s
     from repro_torch.kernels import countsketch_update as u
     from repro_torch.kernels import ppswor_transform as tr
+    from repro_torch.kernels import segment_sum as sg
 
     s.launches = u.launches = u.single_launches = tr.launches = 0
     q.launches = q.single_launches = 0
     q.estimate_launches = q.estimate_single_launches = 0
+    sg.launches = 0
     for m in (s, u, tr):
         m.variant_launches.update(dict.fromkeys(m.variant_launches, 0))
 
 
 def read_counts() -> dict:
     """The launch counters: the scatter (and its variants), the estimate,
-    the batched row read, and every other kernel's launches summed."""
+    the batched row read, the segment sum, and every other kernel's
+    launches summed."""
     from repro_torch.kernels import countsketch_query as q
     from repro_torch.kernels import countsketch_scatter as s
     from repro_torch.kernels import countsketch_update as u
     from repro_torch.kernels import ppswor_transform as tr
+    from repro_torch.kernels import segment_sum as sg
 
     return {"scatter": s.launches, "smem": s.variant_launches["smem"],
             "global": s.variant_launches["global"],
+            "det": s.variant_launches["det"], "segment_sum": sg.launches,
             "estimate": q.estimate_launches, "row_read": q.launches,
             "other": (q.single_launches + q.estimate_single_launches
                       + u.launches + u.single_launches + tr.launches)}
@@ -1702,8 +1737,9 @@ def since(before: dict) -> dict:
 def expect_counts(what, got: dict, scatter=0, estimate=0):
     """Raise unless the launches are exactly ``scatter`` shared-memory
     scatters and ``estimate`` estimate-kernel launches, and nothing else."""
-    want = {"scatter": scatter, "smem": scatter, "global": 0,
-            "estimate": estimate, "row_read": 0, "other": 0}
+    want = {"scatter": scatter, "smem": scatter, "global": 0, "det": 0,
+            "segment_sum": 0, "estimate": estimate, "row_read": 0,
+            "other": 0}
     log(f"[main] {what}: launches {got}")
     if got != want:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
@@ -2239,6 +2275,505 @@ def time_tv_shapes(torch, st, steps, tag) -> dict:
             "estimate_refresh": refresh, "estimate_draw": draw}
 
 
+# -- the deterministic flush path and the async and pipeline planes --------
+
+# the pipeline's shards, its steps (each one flush; the host partition of a
+# (4096, 5120) flush takes seconds), and the interval trigger's age bound
+PIPE_SHARDS, PIPE_STEPS, INTERVAL_S = 4, 2, 0.5
+TRACED_FLUSHES = 4  # the overlap's traced window
+
+
+class deterministic_mode:
+    """``torch.use_deterministic_algorithms(True)`` inside, the caller's
+    setting restored after."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        t = self.torch
+        self.was = (t.are_deterministic_algorithms_enabled(),
+                    t.is_deterministic_algorithms_warn_only_enabled())
+        t.use_deterministic_algorithms(True)
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.use_deterministic_algorithms(self.was[0],
+                                                warn_only=self.was[1])
+        return False
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal bit for bit (a float -0 differs from +0, NaN payloads count)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        a, b = (x.contiguous().view(torch.int32) for x in (a, b))
+    return bool(torch.equal(a, b))
+
+
+def states_equal(torch, a, b) -> bool:
+    from repro_torch.engine.engine import _leaves
+
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(same_bits(torch, x, y)
+                                      for x, y in zip(la, lb))
+
+
+def samples_equal(torch, a, b) -> bool:
+    return all(same_bits(torch, x, y) for x, y in zip(a, b))
+
+
+def det_scatter_shape(torch, what, keys, vals, seeds, tseeds, iters, tag):
+    """The det scatter at one shape: three launches give the same bits,
+    each cell within its rounding bound of the plain version and of the
+    shared-memory (atomics) variant; times of both variants, by CUDA
+    events, beside the bound this run's inputs give."""
+    from repro_torch.kernels import countsketch_scatter as s
+    from repro_torch.kernels import ref
+
+    Bs, n = keys.shape
+    kw = dict(p=P, transform_seeds=tseeds)
+    want = ref.countsketch_scatter_batched_ref(keys, vals, ROWS, WIDTH,
+                                               seeds, **kw)
+    tol = ref.scatter_tolerance(*ref.countsketch_scatter_mass_ref(
+        keys, vals, ROWS, WIDTH, seeds, **kw))
+    outs = []
+    with deterministic_mode(torch):
+        for _ in range(3):
+            before = dict(s.variant_launches)
+            outs.append(s.countsketch_scatter_batched(keys, vals, ROWS,
+                                                      WIDTH, seeds, **kw))
+            ran = {v: s.variant_launches[v] - before[v] for v in before}
+            if ran != {"smem": 0, "global": 0, "det": 1}:
+                raise AssertionError(f"det scatter {what}: launched {ran}")
+    torch.cuda.synchronize()
+    identical = all(same_bits(torch, o, outs[0]) for o in outs[1:])
+    log(f"[det] scatter {what} (B={Bs}, n={n}): 3 launches in the "
+        f"deterministic mode, identical bits: {identical} {tag}")
+    if not identical:
+        raise AssertionError(f"det scatter {what}: launches differ")
+    del outs[1:]
+    err, ratio = check_sum(torch, f"scatter {what} [det]", outs[0], want,
+                           tol)
+    atomics = s.countsketch_scatter_batched(keys, vals, ROWS, WIDTH, seeds,
+                                            _variant="smem", **kw)
+    a_err, a_ratio = check_sum(torch, f"scatter {what} [det] vs [smem] "
+                               f"(atomics)", outs[0], atomics, tol)
+    del want, tol, atomics, outs
+    torch.cuda.empty_cache()
+    with deterministic_mode(torch):
+        det_ms = cuda_ms(torch, lambda: s.countsketch_scatter_batched(
+            keys, vals, ROWS, WIDTH, seeds, **kw), iters)
+    smem_ms = cuda_ms(torch, lambda: s.countsketch_scatter_batched(
+        keys, vals, ROWS, WIDTH, seeds, _variant="smem", **kw), iters)
+    live = int((keys != -1).sum())
+    b_ms, b_by = bound(keys.numel() * 8 + Bs * ROWS * WIDTH * 4,
+                       live * SCATTER_OPS_PER_SLOT)
+    log(f"[time] scatter {what} (B={Bs}, n={n}): det {det_ms:.4f} ms "
+        f"({100 * b_ms / det_ms:.1f} % of bound), shared-memory atomics "
+        f"{smem_ms:.4f} ms ({100 * b_ms / smem_ms:.1f} %), bound "
+        f"{b_ms:.4f} ms by {b_by}; det / atomics "
+        f"{det_ms / smem_ms:.2f}x {tag}")
+    return {"ms": det_ms, "atomics_ms": smem_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "max_abs_err": err,
+            "worst_err_over_bound": ratio, "vs_atomics_max_abs_err": a_err,
+            "vs_atomics_worst_err_over_bound": a_ratio}
+
+
+def segment_sum_shape(torch, what, rows, tag):
+    """The sorted segment sum at a ``_dedup_topc`` shape of the flush (rows
+    x (C + n) entries, the run ids of sorted Zipf-like keys, made on the
+    card): the same bits on two launches, and on the first ``SUB_B`` rows
+    bit for bit the plain version on the CPU (index order); its time, the
+    plain version's on the card under the mode (PyTorch's deterministic
+    scatter_add_) and the atomics scatter_add_ (the mode off)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_sum as sg
+
+    n = CANDIDATES + INSERTS + int(INSERTS * DELETE_FRACTION)
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    u = torch.rand((rows, n), generator=g, device=DEVICE)
+    # a Zipf(1.2)-like head: key = floor(u^(-1/0.2)), key 1 in 13 % of a
+    # row's slots
+    keys = torch.sort(torch.clamp(u.pow(-1.0 / (ALPHA - 1.0)), max=VOCAB)
+                      .to(torch.int64), 1).values
+    first = torch.ones_like(keys, dtype=torch.bool)
+    first[:, 1:] = keys[:, 1:] != keys[:, :-1]
+    seg = torch.cumsum(first.to(torch.int64), 1) - 1
+    vals = torch.randn((rows, n), generator=g, device=DEVICE)
+    del u, keys, first
+    got = [sg.segment_sum(vals, seg) for _ in range(2)]
+    want = ref.segment_sum_ref(vals[:SUB_B].cpu(), seg[:SUB_B].cpu())
+    ok = same_bits(torch, got[0], got[1]) \
+        and same_bits(torch, got[0][:SUB_B].cpu(), want)
+    log(f"[det] segment sum {what} ({rows} x {n}): 2 launches identical, "
+        f"and the first {SUB_B} rows equal to the CPU's scatter_add_ bit for "
+        f"bit: {ok} {tag}")
+    if not ok:
+        raise AssertionError(f"segment sum {what} is not deterministic or "
+                             f"differs from the CPU's")
+    del got, want
+    k_ms = cuda_ms(torch, lambda: sg.segment_sum(vals, seg), 10)
+    with deterministic_mode(torch):
+        plain_ms = cuda_ms(torch, lambda: ref.segment_sum_ref(vals, seg),
+                           3, warmup=1)
+    lib_ms = cuda_ms(torch, lambda: ref.segment_sum_ref(vals, seg), 10)
+    b_ms, b_by = bound(rows * n * 16, rows * n)
+    log(f"[time] segment sum {what} ({rows} x {n}): kernel {k_ms:.4f} ms "
+        f"({100 * b_ms / k_ms:.1f} % of bound {b_ms:.4f} ms by {b_by}); "
+        f"PyTorch's deterministic scatter_add_ {plain_ms:.4f} ms; atomics "
+        f"scatter_add_ (mode off) {lib_ms:.4f} ms {tag}")
+    return {"ms": k_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def nan_fill_ms(torch, streams, tag) -> dict:
+    """The deterministic mode's cost of ``torch.empty`` for a scatter delta
+    of ``streams`` tables (it fills new float memory with NaN)."""
+    shape = (streams, ROWS, WIDTH)
+    off = cuda_ms(torch, lambda: torch.empty(shape, device=DEVICE), 10)
+    with deterministic_mode(torch):
+        on = cuda_ms(torch, lambda: torch.empty(shape, device=DEVICE), 10)
+    log(f"[time] torch.empty of a {streams * ROWS * WIDTH * 4 / 1e6:.0f} MB "
+        f"scatter delta: {off:.4f} ms, in the deterministic mode (NaN "
+        f"fill) {on:.4f} ms {tag}")
+    return {"mb": streams * ROWS * WIDTH * 4 / 1e6, "ms": off, "det_ms": on}
+
+
+def pytorch_sums_ms(torch, keys, vals, tag) -> dict:
+    """The two PyTorch sums of the flush paths that keep PyTorch's own
+    deterministic forms under the mode (the card tests check their bits):
+    the perfect spec's ``scatter_add_`` (``SUB_B`` streams into a 2**20
+    domain) and ``countsketch.update``'s ``index_add_`` (B x 7 x n terms,
+    a plain path), each timed with the mode off and on."""
+    from repro_torch.core import countsketch
+    from repro_torch.core.sampler import SamplerConfig, make_sampler
+
+    spec = make_sampler("perfect", SamplerConfig(domain=VOCAB))
+    ids = torch.arange(B, device=DEVICE)
+    st = spec.init(ids[:SUB_B], ids[:SUB_B])
+    sk = countsketch.init(ROWS, WIDTH, ids)
+    fns = {"perfect scatter_add_": lambda: spec.update(
+               st, keys[:SUB_B], vals[:SUB_B]),
+           "countsketch.update index_add_": lambda: countsketch.update(
+               sk, keys, vals)}
+    out = {}
+    for what, fn in fns.items():
+        off = cuda_ms(torch, fn, 3, warmup=1)
+        with deterministic_mode(torch):
+            on = cuda_ms(torch, fn, 3, warmup=1)
+        out[what] = {"ms": off, "det_ms": on}
+        log(f"[time] {what}: {off:.4f} ms, in the deterministic mode "
+            f"{on:.4f} ms {tag}")
+    return out
+
+
+def plane_engine(name, plane, num_streams=None, policy=None, **opts):
+    from repro_torch.engine import EngineConfig, FlushPolicy, SketchEngine
+
+    return SketchEngine(
+        EngineConfig(num_streams=num_streams or B, rows=ROWS, width=WIDTH,
+                     candidates=CANDIDATES, p=P, sampler=name,
+                     domain=VOCAB),
+        plane=plane, flush=policy or FlushPolicy(max_elems=4096),
+        device=DEVICE, plane_opts=opts or None)
+
+
+def drive_plane(torch, eng, steps, n=None):
+    """Ingest the steps (each fills one flush) and drain; the seconds to the
+    card's synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for keys, vals in steps:
+        eng.ingest(keys[:n], vals[:n])
+    eng.flush()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def async_vs_sparse(torch, name, steps, k, n, tag):
+    """Sampler ``name`` on the sparse and the async plane in the
+    deterministic mode, on the first ``n`` streams: every state leaf and
+    the sample equal bit for bit.  Returns the async run's launches."""
+    engs, counts = {}, {}
+    with deterministic_mode(torch):
+        for plane in ("sparse", "async"):
+            eng = plane_engine(name, plane, num_streams=n)
+            reset_counts()
+            drive_plane(torch, eng, steps, n)
+            counts[plane] = read_counts()
+            engs[plane] = eng
+        state_ok = states_equal(torch, engs["sparse"].state,
+                                engs["async"].state)
+        samp_ok = samples_equal(torch, engs["sparse"].sample(k),
+                                engs["async"].sample(k))
+    engs["async"].plane.close()
+    log(f"[det] {name} (B={n}, {len(steps)} flushes): async vs sparse, every "
+        f"state leaf bit for bit: {state_ok}; sample(k={k}) bit for bit: "
+        f"{samp_ok}; launches sparse {counts['sparse']}, async "
+        f"{counts['async']} {tag}")
+    if not (state_ok and samp_ok) or counts["sparse"] != counts["async"]:
+        raise AssertionError(f"{name}: async differs from sparse in the "
+                             f"deterministic mode")
+    return counts["async"]
+
+
+def profiler_config(torch):
+    """An experimental config that records every thread's ranges (the async
+    worker's ``plane.h2d``/``plane.dispatch``), where this PyTorch has it."""
+    try:
+        return torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except (AttributeError, TypeError):
+        return None
+
+
+def overlap(torch, plane, steps, tag) -> dict:
+    """Default mode (atomics): the ingest rate of the steps (one flush
+    each), then a trace of ``TRACED_FLUSHES`` flushes and the drain, its
+    busy share and plane ranges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = plane_engine("onepass", plane)
+    secs = drive_plane(torch, eng, steps)
+    events = sum(kk.size for kk, _ in steps)
+    cfg = profiler_config(torch)
+    eng2 = plane_engine("onepass", plane)
+    eng2.ingest(*steps[0])
+    eng2.flush()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 **({"experimental_config": cfg} if cfg else {})) as prof:
+        t0 = time.perf_counter()
+        for keys, vals in steps[1:1 + TRACED_FLUSHES]:
+            eng2.ingest(keys, vals)
+        eng2.flush()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[overlap] {plane} plane: {events} events in {secs:.4f} s = "
+        f"{events / secs:.4e} events/s ({len(steps)} flushes, default mode); "
+        f"trace of "
+        f"{TRACED_FLUSHES} flushes + drain, every thread's ranges: "
+        f"{cfg is not None} {tag}")
+    rows = trace_report(prof, RANGES, wall_ms,
+                        f"{plane} plane, {TRACED_FLUSHES} flushes", tag,
+                        top=6)
+    busy = sum(r[0] for r in rows if "Activity Buffer" not in r[2])
+    for e in (eng, eng2):
+        e.plane.close()
+    return {"events_per_s": events / secs, "seconds": secs,
+            "traced_wall_ms": wall_ms, "busy_ms": busy,
+            "busy_share": busy / wall_ms if rows else None}
+
+
+def pipeline_checks(torch, steps, seeds, tseeds, tag) -> dict:
+    """``shards=4`` at B streams: the collapse against the sparse plane
+    within the summing tolerances, sample keys identical but for near ties
+    and for candidate buffers that differ, and identical but for near ties
+    when both are read over the union of the two buffers; async sub-planes
+    against sparse sub-planes bit for bit in the deterministic mode (fed the
+    same partition through ``ingest_shard``)."""
+    from repro_torch.engine import planes
+    from repro_torch.engine.engine import onepass_sample_batched
+    from repro_torch.kernels import ref
+
+    dev = torch.device(DEVICE)
+    psteps = steps[:PIPE_STEPS]
+    sparse = plane_engine("onepass", "sparse")
+    drive_plane(torch, sparse, psteps)
+    pipe = plane_engine("onepass", "pipeline", shards=PIPE_SHARDS)
+    reset_counts()
+    secs = drive_plane(torch, pipe, psteps)
+    st = pipe.state
+    merged = read_counts()
+    cnt = torch.zeros_like(st.sketch.table)
+    mass = torch.zeros_like(st.sketch.table)
+    for keys, vals in psteps:
+        c, m = ref.countsketch_scatter_mass_ref(
+            torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev),
+            ROWS, WIDTH, seeds, p=P, transform_seeds=tseeds)
+        cnt += c
+        mass += m
+    tol = ref.scatter_tolerance(cnt, mass)
+    del cnt, mass, c, m
+    ss = sparse.state
+    bad = compare_tables(torch, f"pipeline (shards={PIPE_SHARDS}) vs sparse",
+                         st.sketch.table, ss.sketch.table, tol)
+    # The candidate buffer is a heuristic whose content depends on the
+    # order of its refreshes: a shard refreshes among its own keys, and the
+    # collapse among the shards' buffers (the reference's contract for this
+    # plane is distributional for that reason).  So a stream's samples may
+    # also differ where a key of one sample is missing from the other
+    # plane's buffer; read over the union of both buffers, the two planes'
+    # tables must then give the same sample but for near ties.
+    samp, ssamp = pipe.sample(K), sparse.sample(K)
+    diff_a = ~(samp.keys[:, :, None] == ssamp.keys[:, None, :]).any(2)
+    diff_b = ~(ssamp.keys[:, :, None] == samp.keys[:, None, :]).any(2)
+    missing = ((diff_a & ~(samp.keys[:, :, None]
+                           == ss.cand_keys[:, None, :]).any(2)).any(1)
+               | (diff_b & ~(ssamp.keys[:, :, None]
+                             == st.cand_keys[:, None, :]).any(2)).any(1))
+    compare_samples(torch, f"pipeline (shards={PIPE_SHARDS}) vs sparse",
+                    samp, ss, tol, seeds, K, P, bad, excused=missing,
+                    excuse="a sampled key missing from the other plane's "
+                           "candidate buffer")
+    pool = torch.sort(torch.cat([st.cand_keys, ss.cand_keys], 1), 1).values
+    dup = torch.zeros_like(pool, dtype=torch.bool)
+    dup[:, 1:] = pool[:, 1:] == pool[:, :-1]
+    pool = torch.where(dup, -1, pool)
+    compare_samples(torch, f"pipeline (shards={PIPE_SHARDS}) vs sparse, "
+                    f"both read over the union of their candidate buffers",
+                    onepass_sample_batched(st._replace(cand_keys=pool), K, P),
+                    ss._replace(cand_keys=pool), tol, seeds, K, P, bad)
+    out = {"seconds": secs, "history_streams": int(missing.sum())}
+    del tol, sparse, pipe, st, ss, samp, ssamp, pool
+    torch.cuda.empty_cache()
+    parts = [planes.partition_by_key(keys, vals, PIPE_SHARDS)
+             for keys, vals in psteps]
+    engs = {}
+    with deterministic_mode(torch):
+        for sub in ("sparse", "async"):
+            eng = plane_engine("onepass", "pipeline", shards=PIPE_SHARDS,
+                               subplane=sub)
+            for blocks in parts:
+                for shard, (k, v) in enumerate(blocks):
+                    eng.plane.ingest_shard(shard, k, v)
+            eng.flush()
+            engs[sub] = eng
+        ok = states_equal(torch, engs["sparse"].state, engs["async"].state) \
+            and samples_equal(torch, engs["sparse"].sample(K),
+                              engs["async"].sample(K))
+    engs["async"].plane.close()
+    log(f"[det] pipeline (shards={PIPE_SHARDS}, B={B}, {PIPE_STEPS} "
+        f"flushes): async sub-planes vs sparse sub-planes, merged state and "
+        f"sample bit for bit: {ok}; collapse launches {merged} {tag}")
+    if not ok:
+        raise AssertionError("pipeline: async sub-planes differ from sparse "
+                             "sub-planes")
+    out["launches"] = merged
+    return out
+
+
+def interval_check(torch, steps, tag) -> dict:
+    """A stalled producer: one microbatch under every ingest-time trigger,
+    then no call but reads of ``plane.state`` (which settles in-flight work
+    and does not flush).  The timer must submit it once it is
+    ``INTERVAL_S`` old, and the state must then equal a sparse plane's
+    flush of the same batch bit for bit (deterministic mode)."""
+    from repro_torch.engine import FlushPolicy
+
+    keys, vals = steps[0][0][:SUB_B, :1024], steps[0][1][:SUB_B, :1024]
+    with deterministic_mode(torch):
+        eng = plane_engine("onepass", "async", num_streams=SUB_B,
+                           policy=FlushPolicy(max_elems=None,
+                                              max_interval=INTERVAL_S))
+        t0 = time.perf_counter()
+        eng.ingest(keys, vals)
+        published = None
+        while time.perf_counter() - t0 < INTERVAL_S + 30.0:
+            if bool(eng.plane.state.sketch.table.any()):
+                published = time.perf_counter() - t0
+                break
+            time.sleep(0.01)
+        pending = eng.pending
+        ref_eng = plane_engine("onepass", "sparse", num_streams=SUB_B)
+        ref_eng.ingest(keys, vals)
+        ref_eng.flush()
+        ok = published is not None and pending == 0 \
+            and states_equal(torch, eng.plane.state, ref_eng.state)
+    eng.plane.close()
+    log(f"[det] interval trigger (max_interval {INTERVAL_S} s, no drain): "
+        f"published after "
+        f"{'never' if published is None else f'{published:.3f} s'}, pending "
+        f"{pending}, state equal to the sparse plane's flush bit for bit: "
+        f"{ok} {tag}")
+    if not ok or published < INTERVAL_S:
+        raise AssertionError("the interval timer did not publish the stalled "
+                             "tail as it should")
+    return {"max_interval_s": INTERVAL_S, "published_s": published}
+
+
+def phase_determinism(torch, steps, tag):
+    """The deterministic flush path and the async and pipeline planes at the
+    sparse plane's deployment.  Returns the launches of the det scatter and
+    the segment sum on the deterministic main path, and the records of the
+    kernels line and the ``[planes]`` line."""
+    from repro_torch.engine import derive_stream_seeds, engine_spec
+    from repro_torch.engine.engine import EngineConfig
+
+    dev = torch.device(DEVICE)
+    t_phase = time.perf_counter()
+    out = {}
+    cfg = EngineConfig(num_streams=B, rows=ROWS, width=WIDTH,
+                       candidates=CANDIDATES, p=P)
+    seeds, tseeds = derive_stream_seeds(cfg, device=dev)
+
+    # -- 1. the det scatter at the flush and the TV cascade shapes --------
+    keys = torch.from_numpy(steps[1][0]).to(dev)
+    vals = torch.from_numpy(steps[1][1]).to(dev)
+    out["scatter_flush"] = det_scatter_shape(torch, "flush shape", keys,
+                                             vals, seeds, tseeds, 20, tag)
+    tv = engine_spec(cfg._replace(sampler="tv")).init(
+        *derive_stream_seeds(cfg, device=dev))
+    r = tv.transform_seeds.shape[1]
+    tv_seeds = tv.sketches.seed.reshape(-1).clone()
+    tv_tseeds = tv.transform_seeds.reshape(-1).clone()
+    del tv
+    torch.cuda.empty_cache()
+    out["scatter_tv"] = det_scatter_shape(
+        torch, "TV cascade shape", keys.repeat_interleave(r, 0),
+        vals.repeat_interleave(r, 0), tv_seeds, tv_tseeds, 5, tag)
+    del keys, vals, tv_seeds, tv_tseeds
+    torch.cuda.empty_cache()
+    out["segment_sum_flush"] = segment_sum_shape(torch, "flush shape", B,
+                                                 tag)
+    out["segment_sum_tv"] = segment_sum_shape(torch, "TV cascade shape",
+                                              B * r, tag)
+    out["nan_fill"] = [nan_fill_ms(torch, b, tag) for b in (B, B * r)]
+    out["pytorch_sums"] = pytorch_sums_ms(
+        torch, torch.from_numpy(steps[1][0]).to(dev),
+        torch.from_numpy(steps[1][1]).to(dev), tag)
+    torch.cuda.empty_cache()
+
+    # -- 2. async against sparse, bit for bit, in the deterministic mode --
+    launches = async_vs_sparse(torch, "onepass", steps, K, B, tag)
+    flushes = len(steps)
+    want = {"scatter": flushes, "smem": 0, "global": 0, "det": flushes,
+            "estimate": flushes, "row_read": 0, "other": 0}
+    got = {k: launches[k] for k in want}
+    if got != want or launches["segment_sum"] < flushes:
+        raise AssertionError(f"deterministic onepass path launches "
+                             f"{launches}, expected {want} and a segment "
+                             f"sum a flush")
+    out["det_path_launches"] = launches
+    for name, k in (("twopass", K), ("tv", TV_K), ("perfect", K)):
+        async_vs_sparse(torch, name, steps, k, SUB_B, tag)
+        torch.cuda.empty_cache()
+
+    # -- 3. the overlap, measured in the default mode ---------------------
+    out["overlap"] = {plane: overlap(torch, plane, steps, tag)
+                      for plane in ("sparse", "async")}
+    a, s = out["overlap"]["async"], out["overlap"]["sparse"]
+    log(f"[overlap] async / sparse ingest rate "
+        f"{a['events_per_s'] / s['events_per_s']:.3f} (one call, measured, "
+        f"not claimed) {tag}")
+    torch.cuda.empty_cache()
+
+    # -- 4. the pipeline; 5. the interval timer ---------------------------
+    out["pipeline"] = pipeline_checks(torch, steps, seeds, tseeds, tag)
+    torch.cuda.empty_cache()
+    out["interval"] = interval_check(torch, steps, tag)
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[det] phase launches by variant on the deterministic onepass "
+        f"path: det scatter {launches['det']}, shared-memory {launches['smem']}"
+        f", global {launches['global']}, estimate {launches['estimate']}, "
+        f"segment sum {launches['segment_sum']}")
+    log(f"[phase] determinism, async and pipeline planes: "
+        f"{out['wall_s']:.2f} s wall")
+    return launches, out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2310,6 +2845,10 @@ def main() -> int:
 
     # -- the samplers phase: twopass, tv, onepass pass II, perfect -------
     sampler_launches, samplers = phase_samplers(torch, steps, stream, tag)
+    torch.cuda.empty_cache()
+
+    # -- the deterministic flush path, the async and pipeline planes ------
+    det_launches, planes = phase_determinism(torch, steps, tag)
     del steps, stream
 
     # -- phase 7: the kernels line and the ok line -------------------------
@@ -2338,8 +2877,47 @@ def main() -> int:
             "library_ms": t["library"],
             "row_read_median_ms": t["row_read_median"],
             "row_read_ms": t["row_read"]}
+    scatter["launches"] += det_launches["scatter"]
+    est["launches"] += det_launches["estimate"]
+    sf, stv = planes["scatter_flush"], planes["scatter_tv"]
+    scatter["variants"]["det"] = {
+        "launches": det_launches["det"],
+        "max_abs_err": sf["max_abs_err"],
+        "worst_err_over_bound": max(sf["worst_err_over_bound"],
+                                    stv["worst_err_over_bound"]),
+        "vs_atomics_worst_err_over_bound": max(
+            sf["vs_atomics_worst_err_over_bound"],
+            stv["vs_atomics_worst_err_over_bound"]),
+        "ms": sf["ms"], "bound_ms": sf["bound_ms"],
+        "bound_by": sf["bound_by"], "atomics_ms": sf["atomics_ms"],
+        "plan": plan_of(B, INSERTS + int(INSERTS * DELETE_FRACTION), None,
+                        variant="det"),
+        "occupancy": OCCUPANCY.get(("countsketch_scatter", "det")),
+        "tv_cascade_shape": {k: stv[k] for k in ("ms", "atomics_ms",
+                                                 "bound_ms", "bound_by")}}
+    ssf, sstv = planes["segment_sum_flush"], planes["segment_sum_tv"]
+    kernels.append({
+        "name": "segment_sum", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/segment_sum.cu",
+        "replaces": "src/repro/core/worp.py:70 (jax.ops.segment_sum in XLA, "
+                    "no pallas_call; the deterministic mode's form of "
+                    "scatter_add_)",
+        "launches": det_launches["segment_sum"], "max_abs_err": 0.0,
+        "parity": "bit for bit equal to the CPU's scatter_add_ (index "
+                  "order), the same bits on every launch",
+        "ms": ssf["ms"], "plain_ms": ssf["plain_ms"],
+        "bound_ms": ssf["bound_ms"], "bound_by": ssf["bound_by"],
+        "library_ms": ssf["library_ms"],
+        "plain": "PyTorch's deterministic scatter_add_ (the mode on)",
+        "library": "scatter_add_ with atomics (the mode off)",
+        "occupancy": OCCUPANCY.get(("segment_sum", "")),
+        "tv_cascade_shape": sstv})
     log("[samplers] " + json.dumps({k: v for k, v in samplers.items()
                                     if k != "tv_shapes"}))
+    log("[planes] " + json.dumps({k: v for k, v in planes.items()
+                                  if k not in ("scatter_flush", "scatter_tv",
+                                               "segment_sum_flush",
+                                               "segment_sum_tv")}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))

@@ -114,3 +114,22 @@ def l2_error_bound(sk: CountSketch, k: int) -> torch.Tensor:
     # fp32 cancellation can leave the difference slightly negative
     row_l2 = torch.clamp(row_l2, min=0.0)
     return torch.sqrt(median(row_l2, -1) / sk.width)
+
+
+def estimate_single_row(sk: CountSketch, keys: torch.Tensor,
+                        row: int) -> torch.Tensor:
+    """One row's signed read of ``keys`` (..., n): sign * bucket of row
+    ``row``, the unbiased per-row estimate."""
+    salt = hashing.row_salt(sk.seed[..., None], row)
+    bucket = hashing.bucket_hash(keys, salt, sk.width)
+    return (torch.gather(sk.table[..., row, :], -1, bucket)
+            * hashing.sign_hash(keys, salt))
+
+
+def sketch_vector(vec: torch.Tensor, rows: int, width: int,
+                  seed) -> CountSketch:
+    """Sketch a dense frequency vector ``vec`` (..., n): keys ``[0, n)``,
+    through the plain ``update`` (no kernel), on ``vec``'s device."""
+    sk = init(rows, width, seed, device=vec.device, dtype=vec.dtype)
+    keys = torch.arange(vec.shape[-1], device=vec.device)
+    return update(sk, keys.expand(vec.shape), vec)

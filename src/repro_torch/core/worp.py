@@ -52,6 +52,25 @@ def top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def segment_sum(values: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+    """Sums of ``values`` (..., n) over runs of equal, nondecreasing segment
+    ids ``seg`` (..., n): segment s's sum at index s of the last axis, zero
+    past the last segment.
+
+    ``scatter_add_`` by default: in index order on the CPU, in an order
+    that varies from run to run on the card (atomics).  Under
+    ``torch.use_deterministic_algorithms(True)`` the sorted segment-sum
+    kernel (``kernels.ops.segment_sum``), which adds each run in index
+    order on the card: the same bits every run, and the CPU's.  PyTorch's
+    own deterministic ``scatter_add_`` costs more than the flush it sits
+    in (PERF.md)."""
+    if torch.are_deterministic_algorithms_enabled():
+        from repro_torch.kernels import ops
+
+        return ops.segment_sum(values, seg)
+    return torch.zeros_like(values).scatter_add_(-1, seg, values)
+
+
 def _dedup_topc(keys, values, priors, capacity: int):
     """Deduplicate by key (summing values; priorities of equal keys agree),
     then keep the top-``capacity`` entries by priority.  -1 keys are
@@ -63,7 +82,7 @@ def _dedup_topc(keys, values, priors, capacity: int):
     first = torch.ones_like(sk, dtype=torch.bool)
     first[..., 1:] = sk[..., 1:] != sk[..., :-1]
     seg = torch.cumsum(first.to(torch.int64), -1) - 1
-    vsum = torch.zeros_like(sv).scatter_add_(-1, seg, sv)
+    vsum = segment_sum(sv, seg)
     dk = torch.where(first & (sk != _EMPTY), sk, _EMPTY)
     live = dk != _EMPTY
     dv = torch.where(live, torch.gather(vsum, -1, seg), 0.0)

@@ -305,13 +305,18 @@ class SketchEngine:
     (``repro_torch.engine.planes``).  ``ingest(keys, values)`` buffers
     sparse signed microbatches on the host, and the plane's ``FlushPolicy``
     decides when they go to the device: the default ``"sparse"`` plane makes
-    one scatter-kernel launch per flush, ``"dense"`` is the plain reference
-    plane.  Every read or state-mixing operation drains the plane first.
+    one scatter-kernel launch per flush, ``"async"`` makes it on a worker
+    thread while the producer fills the next batch, ``"pipeline"``
+    partitions each batch by key across shard planes merged at every read,
+    and ``"dense"`` is the plain reference plane.  ``plane_opts`` are the
+    plane's own keywords (``{"shards": 4, "subplane": "async"}`` for the
+    pipeline).  Every read or state-mixing operation drains the plane
+    first.
     """
 
     def __init__(self, cfg: EngineConfig, sampler: Optional[str] = None,
                  flush_elems: int = 4096, plane: str = "sparse",
-                 flush=None, device=None):
+                 flush=None, device=None, plane_opts: Optional[dict] = None):
         from repro_torch.engine import planes
 
         if sampler is not None and sampler != cfg.sampler:
@@ -324,7 +329,7 @@ class SketchEngine:
         self._plane = planes.make_plane(
             plane, self.spec,
             self.spec.init(*derive_stream_seeds(cfg, device=self.device)),
-            policy=policy)
+            policy=policy, **(plane_opts or {}))
         self._merge = _MERGES.get(cfg.sampler, self.spec.merge)
         self.pass2 = None
 

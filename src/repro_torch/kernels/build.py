@@ -23,7 +23,7 @@ from typing import NamedTuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("countsketch_scatter", "countsketch_query", "countsketch_update",
-           "ppswor_transform")
+           "ppswor_transform", "segment_sum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -3,10 +3,14 @@
 ``countsketch_scatter_batched`` takes B sparse signed streams and returns
 their (B, rows, width) CountSketch delta.  A CUDA tensor launches the
 hand-written kernel (or raises); a CPU tensor takes the plain version in
-``ref``.  The kernel's variant follows from the shape before the launch
-(``tiling.table_plan``): the shared-memory table where rows x width fits a
-block, else global atomics.  ``launches`` counts kernel launches, and
-nothing else; ``variant_launches`` splits them by variant.
+``ref``.  The kernel's variant follows from the mode and the shape before
+the launch (``tiling.table_plan``): under
+``torch.use_deterministic_algorithms(True)`` the deterministic variant
+("det": every cell summed in an order fixed by slot index, the same bits on
+every run; a table too large for it raises), else the shared-memory table
+where rows x width fits a block, else global atomics.  ``launches`` counts
+kernel launches, and nothing else; ``variant_launches`` splits them by
+variant.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ from repro_torch.core import hashing, transforms
 from . import build, ref, tiling
 
 launches = 0
-variant_launches = {"smem": 0, "global": 0}
+variant_launches = {"smem": 0, "global": 0, "det": 0}
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -27,6 +31,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
 _SMEM_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                   + [ctypes.c_float] + [ctypes.c_int] * 4
                   + [ctypes.c_void_p])
+_DET_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 SCHEMES = {transforms.PPSWOR: 0, transforms.PRIORITY: 1}
 _INT_MAX = 2**31 - 1
 
@@ -49,8 +55,8 @@ def countsketch_scatter_batched(keys: torch.Tensor, values: torch.Tensor,
     ``i < lengths[b]`` and ``keys[b, i] != -1``.  Values may be negative
     (deletions) and duplicate keys accumulate.  With ``p`` set the bottom-k
     transform of ``scheme`` is fused.  Seeds are uint32 values.
-    ``_variant`` ("smem" or "global") forces a kernel variant, for tests
-    and measurements."""
+    ``_variant`` ("smem", "global" or "det") forces a kernel variant, for
+    tests and measurements."""
     if keys.device.type == "cpu":
         return ref.countsketch_scatter_batched_ref(
             keys, values, rows, width, seeds, p=p,
@@ -74,8 +80,9 @@ def countsketch_scatter_batched(keys: torch.Tensor, values: torch.Tensor,
     tseeds32 = hashing.int32_arg(
         0 if transform_seeds is None else transform_seeds, B, dev)
     lens32 = tiling.lengths_arg(lengths, B, n, dev)
-    plan, delta = tiling.table_launch(B, n, lengths, rows, width, dev,
-                                      _variant)
+    plan, delta = tiling.table_launch(
+        B, n, lengths, rows, width, dev, _variant,
+        deterministic=torch.are_deterministic_algorithms_enabled())
     transform = (int(p is not None), -1.0 / p if p is not None else 0.0,
                  SCHEMES.get(scheme, 0))
     with torch.cuda.device(dev):
@@ -92,6 +99,14 @@ def countsketch_scatter_batched(keys: torch.Tensor, values: torch.Tensor,
                      delta.data_ptr(), B, n, rows, width, plan.chunk,
                      *transform, plan.blocks, plan.threads, plan.smem_bytes,
                      stream)
+        elif plan.variant == "det":
+            fn = build.function("countsketch_scatter",
+                                "worp_countsketch_scatter_det",
+                                _DET_ARGTYPES)
+            err = fn(keys.data_ptr(), values.data_ptr(), seeds32.data_ptr(),
+                     tseeds32.data_ptr(), lens32.data_ptr(),
+                     delta.data_ptr(), B, n, rows, width, *transform,
+                     plan.threads, plan.smem_bytes, stream)
         else:
             fn = build.function("countsketch_scatter",
                                 "worp_countsketch_scatter", _ARGTYPES)

@@ -10,8 +10,8 @@
 // when has_p, else v' = v.  Slot (b, i) counts only when i < lengths[b] and
 // key != -1.
 //
-// Two entries, chosen by shape before the launch (kernels/tiling.py
-// table_plan), never by a failed launch:
+// Three entries, chosen by the deterministic mode and the shape before the
+// launch (kernels/tiling.py table_plan), never by a failed launch:
 //   * worp_countsketch_scatter_smem, where the rows x width table fits a
 //     block's shared memory (rows 7 with width <= 8192): one block per
 //     (stream, chunk), the table in shared memory, the block body and its
@@ -22,8 +22,16 @@
 //   * worp_countsketch_scatter, for larger tables: one thread per (b, i)
 //     slot, the mask, the transform once, then rows global atomicAdds into
 //     a zeroed delta.
-// Both sum in an order that changes from run to run, so the result matches
-// the plain version within float tolerance, not bit for bit.
+//   * worp_countsketch_scatter_det, under
+//     torch.use_deterministic_algorithms(True) where the table and a
+//     1024-slot stage fit a block: one block per stream, one warp per row,
+//     each cell summed in an order fixed by slot index
+//     (smem_table.cuh det_table_block), so every run gives the same bits.
+//     A larger table has no deterministic variant: the wrapper raises.
+// The first two sum in an order that changes from run to run, so the
+// result matches the plain version within float tolerance, not bit for
+// bit; so does the third (its order is fixed, but not the plain
+// version's).
 //
 // Budget: 57,344 B of shared memory a block at the defaults and 32
 // registers a thread, so 4 blocks of 512 threads an SM (chip_smoke.py
@@ -96,7 +104,41 @@ __global__ void __launch_bounds__(worp::kTableThreads, 3)
   worp::table_block(worp::SparseSlots{keys, values}, args, table);
 }
 
+__global__ void __launch_bounds__(worp::kTableThreads)
+    countsketch_scatter_det(const int32_t* __restrict__ keys,
+                            const float* __restrict__ values,
+                            worp::TableArgs args) {
+  extern __shared__ float table[];
+  worp::det_table_block(worp::SparseSlots{keys, values}, args, table);
+}
+
 }  // namespace
+
+// The deterministic variant: one block of `threads` (32 a row, at most
+// 512) per stream, `smem_bytes` (rows x width x 4 + kDetTile x 8) of
+// dynamic shared memory, the delta written whole.  Launches on `stream`;
+// returns a CUDA error code (0 on success).
+extern "C" int worp_countsketch_scatter_det(
+    const void* keys, const void* values, const void* seeds,
+    const void* tseeds, const void* lengths, void* delta, int B, int n,
+    int rows, int width, int has_p, float neg_inv_p, int scheme, int threads,
+    int smem_bytes, void* stream) {
+  const int err = worp::prepare_table_kernel(countsketch_scatter_det,
+                                             smem_bytes);
+  if (err) return err;
+  const worp::TableArgs args{
+      static_cast<const int32_t*>(seeds),
+      static_cast<const int32_t*>(tseeds),
+      static_cast<const int32_t*>(lengths),
+      nullptr,
+      static_cast<float*>(delta), B, n, rows, width, 0, has_p, scheme,
+      neg_inv_p};
+  countsketch_scatter_det<<<B, threads, smem_bytes,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(keys), static_cast<const float*>(values),
+      args);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // The shared-memory variant: `blocks` blocks of `threads` threads and
 // `smem_bytes` (rows x width x 4) of dynamic shared memory; block_ends is
@@ -127,9 +169,17 @@ extern "C" int worp_countsketch_scatter_smem(
 }
 
 // Registers, static shared memory, blocks per SM and dynamic shared memory
-// (worp::kernel_info) of variant 0 (global atomics) or 1 (shared memory).
+// (worp::kernel_info) of variant 0 (global atomics), 1 (shared memory) or
+// 2 (deterministic).
 extern "C" int worp_countsketch_scatter_info(int variant, int threads,
                                              int smem_bytes, int* out) {
+  if (variant == 2) {
+    const int err = worp::prepare_table_kernel(countsketch_scatter_det,
+                                               smem_bytes);
+    if (err) return err;
+    return worp::kernel_info(countsketch_scatter_det, threads, smem_bytes,
+                             out);
+  }
   if (variant == 1) {
     const int err = worp::prepare_table_kernel(countsketch_scatter_smem,
                                                smem_bytes);

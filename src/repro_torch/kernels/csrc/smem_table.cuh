@@ -23,10 +23,9 @@
 // shared-memory atomics (combine_lanes): a Zipf head puts about 18 % of a
 // stream's slots on key 0.  Shared-memory atomics, like global ones, sum
 // in an order that changes from run to run: the tables match the plain version within float
-// tolerance, not bit for bit.  A deterministic mode needs only a fixed
-// order: each block already walks a fixed slot range, so a per-thread or
-// per-warp table (or a sorted pass) inside the block plus the workspace
-// flush, summed in block order, would give the same bits every run.
+// tolerance, not bit for bit.  The scatter's deterministic variant
+// (det_table_block below, under torch.use_deterministic_algorithms) fixes
+// the order: one warp owns each row and walks the slots in order.
 //
 // Shared memory: rows x width x 4 B, 57,344 B at the defaults (7 x 2048).
 // Above 48 KB a block needs the opt-in attribute, which prepare_table_kernel
@@ -209,6 +208,94 @@ __device__ __forceinline__ void table_block(const Slots& slots,
       if (x != 0.0f) atomicAdd(dst + c, x);  // NaN != 0: NaN is added too
     }
   }
+}
+
+// The deterministic block body of the scatter (kernels/tiling.py
+// table_plan "det"): every cell sums its terms in one order fixed by slot
+// index, so a launch gives the same bits on every run.  One block per
+// stream, one warp per row (warp w takes rows w, w + warps, ...).  The
+// block walks its stream in tiles of kDetTile slots:
+//   1. all threads stage the tile's keys and transformed values in shared
+//      memory, the transform once a slot (a dead slot, past the length or
+//      key -1, is staged as key 0xFFFFFFFF, which no live scatter key is);
+//   2. each warp walks the tile for each of its rows in slot order, 32
+//      slots at a time, lane l on slot j0 + l.  The lanes whose slots fall
+//      in one bucket sum their signed values to the lowest of them in lane
+//      order (combine_lanes, matched on the bucket), and that lane adds the
+//      sum to its cell with a plain load and store: only this warp writes
+//      the row, and only one lane a cell per step.
+// A cell's value is thus ((0 + group 1) + group 2) + ..., each group's sum
+// taken in lane order: fixed by the slots, whatever the timing.  The delta
+// is written whole with plain stores, as the one-block-per-stream flush of
+// table_block does.  Shared memory: the table plus kDetTile x 8 B (65,536 B
+// at 7 x 2048), so 3 blocks of 7 warps an SM.  Each (slot, row) is hashed
+// once, as in the atomics variant, but with a third of the threads in
+// flight and a match and the shuffles per step: 2.30 ms at the flush
+// shape, 20 % of its bound and 3.8x the atomics (chip_smoke.py, H100 80GB
+// HBM3, 700.00 W).
+constexpr int kDetTile = 1024;
+constexpr uint32_t kDeadKey = 0xFFFFFFFFu;
+
+__device__ __forceinline__ void det_table_block(const SparseSlots& slots,
+                                                const TableArgs& a,
+                                                float* table) {
+  const int b = blockIdx.x;
+  const int64_t len = a.lengths[b];
+  const int cells = a.rows * a.width;
+  uint32_t* tile_keys = reinterpret_cast<uint32_t*>(table + cells);
+  float* tile_vals = reinterpret_cast<float*>(tile_keys + kDetTile);
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) table[c] = 0.0f;
+
+  const uint32_t seed = static_cast<uint32_t>(a.seeds[b]);
+  const uint32_t tseed = static_cast<uint32_t>(a.tseeds[b]);
+  const uint32_t width = static_cast<uint32_t>(a.width);
+  const int64_t row0 = static_cast<int64_t>(b) * a.n;
+  const int warp = static_cast<int>(threadIdx.x >> 5);
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int warps = static_cast<int>(blockDim.x >> 5);
+  for (int64_t t0 = 0; t0 < len; t0 += kDetTile) {
+    const int tile =
+        static_cast<int>(len - t0 < kDetTile ? len - t0 : kDetTile);
+    __syncthreads();  // the zeroed table, or the previous tile's walk
+    for (int j = threadIdx.x; j < tile; j += blockDim.x) {
+      const int64_t i = t0 + j;
+      uint32_t key = kDeadKey;
+      float v = 0.0f;
+      if (slots(b, i, row0 + i, key, v)) {
+        if (a.has_p) {
+          v = transform_value(v, key, tseed, a.scheme, a.neg_inv_p);
+        }
+      } else {
+        key = kDeadKey;
+        v = 0.0f;
+      }
+      tile_keys[j] = key;
+      tile_vals[j] = v;
+    }
+    __syncthreads();
+    // warp-uniform trip counts, so every lane reaches the warp collectives
+    for (int r = warp; r < a.rows; r += warps) {
+      const uint32_t salt = row_salt(seed, static_cast<uint32_t>(r));
+      float* row = table + static_cast<int64_t>(r) * a.width;
+      for (int j0 = 0; j0 < tile; j0 += 32) {
+        const int j = j0 + lane;
+        const uint32_t key = j < tile ? tile_keys[j] : kDeadKey;
+        const bool live = key != kDeadKey;
+        uint32_t bucket = 0;
+        float v = 0.0f;
+        if (live) {
+          bucket = bucket_hash(key, salt, width);
+          v = sign_hash(key, salt) * tile_vals[j];
+        }
+        if (combine_lanes(bucket, live, v)) row[bucket] += v;
+        __syncwarp();  // this step's stores before the next step's loads
+      }
+    }
+  }
+  __syncthreads();
+
+  float* dst = a.delta + static_cast<int64_t>(b) * cells;
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) dst[c] = table[c];
 }
 
 // Opt a table kernel in to `smem_bytes` of dynamic shared memory (and the

@@ -16,6 +16,7 @@ from .countsketch_query import (countsketch_estimate,
 from .countsketch_scatter import countsketch_scatter_batched
 from .countsketch_update import countsketch_update, countsketch_update_batched
 from .ppswor_transform import ppswor_transform
+from .segment_sum import segment_sum as _segment_sum
 
 
 def sketch_dense_vector(values, rows: int, width: int, seed,
@@ -91,3 +92,9 @@ def estimate_batched(tables, keys, seeds) -> torch.Tensor:
 def transform(keys, values, p: float, transform_seed) -> torch.Tensor:
     """Standalone p-ppswor transform (Eq. 5) in the values' type."""
     return ppswor_transform(keys, values, p, transform_seed)
+
+
+def segment_sum(values, seg) -> torch.Tensor:
+    """Per-row sums over runs of equal, nondecreasing segment ids, each run
+    added in index order: one launch of the sorted segment-sum kernel."""
+    return _segment_sum(values, seg)

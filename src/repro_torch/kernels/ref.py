@@ -220,3 +220,10 @@ def countsketch_estimate_batched_ref(tables, keys, seeds) -> torch.Tensor:
     """Batched R.Est: (B, k) median over rows (``jnp.median`` semantics)."""
     return countsketch.median(
         countsketch_query_batched_ref(tables, keys, seeds), 1)
+
+
+def segment_sum_ref(values, seg) -> torch.Tensor:
+    """Per-row sums of ``values`` (..., n) over the runs of equal segment
+    ids ``seg`` (..., n): segment s's sum at index s, zero past the last;
+    ``scatter_add_``, which on the CPU adds each run in index order."""
+    return torch.zeros_like(values).scatter_add_(-1, seg, values)

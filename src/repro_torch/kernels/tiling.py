@@ -29,6 +29,11 @@ SMEM_PER_BLOCK_OPTIN = 232_448
 # SM: two waves of the 4 resident blocks, so the ragged last wave and
 # uneven streams cost little.
 TABLE_BLOCKS_PER_SM = 8
+# The deterministic scatter (csrc/smem_table.cuh det_table_block): one warp
+# a row, at most DET_MAX_WARPS, and a stage of DET_TILE slots (key and
+# transformed value, 8 B each) beside the table.
+DET_TILE = 1024
+DET_MAX_WARPS = 16
 
 
 def pad_to(x: int, m: int) -> int:
@@ -69,7 +74,10 @@ class TablePlan(NamedTuple):
     stream's delta and writes every cell with plain stores; otherwise only
     the chunks that hold live slots get a block, and each adds its table
     into a zeroed delta.  "global": one thread per slot with global atomics
-    into a zeroed delta, for tables too large for shared memory."""
+    into a zeroed delta, for tables too large for shared memory.  "det"
+    (the scatter under ``torch.use_deterministic_algorithms(True)``): one
+    block per stream, one warp a row, the stream walked in stages of
+    ``chunk`` slots, every cell summed in an order fixed by slot index."""
     variant: str
     blocks: int
     threads: int
@@ -82,6 +90,17 @@ def table_fits(rows: int, width: int) -> bool:
     """Whether a float32 rows x width table fits one block's shared
     memory."""
     return rows * width * 4 <= SMEM_PER_BLOCK_OPTIN
+
+
+def det_smem_bytes(rows: int, width: int) -> int:
+    """Shared memory of a deterministic scatter block: the table and its
+    stage of ``DET_TILE`` keys and values."""
+    return rows * width * 4 + DET_TILE * 8
+
+
+def det_fits(rows: int, width: int) -> bool:
+    """Whether the deterministic scatter has a variant for this table."""
+    return det_smem_bytes(rows, width) <= SMEM_PER_BLOCK_OPTIN
 
 
 def host_lengths(lengths, B: int, n: int) -> np.ndarray:
@@ -123,14 +142,18 @@ def plan_blocks(plan: TablePlan, lengths: np.ndarray) -> np.ndarray:
 
 
 def table_plan(B: int, n: int, lengths, rows: int, width: int,
-               sm_count: int, variant: str | None = None) -> TablePlan:
+               sm_count: int, variant: str | None = None,
+               deterministic: bool = False) -> TablePlan:
     """The launch of a summing kernel over B streams of n slots, stream b
     live in ``[0, lengths[b])`` (host (B,) ints, already clamped to
     [0, n]), for a ``sm_count``-SM card.
 
-    The variant follows from the shape: "smem" exactly when the rows x
-    width float32 table fits a block's shared memory, else "global";
-    ``variant`` forces one (forcing "smem" on a table that does not fit
+    The variant follows from the mode and the shape: "det" when
+    ``deterministic`` (the scatter under PyTorch's deterministic mode; a
+    table too large for it raises, naming the shape: there is no
+    deterministic fallback), else "smem" exactly when the rows x width
+    float32 table fits a block's shared memory, else "global"; ``variant``
+    forces one (forcing "smem" or "det" on a table that does not fit
     raises).  The chunk is the live slots over ``TABLE_BLOCKS_PER_SM`` x
     ``sm_count`` blocks, and a multiple of the block's threads.  It is at
     least four tables' cells (so a block's flush, one add a cell, is under
@@ -139,9 +162,22 @@ def table_plan(B: int, n: int, lengths, rows: int, width: int,
     holds the longest stream, each stream is one block."""
     fits = table_fits(rows, width)
     if variant is None:
-        variant = "smem" if fits else "global"
+        variant = "det" if deterministic else "smem" if fits else "global"
     if variant == "global":  # ``lengths`` is not read (it may be None)
         return TablePlan("global", grid_1d(B * n), THREADS_PER_BLOCK)
+    if variant == "det":  # nor here: each stream is one block
+        if not det_fits(rows, width):
+            raise ValueError(
+                f"deterministic mode: the scatter's {rows} x {width} float32 "
+                f"table and its {DET_TILE}-slot stage "
+                f"({det_smem_bytes(rows, width)} B) do not fit the "
+                f"{SMEM_PER_BLOCK_OPTIN} B of shared memory of a block, and "
+                f"the deterministic scatter has no variant for a larger "
+                f"table")
+        if B > MAX_GRID_X:
+            raise ValueError(f"{B} blocks exceed the grid limit {MAX_GRID_X}")
+        return TablePlan("det", B, 32 * min(rows, DET_MAX_WARPS), DET_TILE,
+                         True, det_smem_bytes(rows, width))
     if variant != "smem":
         raise ValueError(f"unknown kernel variant {variant!r}")
     if not fits:
@@ -170,14 +206,17 @@ def sm_count(device) -> int:
 
 
 def table_launch(B: int, n: int, lengths, rows: int, width: int, device,
-                 variant: str | None = None):
+                 variant: str | None = None, deterministic: bool = False):
     """The plan of a summing kernel's launch on the card ``device`` and its
     (B, rows, width) float32 delta: ``torch.empty`` where each stream's one
     block writes its delta whole, else zeroed.  Host lengths are read only
     for the shared-memory variant (a CUDA tensor of lengths waits for the
-    card)."""
+    card).  Under PyTorch's deterministic mode ``torch.empty`` fills the
+    delta with NaN first (``torch.utils.deterministic.
+    fill_uninitialized_memory``), which the kernel then overwrites."""
     if variant is None:
-        variant = "smem" if table_fits(rows, width) else "global"
+        variant = "det" if deterministic \
+            else "smem" if table_fits(rows, width) else "global"
     lens = host_lengths(lengths, B, n) if variant == "smem" else None
     plan = table_plan(B, n, lens, rows, width, sm_count(device), variant)
     alloc = torch.empty if plan.one_per_stream else torch.zeros

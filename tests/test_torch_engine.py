@@ -235,8 +235,9 @@ def test_not_ported_paths_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tplanes.make_plane("sparse", eng.spec, eng.state, codec="q8")
     with pytest.raises(ValueError, match="unknown data plane"):
-        tplanes.make_plane("async", eng.spec, eng.state)
-    assert tplanes.available_planes() == ("dense", "sparse")
+        tplanes.make_plane("fleet", eng.spec, eng.state)
+    assert tplanes.available_planes() == ("dense", "sparse", "async",
+                                          "pipeline")
     # the perfect oracle holds no sketch: its spec's update; a
     # sketch-backed sampler with no registered path raises
     keys = torch.tensor([[3], [-1]], dtype=torch.int32)

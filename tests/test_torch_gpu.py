@@ -29,7 +29,16 @@ would pick the other, and check which one each launch took by its
 ``variant_launches`` counter.  The transform's scalar variant is reached
 through views that start one element in, which its alignment rule sends
 there.
+
+Under ``torch.use_deterministic_algorithms(True)`` the scatter takes its
+"det" variant, which sums every cell in an order fixed by slot index: its
+launches must give the same bits, and its cells stay within the plain
+version's bound.  PyTorch's ``scatter_add_`` and ``index_add_`` on the
+flush's shapes, and the async plane against the sparse plane, must then
+give the same bits too.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -38,11 +47,13 @@ from repro_torch.core import countsketch, hashing, worp
 from repro_torch.core.sampler import SamplerConfig, make_sampler
 from repro_torch.data.pipeline import TurnstileZipfStream
 from repro_torch.engine import EngineConfig, SketchEngine
+from repro_torch.engine.engine import _leaves
 from repro_torch.kernels import countsketch_query as tq
 from repro_torch.kernels import countsketch_scatter as ts
 from repro_torch.kernels import countsketch_update as tu
 from repro_torch.kernels import ppswor_transform as tt
 from repro_torch.kernels import ref, tiling
+from repro_torch.kernels import segment_sum as tseg
 
 pytestmark = pytest.mark.gpu
 
@@ -717,3 +728,212 @@ def test_perfect_sampler_launches_no_kernel():
     assert card.state.freqs.device.type == "cuda"
     assert torch.equal(card.state.freqs.cpu(), cpu.state.freqs)
     assert torch.equal(samp.keys.cpu(), cpu.sample(5).keys)
+
+
+# ---------------------------------------------------------------------------
+# the deterministic mode: the scatter's "det" variant, PyTorch's segment
+# sums, and the async plane against the sparse plane bit for bit
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _deterministic():
+    """``torch.use_deterministic_algorithms(True)``, restored after."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+DET_CASES = {
+    "ppswor_p1": dict(p=1.0),
+    "priority": dict(p=1.0, scheme="priority"),
+    "p_half": dict(p=0.5),
+    "no_transform": dict(p=None),
+    "padding_and_lengths": dict(p=1.0, pad_stream=1,
+                                lengths=[2500, 2500, 0, 1537]),
+    "hot_key": dict(p=1.0, hot=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DET_CASES))
+def test_cuda_det_scatter_same_bits_every_launch(case):
+    """Under the deterministic mode the scatter takes its "det" variant by
+    itself; three launches give the same bits, and each cell is within its
+    rounding bound of the plain version (stages of 1024 slots: 2500 slots
+    make three)."""
+    _need_card()
+    opts = dict(DET_CASES[case])
+    keys, vals, seeds, tseeds = _streams(4, 2500, seed=21)
+    if opts.pop("hot", False):
+        keys[:, ::2] = 4242
+    pad = opts.pop("pad_stream", None)
+    if pad is not None:
+        keys[pad] = -1
+    lengths = opts.pop("lengths", None)
+    lengths = None if lengths is None else torch.tensor(lengths)
+    want = ref.countsketch_scatter_batched_ref(
+        keys, vals, 7, 2048, seeds, transform_seeds=tseeds, lengths=lengths,
+        **opts)
+    outs = []
+    with _deterministic():
+        for _ in range(3):
+            before = dict(ts.variant_launches)
+            outs.append(ts.countsketch_scatter_batched(
+                keys.cuda(), vals.cuda(), 7, 2048, seeds.cuda(),
+                transform_seeds=tseeds.cuda(),
+                lengths=None if lengths is None else lengths.cuda(),
+                **opts).cpu())
+            assert {v: ts.variant_launches[v] - before[v]
+                    for v in before} == {"smem": 0, "global": 0, "det": 1}
+    assert all(torch.equal(o.view(torch.int32), outs[0].view(torch.int32))
+               for o in outs[1:])
+    _check_sum(outs[0], want, ref.countsketch_scatter_mass_ref(
+        keys, vals, 7, 2048, seeds, transform_seeds=tseeds, lengths=lengths,
+        **opts))
+    if pad is not None:
+        assert not outs[0][pad].any() and not outs[0][2].any()
+
+
+def test_cuda_det_scatter_table_too_large_raises():
+    """No deterministic variant for a table past a block's shared memory:
+    the mode raises, naming the shape, and launches nothing."""
+    _need_card()
+    keys, vals, seeds, tseeds = _streams(2, 300, seed=22)
+    before = ts.launches
+    with _deterministic(), pytest.raises(ValueError,
+                                         match="deterministic mode.*7 x "
+                                               "16384"):
+        ts.countsketch_scatter_batched(keys.cuda(), vals.cuda(), 7, 16384,
+                                       seeds.cuda(), p=1.0,
+                                       transform_seeds=tseeds.cuda())
+    assert ts.launches == before
+
+
+def _same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def test_scatter_add_and_index_add_deterministic_at_flush_shapes():
+    """The flush's PyTorch sums under the mode, twice each on the same
+    inputs, at the sparse plane's shapes (B = 4096, n = 5120, 512
+    candidates): ``_dedup_topc``'s ``scatter_add_`` over (4096, 5632) with
+    Zipf-like repeated keys, the perfect spec's over a (256, 2**20) domain,
+    and ``countsketch.update``'s ``index_add_`` into 4096 x 7 x 2048
+    cells."""
+    _need_card()
+    rng = np.random.default_rng(23)
+    B, n, C = 4096, 5120, 512
+    keys = torch.from_numpy(np.minimum(rng.zipf(1.2, (B, C + n)) - 1,
+                                       2**20 - 1).astype(np.int32)).cuda()
+    vals = torch.from_numpy(rng.normal(size=(B, C + n)).astype(
+        np.float32)).cuda()
+    with _deterministic():
+        a = worp._dedup_topc(keys, vals, vals.abs(), C)
+        b = worp._dedup_topc(keys, vals, vals.abs(), C)
+        assert all(_same_bits(x, y) for x, y in zip(a, b))
+        spec = make_sampler("perfect", SamplerConfig(domain=2**20))
+        st = spec.init(torch.arange(256).cuda(), torch.arange(256).cuda())
+        f1 = spec.update(st, keys[:256, :n], vals[:256, :n]).freqs
+        f2 = spec.update(st, keys[:256, :n], vals[:256, :n]).freqs
+        assert _same_bits(f1, f2)
+        sk = countsketch.init(7, 2048, torch.arange(B).cuda())
+        t1 = countsketch.update(sk, keys[:, :n], vals[:, :n]).table
+        t2 = countsketch.update(sk, keys[:, :n], vals[:, :n]).table
+        assert _same_bits(t1, t2)
+
+
+SAMPLER_NAMES = ["onepass", "perfect", "tv", "twopass"]
+
+
+@pytest.mark.parametrize("scheme", ["ppswor", "priority"])
+@pytest.mark.parametrize("name", SAMPLER_NAMES)
+def test_async_equals_sparse_bitwise_on_card(name, scheme):
+    """Under the mode the async plane's drained state and sample equal the
+    sparse plane's bit for bit on the card (the det scatter, PyTorch's
+    deterministic sums), signed Zipf streams with deletions included."""
+    _need_card()
+    cfg = EngineConfig(num_streams=8, rows=7, width=2048, candidates=64,
+                       capacity=64, sampler=name, scheme=scheme,
+                       domain=1 << 16, num_samplers=3)
+    stream = TurnstileZipfStream(vocab_size=1 << 16, alpha=1.2, seed=5)
+    steps = [tuple(np.stack(x) for x in zip(*[
+        stream.sparse_batch_at(t, b, 600) for b in range(8)]))
+        for t in range(4)]
+    with _deterministic():
+        engs = []
+        for plane in ("sparse", "async"):
+            eng = SketchEngine(cfg, plane=plane, flush_elems=1000)
+            before = ts.variant_launches["det"]
+            for keys, vals in steps:
+                eng.ingest(keys, vals)
+            eng.flush()
+            assert name == "perfect" or ts.variant_launches["det"] > before
+            engs.append(eng)
+        assert all(_same_bits(x, y) if x.is_floating_point()
+                   else torch.equal(x, y)
+                   for x, y in zip(_leaves(engs[0].state),
+                                   _leaves(engs[1].state)))
+        s1, s2 = engs[0].sample(8), engs[1].sample(8)
+        assert torch.equal(s1.keys, s2.keys)
+        assert _same_bits(s1.freqs, s2.freqs)
+        engs[1].plane.close()
+
+
+def _runs(rows, n, seed, hi):
+    """Segment ids of stably sorted Zipf-like key rows, and values."""
+    rng = np.random.default_rng(seed)
+    keys = np.sort(np.minimum(rng.zipf(1.2, (rows, n)) - 1, hi), axis=1)
+    first = np.ones((rows, n), bool)
+    first[:, 1:] = keys[:, 1:] != keys[:, :-1]
+    seg = torch.from_numpy(np.cumsum(first, 1) - 1)
+    vals = torch.from_numpy(rng.normal(size=(rows, n)).astype(np.float32))
+    return vals, seg
+
+
+@pytest.mark.parametrize("rows,n,hi", [(4096, 5632, 2**20), (3, 1, 5),
+                                       (5, 777, 0), (1, 100_000, 50),
+                                       (64, 4096, 2**31)])
+def test_cuda_segment_sum_equals_cpu_bitwise(rows, n, hi):
+    """The sorted segment sum adds each run in index order, as the CPU's
+    scatter_add_ does: bit for bit equal to it, on every launch; a single
+    run of all n slots (hi = 0) included."""
+    _need_card()
+    vals, seg = _runs(rows, n, rows + n, hi)
+    want = ref.segment_sum_ref(vals, seg)
+    before = tseg.launches
+    outs = [tseg.segment_sum(vals.cuda(), seg.cuda()).cpu() for _ in range(3)]
+    assert tseg.launches == before + 3
+    assert all(_same_bits(o, want) for o in outs)
+    one = tseg.segment_sum(vals[0].cuda(), seg[0].cuda()).cpu()
+    assert _same_bits(one, want[0])
+
+
+def test_dedup_topc_on_card_equals_cpu_in_deterministic_mode():
+    """Under the mode the card's buffer policy launches the segment sum
+    and gives the CPU's keys, sums and priorities bit for bit."""
+    _need_card()
+    rng = np.random.default_rng(24)
+    keys = torch.from_numpy(np.minimum(rng.zipf(1.2, (512, 5632)) - 1,
+                                       2**20 - 1).astype(np.int32))
+    keys[:, ::7] = -1
+    vals = torch.from_numpy(rng.normal(size=(512, 5632)).astype(np.float32))
+    prio = torch.from_numpy(rng.random((512, 5632)).astype(np.float32))
+    want = worp._dedup_topc(keys, vals, prio, 512)
+    before = tseg.launches
+    with _deterministic():
+        got = worp._dedup_topc(keys.cuda(), vals.cuda(), prio.cuda(), 512)
+    assert tseg.launches == before + 1
+    assert all(_same_bits(g.cpu(), w) for g, w in zip(got, want))
+
+
+def test_cuda_segment_sum_rejects_what_the_kernel_does_not_take():
+    _need_card()
+    vals, seg = _runs(2, 10, 0, 5)
+    with pytest.raises(ValueError, match="int64"):
+        tseg.segment_sum(vals.cuda(), seg.cuda().to(torch.int32))
+    with pytest.raises(ValueError, match="float32"):
+        tseg.segment_sum(vals.cuda().double(), seg.cuda())
