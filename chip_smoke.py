@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Five paths, each driven with the kernels' launch counts set to 0 just
+Seven paths, each driven with the kernels' launch counts set to 0 just
 before it and read just after:
 
 * Sparse plane.  Per-key analytics over B = 4096 independent turnstile
@@ -42,9 +42,31 @@ before it and read just after:
   ``perfect`` must on the first 256 streams.  In the default mode the two
   planes' ingest rates and traced busy shares are recorded (the async
   plane's overlap, measured and not claimed).  The ``pipeline`` plane
-  (4 shards, 2 flushes at B = 4096) is held to the sparse plane within the
-  summing tolerances, its async sub-planes to its sparse ones bit for bit,
+  (4 shards, 2 flushes at B = 4096) is held to the sparse plane, and the
+  sparse plane to the plain scatter, within the summing tolerances, its
+  async sub-planes to its sparse ones bit for bit,
   and a stalled producer's tail must be published by the interval timer.
+* Conformance grid.  ``repro_torch.validate.conformance.run_suite``'s
+  grid at the nightly operating point (``python -m repro_torch.validate
+  --deep``): every sampler, both schemes, p in {0.5, 1, 1.5, 2}, every
+  plane (dense, ingest, async, pipeline), n = 96, k = 8, rows 5, width
+  31 k, 384 trials against 1,152 oracle trials, and the Table 3 rows
+  (n = 10**4, k = 100) at 12 randomizations.  No check may fail, and
+  every cell must pass one; the ingest, async and pipeline paths must
+  launch the scatter and the estimate kernels, and no plane's thread may
+  outlive the grid.  In the deterministic mode the async path's trials
+  equal the ingest path's bit for bit.
+* Ingest pipeline.  ``PrefetchingFeeder`` at the sparse plane's
+  deployment: one canonical ``TurnstileZipfStream(2**20, alpha=1.2,
+  delete_fraction=0.25)`` over 4 producer shards, packed into (4096, 4096)
+  blocks (B = 4096 streams); fan-in into ``sparse`` and ``async``,
+  per-shard into ``pipeline`` (4 shards), each held to the sparse plane's
+  direct ingest of the same stream (itself held to the plain scatter's
+  table) within the summing bounds and, read
+  over the union of both candidate buffers, with the same samples but for
+  near ties; fan-in ``async`` equal to fan-in ``sparse`` bit for bit in
+  the deterministic mode.  Events/s, pack efficiency, the producers' and
+  the pump's wait and the busy share of a traced feed are recorded.
 
 Every estimate of the sparse and dense paths (candidate refresh, sample)
 is one launch of the estimate kernel, which takes the median of rows in
@@ -67,7 +89,9 @@ the script exits non-zero without the final ``ok`` line):
      memory and blocks per SM;
   2. each batched kernel against its plain PyTorch version on the card,
      both variants of the scatter at the deployment shape, a hot-key
-     stream, and a table too large for shared memory; the estimate at the
+     stream, and a table too large for shared memory, the scatter at
+     p = 0.5, 1.5 and 2 and at the conformance grid's flush shape for each
+     of its p and schemes; the estimate at the
      flush shape, on special values and at 17 rows (the row read);
   3. the sparse plane (the kernels) against the dense plane (the plain
      reference), from the same seeds and stream, and a ``torch.profiler``
@@ -94,6 +118,12 @@ the script exits non-zero without the final ``ok`` line):
      CPU's bit for bit), with their times and the NaN fill of
      ``torch.empty`` in the mode; async against sparse bit for bit; the
      overlap; the pipeline; the interval timer;
+  validate.  the conformance grid and Table 3, one ``conformance_check``
+     line per check and the ``conformance_summary`` line, times by path
+     and by sampler, launches by path, live threads; the deterministic
+     async cell;
+  ingest.  the feeder's fan-in and per-shard runs against direct ingest,
+     their rates and waits, a traced feed, the deterministic fan-in;
   7. one ``{"kernels": [...]}`` line, then the ``ok`` line.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
@@ -614,11 +644,15 @@ def phase_parity(torch, seeds, tseeds, keys, vals, tag):
     scatter and the dense update within rtol 1e-4 / scale-aware atol and
     within each cell's rounding bound, the query bit for bit.  The scatter
     at the deployment shape in both variants, the shared-memory one by
-    shape; a hot-key stream; rows 7 x width 16384 by shape global."""
+    shape; a hot-key stream; rows 7 x width 16384 by shape global; the
+    conformance grid's flushes, (trials, n / chunks) keys of its Zipf
+    stream into rows 5 x width 31 k under its trial seeds, at each of its
+    p and schemes."""
     from repro_torch.kernels import countsketch_query as q
     from repro_torch.kernels import countsketch_scatter as s
     from repro_torch.kernels import countsketch_update as u
     from repro_torch.kernels import ref
+    from repro_torch.validate import conformance, empirics
 
     dev = keys.device
     results = {}
@@ -688,7 +722,20 @@ def phase_parity(torch, seeds, tseeds, keys, vals, tag):
                   scheme="priority")
     check_scatter("p=0.5", k, v, ROWS, WIDTH, sd, ts, p=0.5)
     check_scatter("p=2", k, v, ROWS, WIDTH, sd, ts, p=2.0)
+    check_scatter("p=1.5", k, v, ROWS, WIDTH, sd, ts, p=1.5)
     check_scatter("p=None", k, v, ROWS, WIDTH, sd, ts, p=None)
+    cfg = conformance.ConformanceConfig(trials=VALIDATE_TRIALS)
+    step, width = -(-cfg.n // cfg.chunks), 31 * cfg.k
+    freqs = empirics.zipf_freqs(cfg.n, cfg.alpha, seed=cfg.seed & 0xFF)
+    gk = torch.arange(step, dtype=torch.int32, device=dev).repeat(
+        cfg.trials, 1)
+    gv = torch.tensor(freqs[:step], device=dev).repeat(cfg.trials, 1)
+    gsd, gts = empirics.derive_trial_seeds(cfg.trials, cfg.seed, device=dev)
+    for scheme in conformance.SCHEMES:
+        for gp in conformance.PS:
+            check_scatter(f"grid {scheme} p={gp:g} ({cfg.trials}, {step}) "
+                          f"rows {cfg.rows} x W={width}", gk, gv, cfg.rows,
+                          width, gsd, gts, p=gp, scheme=scheme)
     results["scatter_ratio"] = max(ratios)
     results["scatter_err"] = {v: results["scatter"][v][0] for v in VARIANTS}
 
@@ -2567,18 +2614,82 @@ def overlap(torch, plane, steps, tag) -> dict:
             "busy_share": busy / wall_ms if rows else None}
 
 
+def compare_histories(torch, what, st, ss, tol, seeds) -> int:
+    """Two one-pass states of the same stream fed with other flush
+    boundaries or shards: tables within the bounds, and sample keys
+    identical but for near ties, non-finite streams and candidate buffers
+    that differ; read over the union of both buffers, identical but for
+    near ties and non-finite streams.  Returns the streams whose samples
+    differ only through their buffers' histories.
+
+    The candidate buffer is a heuristic whose content depends on the order
+    of its refreshes (each flush refreshes among its own keys; a collapse
+    among the shards' buffers), so a stream's samples may differ where a
+    key of one sample is missing from the other state's buffer; read over
+    the union of both buffers, the two tables must give the same sample
+    but for near ties."""
+    from repro_torch.engine.engine import onepass_sample_batched
+
+    bad = compare_tables(torch, what, st.sketch.table, ss.sketch.table, tol)
+    samp, ssamp = (onepass_sample_batched(x, K, P) for x in (st, ss))
+    diff_a = ~(samp.keys[:, :, None] == ssamp.keys[:, None, :]).any(2)
+    diff_b = ~(ssamp.keys[:, :, None] == samp.keys[:, None, :]).any(2)
+    missing = ((diff_a & ~(samp.keys[:, :, None]
+                           == ss.cand_keys[:, None, :]).any(2)).any(1)
+               | (diff_b & ~(ssamp.keys[:, :, None]
+                             == st.cand_keys[:, None, :]).any(2)).any(1))
+    compare_samples(torch, what, samp, ss, tol, seeds, K, P, bad,
+                    excused=missing,
+                    excuse="a sampled key missing from the other state's "
+                           "candidate buffer")
+    pool = torch.sort(torch.cat([st.cand_keys, ss.cand_keys], 1), 1).values
+    dup = torch.zeros_like(pool, dtype=torch.bool)
+    dup[:, 1:] = pool[:, 1:] == pool[:, :-1]
+    pool = torch.where(dup, -1, pool)
+    compare_samples(torch, f"{what}, both read over the union of their "
+                    f"candidate buffers",
+                    onepass_sample_batched(st._replace(cand_keys=pool), K, P),
+                    ss._replace(cand_keys=pool), tol, seeds, K, P, bad)
+    return int(missing.sum())
+
+
+def flush_plain(torch, steps, seeds, tseeds):
+    """The plain scatter's table of ``steps`` (each (B, n) keys and values,
+    numpy) summed into one table, and the per-cell rounding bound of such a
+    sum, any order."""
+    import numpy as np
+
+    from repro_torch.kernels import ref
+
+    dev = torch.device(DEVICE)
+    want = cnt = mass = None
+    for keys, vals in steps:
+        k = torch.from_numpy(np.ascontiguousarray(keys)).to(dev)
+        v = torch.from_numpy(np.ascontiguousarray(vals)).to(dev)
+        t = ref.countsketch_scatter_batched_ref(k, v, ROWS, WIDTH, seeds, p=P,
+                                                transform_seeds=tseeds)
+        c, m = ref.countsketch_scatter_mass_ref(k, v, ROWS, WIDTH, seeds, p=P,
+                                                transform_seeds=tseeds)
+        if want is None:
+            want, cnt, mass = t, c, m
+        else:
+            want += t
+            cnt += c
+            mass += m
+        del k, v, t, c, m
+    return want, ref.scatter_tolerance(cnt, mass)
+
+
 def pipeline_checks(torch, steps, seeds, tseeds, tag) -> dict:
-    """``shards=4`` at B streams: the collapse against the sparse plane
-    within the summing tolerances, sample keys identical but for near ties
+    """``shards=4`` at B streams: the sparse plane against the plain
+    scatter and the collapse against the sparse plane within the summing
+    tolerances, sample keys identical but for near ties
     and for candidate buffers that differ, and identical but for near ties
     when both are read over the union of the two buffers; async sub-planes
     against sparse sub-planes bit for bit in the deterministic mode (fed the
     same partition through ``ingest_shard``)."""
     from repro_torch.engine import planes
-    from repro_torch.engine.engine import onepass_sample_batched
-    from repro_torch.kernels import ref
 
-    dev = torch.device(DEVICE)
     psteps = steps[:PIPE_STEPS]
     sparse = plane_engine("onepass", "sparse")
     drive_plane(torch, sparse, psteps)
@@ -2587,47 +2698,15 @@ def pipeline_checks(torch, steps, seeds, tseeds, tag) -> dict:
     secs = drive_plane(torch, pipe, psteps)
     st = pipe.state
     merged = read_counts()
-    cnt = torch.zeros_like(st.sketch.table)
-    mass = torch.zeros_like(st.sketch.table)
-    for keys, vals in psteps:
-        c, m = ref.countsketch_scatter_mass_ref(
-            torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev),
-            ROWS, WIDTH, seeds, p=P, transform_seeds=tseeds)
-        cnt += c
-        mass += m
-    tol = ref.scatter_tolerance(cnt, mass)
-    del cnt, mass, c, m
+    want, tol = flush_plain(torch, psteps, seeds, tseeds)
     ss = sparse.state
-    bad = compare_tables(torch, f"pipeline (shards={PIPE_SHARDS}) vs sparse",
-                         st.sketch.table, ss.sketch.table, tol)
-    # The candidate buffer is a heuristic whose content depends on the
-    # order of its refreshes: a shard refreshes among its own keys, and the
-    # collapse among the shards' buffers (the reference's contract for this
-    # plane is distributional for that reason).  So a stream's samples may
-    # also differ where a key of one sample is missing from the other
-    # plane's buffer; read over the union of both buffers, the two planes'
-    # tables must then give the same sample but for near ties.
-    samp, ssamp = pipe.sample(K), sparse.sample(K)
-    diff_a = ~(samp.keys[:, :, None] == ssamp.keys[:, None, :]).any(2)
-    diff_b = ~(ssamp.keys[:, :, None] == samp.keys[:, None, :]).any(2)
-    missing = ((diff_a & ~(samp.keys[:, :, None]
-                           == ss.cand_keys[:, None, :]).any(2)).any(1)
-               | (diff_b & ~(ssamp.keys[:, :, None]
-                             == st.cand_keys[:, None, :]).any(2)).any(1))
-    compare_samples(torch, f"pipeline (shards={PIPE_SHARDS}) vs sparse",
-                    samp, ss, tol, seeds, K, P, bad, excused=missing,
-                    excuse="a sampled key missing from the other plane's "
-                           "candidate buffer")
-    pool = torch.sort(torch.cat([st.cand_keys, ss.cand_keys], 1), 1).values
-    dup = torch.zeros_like(pool, dtype=torch.bool)
-    dup[:, 1:] = pool[:, 1:] == pool[:, :-1]
-    pool = torch.where(dup, -1, pool)
-    compare_samples(torch, f"pipeline (shards={PIPE_SHARDS}) vs sparse, "
-                    f"both read over the union of their candidate buffers",
-                    onepass_sample_batched(st._replace(cand_keys=pool), K, P),
-                    ss._replace(cand_keys=pool), tol, seeds, K, P, bad)
-    out = {"seconds": secs, "history_streams": int(missing.sum())}
-    del tol, sparse, pipe, st, ss, samp, ssamp, pool
+    compare_tables(torch, "sparse plane vs the plain scatter",
+                   ss.sketch.table, want, tol)
+    del want
+    missing = compare_histories(torch, f"pipeline (shards={PIPE_SHARDS}) vs "
+                                f"sparse", st, ss, tol, seeds)
+    out = {"seconds": secs, "history_streams": missing}
+    del tol, sparse, pipe, st, ss
     torch.cuda.empty_cache()
     parts = [planes.partition_by_key(keys, vals, PIPE_SHARDS)
              for keys, vals in psteps]
@@ -2774,6 +2853,317 @@ def phase_determinism(torch, steps, tag):
     return launches, out
 
 
+# the conformance grid at the nightly operating point (``python -m
+# repro_torch.validate --deep``): 384 trials, 3 x 384 oracle trials, every
+# p, scheme, sampler and plane, and Table 3 at 12 randomizations
+VALIDATE_TRIALS, VALIDATE_TABLE3_TRIALS = 384, 12
+# the feeder: S producer shards, block_elems (the span), ring depth
+FEED_SHARDS, FEED_BLOCK, FEED_PREFETCH = 4, 4096, 2
+
+
+def uniform01_edge_pairs(torch, trials, seed, offset, n) -> int:
+    """(trial, key) pairs of a trial seed bank whose ``uniform01`` is
+    exactly 1.0 (the reference's fault, ROADMAP Queue 3), keys [0, n)."""
+    from repro_torch.core import hashing
+    from repro_torch.validate import empirics
+
+    _, tseeds = empirics.derive_trial_seeds(trials, seed, offset,
+                                            device=DEVICE)
+    keys = torch.arange(n, dtype=torch.int64, device=tseeds.device)
+    return int((hashing.uniform01(keys[None, :], tseeds[:, None])
+                == 1.0).sum())
+
+
+def phase_validate(torch, tag):
+    """The conformance grid (``conformance.run_suite``'s, cell by cell
+    through ``run_cell``, then ``check_table3_nrmse``) at the ``--deep``
+    operating point on the card: one ``conformance_check`` line per check
+    and the summary line, wall time by path and by sampler, launches by
+    path, and the live threads after the grid.  Fails unless no check fails
+    and every cell passes at least one.  Then a deterministic-mode cell:
+    the async path's trials equal the ingest path's bit for bit.  Returns
+    the grid's launches (summed over paths and Table 3) and the record of
+    the ``[validate]`` line."""
+    import threading
+
+    from repro_torch.validate import conformance as C
+    from repro_torch.validate import empirics
+    from repro_torch.validate.__main__ import check_lines
+    from repro_torch.validate.report import FAIL, PASS, build, summary_line
+
+    t_phase = time.perf_counter()
+    cfg = C.ConformanceConfig(trials=VALIDATE_TRIALS,
+                              ref_trials=3 * VALIDATE_TRIALS, device=DEVICE)
+    threads_before = threading.active_count()
+    by_path, by_sampler, launches, cells = {}, {}, {}, {}
+    samplers = list(C.available())
+    results = []
+    reset_counts()
+    t0 = time.perf_counter()
+    # run_suite's grid, one cell at a time, each timed and its launches read
+    for name in samplers:
+        for scheme in C.SCHEMES:
+            for p in C.PS:
+                for path in empirics.PATHS:
+                    before = read_counts()
+                    t1 = time.perf_counter()
+                    cell = C.run_cell(name, scheme, p, path, cfg)
+                    secs = time.perf_counter() - t1
+                    got = since(before)
+                    acc = launches.setdefault(path, dict.fromkeys(got, 0))
+                    for key in got:
+                        acc[key] += got[key]
+                    by_path[path] = by_path.get(path, 0.0) + secs
+                    by_sampler[name] = by_sampler.get(name, 0.0) + secs
+                    cells[(name, scheme, p, path)] = [r.status for r in cell]
+                    results.extend(cell)
+    before = read_counts()
+    results.extend(C.check_table3_nrmse(trials=VALIDATE_TABLE3_TRIALS,
+                                        delta=cfg.delta, device=cfg.device))
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches["table3"] = since(before)
+    threads_after = threading.active_count()
+    rep = build(results, {"suite": "repro_torch.validate",
+                          "config": cfg._asdict(), "samplers": samplers,
+                          "schemes": list(C.SCHEMES), "ps": list(C.PS),
+                          "paths": list(empirics.PATHS),
+                          "table3_trials": VALIDATE_TABLE3_TRIALS})
+    for line in check_lines(rep):
+        log(line)
+    log(summary_line(rep))
+    grid_s = sum(by_path.values())
+    log(f"[validate] grid of {len(cells)} cells ({VALIDATE_TRIALS} trials, "
+        f"{3 * VALIDATE_TRIALS} oracle trials) {grid_s:.2f} s, Table 3 "
+        f"({VALIDATE_TABLE3_TRIALS} trials) {total_s - grid_s:.2f} s wall "
+        f"{tag}")
+    for what, secs in [*(("path " + k, v) for k, v in by_path.items()),
+                       *(("sampler " + k, v) for k, v in by_sampler.items())]:
+        log(f"[validate] {what}: {secs:.2f} s wall {tag}")
+    for path, got in launches.items():
+        log(f"[validate] launches on {path}: {got}")
+    log(f"[validate] live threads: {threads_before} before the grid, "
+        f"{threads_after} after")
+    edge = {"table3": uniform01_edge_pairs(torch, VALIDATE_TABLE3_TRIALS,
+                                           0x7AB3, 0, 10_000),
+            "grid": sum(uniform01_edge_pairs(torch, t, cfg.seed, off, cfg.n)
+                        for t, off in ((cfg.trials, 0),
+                                       (cfg.ref_trials, cfg.ref_offset),
+                                       (cfg.trials, 2 * cfg.ref_offset)))}
+    log(f"[validate] (trial, key) pairs at the uniform01 == 1.0 edge under "
+        f"the ppswor/priority transform seeds: Table 3 {edge['table3']} of "
+        f"{VALIDATE_TABLE3_TRIALS * 10_000}, grid {edge['grid']} of "
+        f"{(2 * cfg.trials + cfg.ref_trials) * cfg.n}")
+    s = rep["summary"]
+    no_pass = [c for c, st in cells.items() if PASS not in st]
+    if s["failed"] or no_pass:
+        for r in rep["results"]:
+            if r["status"] == FAIL:
+                log(f"[validate] FAIL {r['check']} {r['sampler']} "
+                    f"{r['scheme']} p={r['p']:g} {r['path']}: "
+                    f"{json.dumps(r['details'])}")
+        raise AssertionError(f"conformance grid: {s['failed']} failed "
+                             f"checks, cells without a pass: {no_pass}")
+    for path in ("ingest", "async", "pipeline"):
+        got = launches[path]
+        if got["scatter"] <= 0 or got["smem"] <= 0 or got["estimate"] <= 0:
+            raise AssertionError(f"conformance grid: the {path} path "
+                                 f"launched {got}")
+    if threads_after > threads_before:
+        raise AssertionError(f"conformance grid: {threads_after} threads "
+                             f"live after it, {threads_before} before")
+
+    # -- the async path against the ingest path, bit for bit --------------
+    freqs = empirics.zipf_freqs(64, 2.0, seed=3)
+    spec = empirics.spec_for("onepass", 64, 4, 1.0, "ppswor")
+    with deterministic_mode(torch):
+        reset_counts()
+        runs = {path: empirics.run_trials(spec, freqs, 4, 16, seed=5,
+                                          path=path, device=DEVICE)
+                for path in ("ingest", "async")}
+        det = read_counts()
+        ok = states_equal(torch, runs["ingest"][1], runs["async"][1]) \
+            and samples_equal(torch, runs["ingest"][0], runs["async"][0])
+    log(f"[validate] deterministic mode, onepass trials (n = 64, k = 4, 16 "
+        f"trials, 3 chunks): async vs ingest, every state leaf and the "
+        f"sample bit for bit: {ok}; launches {det} {tag}")
+    if not ok or det["det"] != 2 * cfg.chunks:
+        raise AssertionError("validate: the async path's trials differ from "
+                             "the ingest path's in the deterministic mode")
+    total = dict.fromkeys(read_counts(), 0)
+    for got in launches.values():
+        for key in total:
+            total[key] += got[key]
+    for key in total:
+        total[key] += det[key]
+    out = {"wall_s": time.perf_counter() - t_phase, "grid_s": grid_s,
+           "table3_s": total_s - grid_s, "by_path_s": by_path,
+           "by_sampler_s": by_sampler, "launches": launches,
+           "summary": s, "threads": [threads_before, threads_after],
+           "uniform01_edge_pairs": edge, "det_cell_launches": det}
+    log(f"[phase] validate: {out['wall_s']:.2f} s wall")
+    return total, out
+
+
+def phase_ingest(torch, seed, tag):
+    """The feeder at the sparse plane's deployment: one canonical
+    ``TurnstileZipfStream(2**20, alpha=1.2, delete_fraction=0.25)`` of
+    STEPS x (4096 inserts + 1024 retractions), split over FEED_SHARDS
+    producer shards, packed into (B, 4096) blocks broadcast to B = 4096
+    streams.  Fan-in into ``sparse`` and ``async``, per-shard into
+    ``pipeline``, each against the sparse plane's direct ingest of the same
+    ragged stream (one flush a step), whose table is held to the plain
+    scatter's: tables within the summing bounds,
+    samples as ``compare_histories`` holds them; fan-in ``async`` equal to
+    fan-in ``sparse`` bit for bit in the deterministic mode.  Prints
+    events/s, ``pack_efficiency``, the producers' and the pump's wait and
+    the busy share of a traced fan-in.  Returns the launches of its
+    default-mode runs and of its deterministic runs, and the record of the
+    ``[ingest]`` line."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.ingest_pipeline import (PrefetchingFeeder,
+                                                  ShardedSource)
+    from repro_torch.data.pipeline import TurnstileZipfStream
+    from repro_torch.engine import EngineConfig, derive_stream_seeds
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    stream = TurnstileZipfStream(vocab_size=VOCAB, alpha=ALPHA, seed=seed,
+                                 delete_fraction=DELETE_FRACTION)
+    evs = [stream.events_at(t, INSERTS) for t in range(STEPS)]
+    events = sum(k.size for k, _ in evs)
+    steps = [(np.broadcast_to(k[None], (B, k.size)),
+              np.broadcast_to(v[None], (B, v.size))) for k, v in evs]
+    seeds, tseeds = derive_stream_seeds(
+        EngineConfig(num_streams=B, rows=ROWS, width=WIDTH,
+                     candidates=CANDIDATES, p=P), device=dev)
+    out = {"events": events, "streams": B, "shards": FEED_SHARDS}
+
+    def feed(plane, pershard=False, **opts):
+        eng = plane_engine("onepass", plane, **opts)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = PrefetchingFeeder(ShardedSource(evs, FEED_SHARDS), eng,
+                                  block_elems=FEED_BLOCK,
+                                  prefetch=FEED_PREFETCH,
+                                  pershard=pershard).run()
+        st = eng.state  # the pipeline's collapse
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rec = {"seconds": secs, "events_per_s": events * B / secs,
+               "blocks": stats.blocks, "span": stats.span,
+               "pack_efficiency": stats.pack_efficiency,
+               "producer_wait_s": stats.producer_wait_s,
+               "pump_wait_s": stats.pump_wait_s}
+        log(f"[ingest] {'per-shard' if pershard else 'fan-in'} -> {plane}: "
+            f"{events} events x {B} streams in {secs:.4f} s = "
+            f"{rec['events_per_s']:.4e} events/s; {stats.blocks} blocks of "
+            f"{stats.span}, pack_efficiency {stats.pack_efficiency:.4f}, "
+            f"producers' wait {stats.producer_wait_s:.4f} s, pump's wait "
+            f"{stats.pump_wait_s:.4f} s {tag}")
+        return eng, st, rec
+
+    # -- the reference: the sparse plane's direct ingest, one flush a step
+    direct = plane_engine("onepass", "sparse")
+    reset_counts()
+    secs = drive_plane(torch, direct, steps)
+    out["direct"] = {"seconds": secs, "events_per_s": events * B / secs,
+                     "launches": read_counts()}
+    log(f"[ingest] direct ingest -> sparse: {events} events x {B} streams in "
+        f"{secs:.4f} s = {events * B / secs:.4e} events/s ({STEPS} flushes) "
+        f"{tag}")
+    ss = direct.state
+    want, tol = flush_plain(torch, steps, seeds, tseeds)
+    compare_tables(torch, "direct ingest -> sparse vs the plain scatter",
+                   ss.sketch.table, want, tol)
+    del want
+
+    # -- fan-in into sparse and async, per-shard into pipeline ------------
+    reset_counts()
+    launches = {}
+    for plane, pershard, opts in (("sparse", False, {}),
+                                  ("async", False, {}),
+                                  ("pipeline", True,
+                                   {"shards": FEED_SHARDS})):
+        before = read_counts()
+        eng, st, rec = feed(plane, pershard, **opts)
+        rec["launches"] = launches[plane] = since(before)
+        what = (f"{'per-shard' if pershard else 'fan-in'} -> {plane} vs "
+                f"direct ingest")
+        rec["history_streams"] = compare_histories(torch, what, st, ss, tol,
+                                                   seeds)
+        if rec["launches"]["scatter"] < rec["blocks"] \
+                or rec["launches"]["estimate"] < rec["blocks"]:
+            raise AssertionError(f"{what}: launches {rec['launches']} for "
+                                 f"{rec['blocks']} blocks")
+        out[f"{'pershard' if pershard else 'fanin'}_{plane}"] = rec
+        eng.plane.close()
+        del eng, st
+        torch.cuda.empty_cache()
+    launches["direct"] = out["direct"]["launches"]
+    main_launches = {key: sum(got[key] for got in launches.values())
+                     for key in launches["direct"]}
+    log(f"[ingest] launches: {launches}")
+    for plane in ("async", "pipeline"):
+        key = ("pershard_" if plane == "pipeline" else "fanin_") + plane
+        log(f"[ingest] {key} / fanin_sparse events/s "
+            f"{out[key]['events_per_s'] / out['fanin_sparse']['events_per_s']:.3f}"
+            f"; fanin_sparse / direct "
+            f"{out['fanin_sparse']['events_per_s'] / out['direct']['events_per_s']:.3f}"
+            f" (one call, measured, not claimed) {tag}")
+    del tol, ss, direct
+    torch.cuda.empty_cache()
+
+    # -- a traced fan-in into the sparse plane: every thread's ranges -----
+    cfg = profiler_config(torch)
+    eng = plane_engine("onepass", "sparse")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 **({"experimental_config": cfg} if cfg else {})) as prof:
+        t0 = time.perf_counter()
+        PrefetchingFeeder(ShardedSource(evs, FEED_SHARDS), eng,
+                          block_elems=FEED_BLOCK,
+                          prefetch=FEED_PREFETCH).run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = trace_report(prof, RANGES, wall_ms, "fan-in -> sparse, whole feed",
+                        tag, top=6)
+    busy = sum(r[0] for r in rows if "Activity Buffer" not in r[2])
+    out["traced"] = {"wall_ms": wall_ms, "busy_ms": busy,
+                     "busy_share": busy / wall_ms if rows else None}
+    del eng, prof
+    torch.cuda.empty_cache()
+
+    # -- fan-in async against fan-in sparse, bit for bit, deterministic ---
+    engs = {}
+    with deterministic_mode(torch):
+        reset_counts()
+        for plane in ("sparse", "async"):
+            engs[plane] = plane_engine("onepass", plane)
+            PrefetchingFeeder(ShardedSource(evs, FEED_SHARDS), engs[plane],
+                              block_elems=FEED_BLOCK,
+                              prefetch=FEED_PREFETCH).run()
+        det = read_counts()
+        ok = states_equal(torch, engs["sparse"].state, engs["async"].state) \
+            and samples_equal(torch, engs["sparse"].sample(K),
+                              engs["async"].sample(K))
+    engs["async"].plane.close()
+    log(f"[det] fan-in (B={B}, {FEED_SHARDS} shards): async vs sparse, every "
+        f"state leaf and sample(k={K}) bit for bit: {ok}; launches {det} "
+        f"{tag}")
+    if not ok or det["det"] != det["scatter"] or det["det"] == 0:
+        raise AssertionError("fan-in: async differs from sparse in the "
+                             "deterministic mode")
+    out["det_launches"] = det
+    del engs
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[phase] ingest pipeline: {out['wall_s']:.2f} s wall")
+    return main_launches, det, out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2850,6 +3240,12 @@ def main() -> int:
     # -- the deterministic flush path, the async and pipeline planes ------
     det_launches, planes = phase_determinism(torch, steps, tag)
     del steps, stream
+    torch.cuda.empty_cache()
+
+    # -- the conformance grid; the ingest pipeline -------------------------
+    validate_launches, validate = phase_validate(torch, tag)
+    torch.cuda.empty_cache()
+    ingest_launches, ingest_det, ingest = phase_ingest(torch, args.seed, tag)
 
     # -- phase 7: the kernels line and the ok line -------------------------
     by_name = {k["name"]: k for k in kernels}
@@ -2895,6 +3291,22 @@ def main() -> int:
         "occupancy": OCCUPANCY.get(("countsketch_scatter", "det")),
         "tv_cascade_shape": {k: stv[k] for k in ("ms", "atomics_ms",
                                                  "bound_ms", "bound_by")}}
+    # the conformance grid's and the feeder's launches (the grid's and the
+    # feeder's default-mode runs take the shared-memory variant; their
+    # deterministic cells the det variant and the segment sum)
+    for got in (validate_launches, ingest_launches, ingest_det):
+        scatter["launches"] += got["scatter"]
+        scatter["variants"]["smem"]["launches"] += got["smem"]
+        scatter["variants"]["det"]["launches"] += got["det"]
+        est["launches"] += got["estimate"]
+    scatter["validate_launches"] = {
+        k: validate_launches[k] for k in ("scatter", "smem", "det")}
+    scatter["ingest_launches"] = {
+        k: ingest_launches[k] + ingest_det[k]
+        for k in ("scatter", "smem", "det")}
+    est["validate_launches"] = validate_launches["estimate"]
+    est["ingest_launches"] = (ingest_launches["estimate"]
+                              + ingest_det["estimate"])
     ssf, sstv = planes["segment_sum_flush"], planes["segment_sum_tv"]
     kernels.append({
         "name": "segment_sum", "route": "cuda",
@@ -2902,7 +3314,10 @@ def main() -> int:
         "replaces": "src/repro/core/worp.py:70 (jax.ops.segment_sum in XLA, "
                     "no pallas_call; the deterministic mode's form of "
                     "scatter_add_)",
-        "launches": det_launches["segment_sum"], "max_abs_err": 0.0,
+        "launches": (det_launches["segment_sum"]
+                     + validate_launches["segment_sum"]
+                     + ingest_det["segment_sum"]),
+        "max_abs_err": 0.0,
         "parity": "bit for bit equal to the CPU's scatter_add_ (index "
                   "order), the same bits on every launch",
         "ms": ssf["ms"], "plain_ms": ssf["plain_ms"],
@@ -2918,6 +3333,9 @@ def main() -> int:
                                   if k not in ("scatter_flush", "scatter_tv",
                                                "segment_sum_flush",
                                                "segment_sum_tv")}))
+    log("[validate] " + json.dumps(
+        {k: v for k, v in validate.items() if k != "launches"}))
+    log("[ingest] " + json.dumps(ingest))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))

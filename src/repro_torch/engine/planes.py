@@ -274,6 +274,16 @@ def make_plane(name: str, spec: SamplerSpec, state,
 # the planes
 # ---------------------------------------------------------------------------
 
+def _concat_rows(parts: list) -> np.ndarray:
+    """The (B, n) microbatches joined along their columns into a new
+    C-contiguous array, the layout the kernels take.  (``np.concatenate``
+    follows its inputs' strides: broadcast views, such as the ingest
+    pipeline's packed blocks, would give a Fortran-ordered result.)"""
+    out = np.empty((parts[0].shape[0], sum(p.shape[1] for p in parts)),
+                   parts[0].dtype)
+    return np.concatenate(parts, axis=1, out=out)
+
+
 class DataPlane:
     """Shared host-buffer discipline; subclasses define ``_dispatch``.
 
@@ -331,8 +341,8 @@ class DataPlane:
 
     def _concat_buffer(self):
         with record_function("plane.concat"):
-            return (np.concatenate(self._buf_keys, axis=1),
-                    np.concatenate(self._buf_vals, axis=1))
+            return (_concat_rows(self._buf_keys),
+                    _concat_rows(self._buf_vals))
 
     def _clear_buffer(self):
         self._buf_keys, self._buf_vals = [], []

@@ -34,11 +34,23 @@ TABLE_BLOCKS_PER_SM = 8
 # transformed value, 8 B each) beside the table.
 DET_TILE = 1024
 DET_MAX_WARPS = 16
+# The quantum of a packed host block (``data.ingest_pipeline.PackedBatcher``):
+# a whole number of the shared-memory scatter's passes (``TABLE_THREADS``
+# slots; every chunk of ``table_plan`` is a multiple of it) and of the
+# deterministic scatter's stage (``DET_TILE`` slots), so a full block costs
+# no partial pass on either variant.
+PACK_QUANTUM = DET_TILE
 
 
 def pad_to(x: int, m: int) -> int:
     """Smallest multiple of ``m`` that is >= ``x``."""
     return ((x + m - 1) // m) * m
+
+
+def packed_span(n: int) -> int:
+    """Slots of a fixed-shape host block covering ``n`` events: ``n``
+    rounded up to a whole number of ``PACK_QUANTUM``."""
+    return pad_to(max(int(n), 1), PACK_QUANTUM)
 
 
 def grid_1d(items: int, threads: int = THREADS_PER_BLOCK) -> int:

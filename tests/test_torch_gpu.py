@@ -937,3 +937,86 @@ def test_cuda_segment_sum_rejects_what_the_kernel_does_not_take():
         tseg.segment_sum(vals.cuda(), seg.cuda().to(torch.int32))
     with pytest.raises(ValueError, match="float32"):
         tseg.segment_sum(vals.cuda().double(), seg.cuda())
+
+
+# ---------------------------------------------------------------------------
+# the conformance harness and the ingest pipeline on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("path", ["ingest", "async"])
+def test_conformance_fast_cell_on_card(path):
+    """A fast conformance cell (``onepass``, ppswor, p = 1) on the card:
+    no check fails, and the trials went through the scatter and the
+    estimate kernels."""
+    _need_card()
+    import threading
+
+    from repro_torch.validate import conformance as C
+    from repro_torch.validate import report
+
+    before = (ts.launches, tq.estimate_launches)
+    threads = threading.active_count()
+    cfg = C.ConformanceConfig(trials=128, ref_trials=384, device="cuda")
+    results = C.run_cell("onepass", "ppswor", 1.0, path, cfg)
+    failed = [r for r in results if r.status == report.FAIL]
+    assert not failed, "\n".join(f"{r.check}: {r.details}" for r in failed)
+    assert any(r.status == report.PASS for r in results)
+    assert ts.launches - before[0] >= cfg.chunks
+    assert tq.estimate_launches - before[1] >= cfg.chunks + 1
+    assert threading.active_count() <= threads
+
+
+def test_fanin_async_equals_sparse_bitwise_on_card():
+    """The feeder's fan-in into the async plane equals its fan-in into the
+    sparse plane bit for bit under the deterministic mode."""
+    _need_card()
+    from repro_torch.data.ingest_pipeline import (PrefetchingFeeder,
+                                                  ShardedSource)
+
+    stream = TurnstileZipfStream(vocab_size=1 << 16, alpha=1.2, seed=3)
+    cfg = EngineConfig(num_streams=64, rows=7, width=2048, candidates=64)
+    with _deterministic():
+        engs = []
+        for plane in ("sparse", "async"):
+            eng = SketchEngine(cfg, plane=plane, flush_elems=4096)
+            PrefetchingFeeder(
+                ShardedSource.from_turnstile(stream, 3000, num_shards=4,
+                                             nsteps=6),
+                eng, block_elems=2048, prefetch=2).run()
+            engs.append(eng)
+        assert all(_same_bits(x, y) if x.is_floating_point()
+                   else torch.equal(x, y)
+                   for x, y in zip(_leaves(engs[0].state),
+                                   _leaves(engs[1].state)))
+        s1, s2 = engs[0].sample(8), engs[1].sample(8)
+        assert torch.equal(s1.keys, s2.keys)
+        assert _same_bits(s1.freqs, s2.freqs)
+        engs[1].plane.close()
+
+
+def test_frequency_sketcher_kernel_path_on_card():
+    """``FrequencySketcher.observe_signed(use_kernel=True)`` launches the
+    scatter (B = 1) and the estimate kernels, and matches the plain path on
+    the card: tables within the bound, the same candidates and sample.  The
+    vocabulary (100 keys) is smaller than the buffer (128 candidates), so
+    the buffer holds every key and no near tie at its cut decides it."""
+    _need_card()
+    from repro_torch.data.pipeline import FrequencySketcher
+
+    kern, plain = (FrequencySketcher(k=32, rows=7, p=0.5, seed=19)
+                   for _ in range(2))
+    stream = TurnstileZipfStream(vocab_size=100, alpha=1.3, seed=8)
+    before = (ts.launches, tq.estimate_single_launches)
+    for step in range(5):
+        k, v = stream.sparse_batch_at(step, 0, 5000)
+        kern.observe_signed(k, v, use_kernel=True)
+        plain.observe_signed(k, v)
+    assert ts.launches - before[0] == 5
+    assert tq.estimate_single_launches - before[1] == 5
+    want = plain.state.sketch.table
+    torch.testing.assert_close(kern.state.sketch.table, want, rtol=RTOL,
+                               atol=_atol(want))
+    assert torch.equal(torch.sort(kern.state.cand_keys).values,
+                       torch.sort(plain.state.cand_keys).values)
+    assert torch.equal(torch.sort(kern.sample().keys).values,
+                       torch.sort(plain.sample().keys).values)
