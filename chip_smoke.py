@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Seven paths, each driven with the kernels' launch counts set to 0 just
+Eight paths, each driven with the kernels' launch counts set to 0 just
 before it and read just after:
 
 * Sparse plane.  Per-key analytics over B = 4096 independent turnstile
@@ -46,14 +46,36 @@ before it and read just after:
   sparse plane to the plain scatter, within the summing tolerances, its
   async sub-planes to its sparse ones bit for bit,
   and a stalled producer's tail must be published by the interval timer.
+* Wire.  At the sparse plane's deployment (the same stream, 8 steps): (a)
+  every codec's roundtrip of the one-pass state (235 MB of tables) bit for
+  bit the host's decode(encode), its wire bytes and stage times, and
+  ``fake_quant`` on the card equal to the host grid on the finite slices;
+  (b) the ``pipeline`` (4 shards, 2 flushes) under every codec, its
+  collapse bit for bit the merge of the roundtripped shard states in the
+  deterministic mode, the samples that differ from ``none``'s over the
+  union of both buffers counted, and a ``max_bytes`` budget flushing at the
+  encoded count; (c) ``launch.serve``'s aggregation of 4 workers (the
+  butterfly) and 3 (the tree), round-robin over the steps, held to one
+  engine of every step, under q8 bit for bit the merge of the roundtripped
+  states, a worker of other seeds refused; (d) checkpoints of the one-pass
+  state under every codec and of ``twopass``, ``tv`` and ``perfect`` on
+  the first 256 streams (**cut**, as in the samplers phase) under none and
+  q8: bit for bit with the next sample and flush identical (none), within
+  the codec's bound (lossy), a flipped byte refused, save and restore MB/s;
+  (e) the ``fleet`` plane (2 replicas, 2 flushes) bit for bit the pipeline's
+  in the deterministic mode under none and q8.
 * Conformance grid.  ``repro_torch.validate.conformance.run_suite``'s
   grid at the nightly operating point (``python -m repro_torch.validate
   --deep``): every sampler, both schemes, p in {0.5, 1, 1.5, 2}, every
-  plane (dense, ingest, async, pipeline), n = 96, k = 8, rows 5, width
-  31 k, 384 trials against 1,152 oracle trials, and the Table 3 rows
-  (n = 10**4, k = 100) at 12 randomizations.  No check may fail, and
-  every cell must pass one; the ingest, async and pipeline paths must
-  launch the scatter and the estimate kernels, and no plane's thread may
+  plane (dense, ingest, async, pipeline, fleet), n = 96, k = 8, rows 5,
+  width 31 k, 384 trials against 1,152 oracle trials, the codec axis at
+  p = 1 (one-pass cells through the pipeline's and the fleet's fp16, q8
+  and size_adaptive merge boundaries, and the q2 negative control; at
+  ``--deep``'s p = 0.5 the admissibility gate refuses q8 and size_adaptive,
+  printed and not gated), and the
+  Table 3 rows (n = 10**4, k = 100) at 12 randomizations.  No check may
+  fail, and every cell must pass one; every path but dense must launch
+  the scatter and the estimate kernels, and no plane's thread may
   outlive the grid.  In the deterministic mode the async path's trials
   equal the ingest path's bit for bit.
 * Ingest pipeline.  ``PrefetchingFeeder`` at the sparse plane's
@@ -118,10 +140,13 @@ the script exits non-zero without the final ``ok`` line):
      CPU's bit for bit), with their times and the NaN fill of
      ``torch.empty`` in the mode; async against sparse bit for bit; the
      overlap; the pipeline; the interval timer;
-  validate.  the conformance grid and Table 3, one ``conformance_check``
-     line per check and the ``conformance_summary`` line, times by path
-     and by sampler, launches by path, live threads; the deterministic
-     async cell;
+  wire.  codecs, the pipeline's codec and byte budget, serving
+     aggregation, checkpoints, the fleet plane (above), with their wire
+     MB, stage times, MB/s and launches by part;
+  validate.  the conformance grid, its codec axis and Table 3, one
+     ``conformance_check`` line per check and the ``conformance_summary``
+     line, times by path and by sampler, launches by path, live threads;
+     the deterministic async cell;
   ingest.  the feeder's fan-in and per-shard runs against direct ingest,
      their rates and waits, a traced feed, the deterministic fan-in;
   7. one ``{"kernels": [...]}`` line, then the ``ok`` line.
@@ -136,6 +161,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2642,15 +2668,21 @@ def compare_histories(torch, what, st, ss, tol, seeds) -> int:
                     excused=missing,
                     excuse="a sampled key missing from the other state's "
                            "candidate buffer")
-    pool = torch.sort(torch.cat([st.cand_keys, ss.cand_keys], 1), 1).values
-    dup = torch.zeros_like(pool, dtype=torch.bool)
-    dup[:, 1:] = pool[:, 1:] == pool[:, :-1]
-    pool = torch.where(dup, -1, pool)
+    pool = union_pool(torch, st, ss)
     compare_samples(torch, f"{what}, both read over the union of their "
                     f"candidate buffers",
                     onepass_sample_batched(st._replace(cand_keys=pool), K, P),
                     ss._replace(cand_keys=pool), tol, seeds, K, P, bad)
     return int(missing.sum())
+
+
+def union_pool(torch, a, b):
+    """The union of two one-pass states' candidate buffers, per stream
+    (each key once, -1 padding)."""
+    pool = torch.sort(torch.cat([a.cand_keys, b.cand_keys], 1), 1).values
+    dup = torch.zeros_like(pool, dtype=torch.bool)
+    dup[:, 1:] = pool[:, 1:] == pool[:, :-1]
+    return torch.where(dup, -1, pool)
 
 
 def flush_plain(torch, steps, seeds, tseeds):
@@ -2857,6 +2889,9 @@ def phase_determinism(torch, steps, tag):
 # repro_torch.validate --deep``): 384 trials, 3 x 384 oracle trials, every
 # p, scheme, sampler and plane, and Table 3 at 12 randomizations
 VALIDATE_TRIALS, VALIDATE_TABLE3_TRIALS = 384, 12
+# --deep's codecs, at p = 1 (the fast suite's p): at run_suite's PS[0] =
+# 0.5 the admissibility gate refuses q8 and size_adaptive
+VALIDATE_CODECS, VALIDATE_CODEC_P = ("fp16", "q8", "size_adaptive"), 1.0
 # the feeder: S producer shards, block_elems (the span), ring depth
 FEED_SHARDS, FEED_BLOCK, FEED_PREFETCH = 4, 4096, 2
 
@@ -2917,6 +2952,34 @@ def phase_validate(torch, tag):
                     by_sampler[name] = by_sampler.get(name, 0.0) + secs
                     cells[(name, scheme, p, path)] = [r.status for r in cell]
                     results.extend(cell)
+    # the codec axis: the one-pass cells through the pipeline's and the
+    # fleet's lossy merge boundaries, and the q2 control, at VALIDATE_CODEC_P
+    for codec in VALIDATE_CODECS:
+        for plane in C.CODEC_PLANES:
+            before = read_counts()
+            t1 = time.perf_counter()
+            cell = C.run_codec_cell("onepass", C.SCHEMES[0],
+                                    VALIDATE_CODEC_P, plane, codec, cfg)
+            label = f"{plane}@{codec}"
+            by_path[label] = time.perf_counter() - t1
+            launches[label] = since(before)
+            cells[("onepass", C.SCHEMES[0], VALIDATE_CODEC_P, label)] = [
+                r.status for r in cell]
+            results.extend(cell)
+    results.append(C.codec_negative_control(C.SCHEMES[0], VALIDATE_CODEC_P,
+                                            cfg))
+    # ``run_suite(ps=PS)`` (``--deep``) puts these cells at PS[0] = 0.5,
+    # where the admissibility gate refuses q8 and size_adaptive in both
+    # packages (ROADMAP Queue 3): measured there, not gated
+    gate = {codec: C.check_codec_admissible(
+                "onepass", C.SCHEMES[0], C.PS[0], "pipeline",
+                cfg._replace(codec=codec))
+            for codec in VALIDATE_CODECS}
+    for codec, r in gate.items():
+        log(f"[validate] codec_admissible at p = {C.PS[0]:g} (measured, "
+            f"not gated) {codec}: {r.status}, mean flip allowance "
+            f"{r.details['mean_flip_allowance']:.4f}, relative bias "
+            f"allowance {r.details['rel_bias_allowance']:.4f} {tag}")
     before = read_counts()
     results.extend(C.check_table3_nrmse(trials=VALIDATE_TABLE3_TRIALS,
                                         delta=cfg.delta, device=cfg.device))
@@ -2928,6 +2991,7 @@ def phase_validate(torch, tag):
                           "config": cfg._asdict(), "samplers": samplers,
                           "schemes": list(C.SCHEMES), "ps": list(C.PS),
                           "paths": list(empirics.PATHS),
+                          "codecs": list(VALIDATE_CODECS),
                           "table3_trials": VALIDATE_TABLE3_TRIALS})
     for line in check_lines(rep):
         log(line)
@@ -2964,7 +3028,9 @@ def phase_validate(torch, tag):
                     f"{json.dumps(r['details'])}")
         raise AssertionError(f"conformance grid: {s['failed']} failed "
                              f"checks, cells without a pass: {no_pass}")
-    for path in ("ingest", "async", "pipeline"):
+    for path in ("ingest", "async", "pipeline", "fleet",
+                 *(f"{p}@{c}" for c in VALIDATE_CODECS
+                   for p in C.CODEC_PLANES)):
         got = launches[path]
         if got["scatter"] <= 0 or got["smem"] <= 0 or got["estimate"] <= 0:
             raise AssertionError(f"conformance grid: the {path} path "
@@ -3000,7 +3066,10 @@ def phase_validate(torch, tag):
            "table3_s": total_s - grid_s, "by_path_s": by_path,
            "by_sampler_s": by_sampler, "launches": launches,
            "summary": s, "threads": [threads_before, threads_after],
-           "uniform01_edge_pairs": edge, "det_cell_launches": det}
+           "uniform01_edge_pairs": edge, "det_cell_launches": det,
+           "codec_gate_at_p_half": {c: [r.status, r.details[
+               "mean_flip_allowance"], r.details["rel_bias_allowance"]]
+               for c, r in gate.items()}}
     log(f"[phase] validate: {out['wall_s']:.2f} s wall")
     return total, out
 
@@ -3164,6 +3233,464 @@ def phase_ingest(torch, seed, tag):
     return main_launches, det, out
 
 
+# -- the wire phase: codecs, the pipeline's codec, serving aggregation,
+# checkpoints, the fleet plane ---------------------------------------------
+
+CODECS = ("none", "fp16", "q8", "size_adaptive", "q2")
+# the serving aggregation's worker counts (the butterfly, the tree), the
+# pipeline's shards and the fleet's replicas
+WIRE_WORKERS, WIRE_SHARDS, FLEET_REPLICAS = (4, 3), 4, 2
+STAGES = ("d2h", "encode", "decode", "h2d")
+
+
+def wire_cross(torch, cdc, st):
+    """One wire crossing of every leaf of ``st``, stage by stage: the copy
+    to the host, the codec's encode and decode (the reference's numpy
+    code), the copy back.  Returns the decoded state on the card, the wire
+    bytes and each stage's seconds."""
+    from repro_torch.distributed import codecs as wc
+    from repro_torch.distributed import pytree
+
+    secs, out, nbytes = dict.fromkeys(STAGES, 0.0), [], 0
+    for leaf in pytree.leaves(st):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = wc.to_host(leaf)
+        t1 = time.perf_counter()
+        enc = cdc.encode_leaf(host)
+        t2 = time.perf_counter()
+        dec = wc.decode_leaf(enc)
+        t3 = time.perf_counter()
+        out.append(wc.to_tensor(dec, enc.dtype, leaf.device))
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        for key, dt in zip(STAGES, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            secs[key] += dt
+        nbytes += enc.nbytes
+    return pytree.unflatten(st, out), nbytes, secs
+
+
+def wire_codecs(torch, st, tag) -> dict:
+    """(a) Every codec's roundtrip of the one-pass state: the library's
+    ``Codec.roundtrip`` against the stage-by-stage crossing bit for bit,
+    its wire bytes (``tree_nbytes``) and times; ``fake_quant`` on the card
+    against the host grid (``==``: a q grid's -0 decodes to +0 through
+    int8) and the CPU's ``fake_quant`` bit for bit, on the finite slices."""
+    from repro_torch.distributed import codecs as wc
+
+    table = st.sketch.table
+    finite = table.isfinite().flatten(1).all(1)
+    out = {}
+    for name in CODECS:
+        cdc = wc.get_codec(name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lib = cdc.roundtrip(st)
+        torch.cuda.synchronize()
+        rt_s = time.perf_counter() - t0
+        ref, nbytes, secs = wire_cross(torch, cdc, st)
+        ok = states_equal(torch, lib, ref) and nbytes == cdc.tree_nbytes(st)
+        rec = {"wire_mb": nbytes / 1e6, "roundtrip_ms": rt_s * 1e3,
+               **{f"{k}_ms": v * 1e3 for k, v in secs.items()},
+               "bitwise_host": ok}
+        if cdc.rel_step:
+            fq = cdc.fake_quant(table)
+            host = ref.sketch.table
+            cpu = cdc.fake_quant(table.cpu())
+            rec["fake_quant_equal"] = bool((fq[finite] == host[finite]).all())
+            rec["fake_quant_cpu_bitwise"] = same_bits(
+                torch, fq[finite].cpu(), cpu[finite.cpu()])
+            rec["nonfinite_slices_skipped"] = int((~finite).sum())
+            ok = ok and rec["fake_quant_equal"] \
+                and rec["fake_quant_cpu_bitwise"]
+            del fq, cpu, host
+        log(f"[wire] codec {name}: {nbytes / 1e6:.1f} MB on the wire "
+            f"(raw {wc.tree_nbytes(st, 'none') / 1e6:.1f} MB); roundtrip "
+            f"{rt_s * 1e3:.1f} ms (d2h {secs['d2h'] * 1e3:.1f}, encode "
+            f"{secs['encode'] * 1e3:.1f}, decode {secs['decode'] * 1e3:.1f}, "
+            f"h2d {secs['h2d'] * 1e3:.1f}); " + ", ".join(
+                f"{k} {v}" for k, v in rec.items()
+                if k.startswith(("bitwise", "fake", "nonfinite"))) + f" {tag}")
+        if not ok:
+            raise AssertionError(f"codec {name}: the roundtrip on the card "
+                                 f"differs from the host's decode(encode)")
+        out[name] = rec
+        del lib, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def union_samples_differ(torch, a, b) -> int:
+    """Streams whose one-pass samples of ``a`` and ``b`` differ, both read
+    over the union of their candidate buffers."""
+    from repro_torch.engine.engine import onepass_sample_batched
+
+    pool = union_pool(torch, a, b)
+    sa, sb = (onepass_sample_batched(x._replace(cand_keys=pool), K, P)
+              for x in (a, b))
+    return int((~same_sets(torch, sa.keys, sb.keys)).sum())
+
+
+def wire_pipeline(torch, steps, tag) -> dict:
+    """(b) The pipeline (WIRE_SHARDS shards, PIPE_STEPS flushes, the same
+    partition fed through ``ingest_shard``) under every codec, in the
+    deterministic mode: the collapse equals the merge of the roundtripped
+    shard states bit for bit (with ``none``, the plain merge); the streams
+    whose samples differ from ``none``'s over the union of the buffers
+    (measured).  Then a ``max_bytes`` budget of one raw step flushes at
+    the encoded count (sparse plane, SUB_B streams)."""
+    from repro_torch.distributed import codecs as wc
+    from repro_torch.engine import FlushPolicy, planes
+
+    parts = [planes.partition_by_key(k, v, WIRE_SHARDS)
+             for k, v in steps[:PIPE_STEPS]]
+    out, base = {}, None
+    with deterministic_mode(torch):
+        for name in CODECS:
+            cdc = wc.get_codec(name)
+            eng = plane_engine("onepass", "pipeline", shards=WIRE_SHARDS,
+                               codec=name)
+            for blocks in parts:
+                for shard, (k, v) in enumerate(blocks):
+                    eng.plane.ingest_shard(shard, k, v)
+            eng.flush()
+            before = read_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = eng.state
+            torch.cuda.synchronize()
+            collapse_s = time.perf_counter() - t0
+            launches = since(before)
+            subs = [sub.state for sub in eng.plane._subplanes]
+            want = cdc.roundtrip(subs[0])
+            for sub in subs[1:]:
+                want = eng.merge_fn(want, cdc.roundtrip(sub))
+            ok = states_equal(torch, st, want)
+            rec = {"collapse_ms": collapse_s * 1e3,
+                   "collapse_launches": launches,
+                   "equals_merge_of_roundtripped": ok}
+            if base is None:
+                base = st
+            else:
+                rec["streams_differing_from_none"] = union_samples_differ(
+                    torch, st, base)
+            log(f"[wire] pipeline ({WIRE_SHARDS} shards, {PIPE_STEPS} "
+                f"flushes, B={B}) under {name}: collapse {collapse_s * 1e3:.1f}"
+                f" ms, bit for bit the merge of the roundtripped shard "
+                f"states: {ok}" + (f"; samples differing from none's over "
+                                   f"the union of both buffers: "
+                                   f"{rec['streams_differing_from_none']} of"
+                                   f" {B} (measured)" if name != "none"
+                                   else "") + f" {tag}")
+            if not ok:
+                raise AssertionError(f"pipeline under {name}: the collapse "
+                                     f"differs from the merge of the "
+                                     f"roundtripped shard states")
+            out[name] = rec
+            del eng, st, subs, want
+            torch.cuda.empty_cache()
+    del base
+    # the byte budget counts wire bytes
+    (k0, v0), (k1, v1) = ((k[:SUB_B], v[:SUB_B]) for k, v in steps[:2])
+    budget = k0.nbytes + v0.nbytes
+    for name in CODECS:
+        cdc = wc.get_codec(name)
+        eng = plane_engine("onepass", "sparse", num_streams=SUB_B,
+                           policy=FlushPolicy(max_elems=None,
+                                              max_bytes=budget), codec=name)
+        eng.ingest(k0, v0)
+        pending, nbytes = eng.pending, eng.plane.pending_bytes
+        enc = cdc.payload_nbytes(k0) + cdc.payload_nbytes(v0)
+        eng.ingest(k1, v1)
+        ok = (pending == 0 if enc >= budget
+              else pending == k0.shape[1] and nbytes == enc) \
+            and eng.pending == 0
+        log(f"[wire] max_bytes {budget} (one raw step, {SUB_B} streams) "
+            f"under {name}: encoded step {enc} B, pending after it {pending} "
+            f"({nbytes} B), after the next step {eng.pending}: {ok} {tag}")
+        if not ok:
+            raise AssertionError(f"max_bytes under {name} does not count the "
+                                 f"encoded bytes")
+        out[name]["max_bytes_step_bytes"] = enc
+    return out
+
+
+def wire_serving(torch, steps, single, tol, seeds, tag) -> dict:
+    """(c) ``launch.serve``'s aggregation, the decode steps round-robin over
+    W workers (the butterfly at 4, the tree at 3): against ``single``, the
+    engine that saw every step, as ``compare_histories`` holds them; under
+    q8 equal to the merge of the roundtripped worker states bit for bit;
+    a worker of another seed raises."""
+    from repro_torch.distributed import codecs as wc
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import serve
+
+    cfg = plane_engine("onepass", "sparse", num_streams=1).cfg._replace(
+        num_streams=B)
+    out = {}
+    for w in WIRE_WORKERS:
+        workers = serve.make_worker_engines(cfg, w, device=DEVICE)
+        before = read_counts()
+        for t, (k, v) in enumerate(steps):
+            workers[t % w].ingest(k, v)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        merged = serve.aggregate_worker_states(workers)
+        torch.cuda.synchronize()
+        agg_s = time.perf_counter() - t0
+        rec = {"aggregate_ms": agg_s * 1e3, "launches": since(before)}
+        rec["history_streams"] = compare_histories(
+            torch, f"serve aggregate ({w} workers, "
+            f"{'butterfly' if w & (w - 1) == 0 else 'tree'}) vs one engine "
+            f"of every step", merged, single, tol, seeds)
+        del merged
+        if w == WIRE_WORKERS[0]:
+            q8 = wc.get_codec("q8")
+            got = serve.aggregate_worker_states(workers, codec="q8")
+            want = shd.merge_states([q8.roundtrip(x.state) for x in workers],
+                                    workers[0].merge_fn)
+            rec["q8_equals_merge_of_roundtripped"] = ok = states_equal(
+                torch, got, want)
+            del got, want
+            rogue = plane_engine("onepass", "sparse")
+            rogue.state = rogue.spec.init(
+                (rogue.state.sketch.seed + 1) & 0xFFFFFFFF,
+                (rogue.state.seed_transform + 1) & 0xFFFFFFFF)
+            try:
+                serve.aggregate_worker_states(workers + [rogue])
+                raised = False
+            except ValueError as err:
+                raised = "seeds" in str(err)
+            rec["other_seed_raises"] = raised
+            log(f"[wire] serve aggregate ({w} workers) under q8 bit for bit "
+                f"the merge of the roundtripped states: {ok}; a worker of "
+                f"other seeds raises: {raised} {tag}")
+            if not (ok and raised):
+                raise AssertionError("serving aggregation under q8 or its "
+                                     "seed guard failed")
+            del rogue
+        log(f"[wire] serve aggregate ({w} workers): {agg_s * 1e3:.1f} ms, "
+            f"launches {rec['launches']} {tag}")
+        out[str(w)] = rec
+        del workers
+        torch.cuda.empty_cache()
+    return out
+
+
+def finite_streams(torch, st):
+    """(B,) streams whose every float cell is finite."""
+    from repro_torch.engine.engine import _leaves
+
+    fin = None
+    for x in _leaves(st):
+        if x.is_floating_point():
+            f = x.reshape(x.shape[0], -1).isfinite().all(1)
+            fin = f if fin is None else fin & f
+    return fin
+
+
+def check_restore(torch, what, name, st, back, codec, step):
+    """A restored state against the saved one: bit for bit under ``none``,
+    then the next sample and a further flush of ``step`` identical in the
+    deterministic mode.  Under a lossy codec: bit for bit the codec's
+    roundtrip, and within the codec's bound on the streams whose float
+    cells are finite (a slice holding inf or NaN has no bound)."""
+    from repro_torch.distributed import codecs as wc
+    from repro_torch.engine.engine import _map
+
+    if codec != "none":
+        fin = finite_streams(torch, st)
+        wc.assert_trees_within_codec(_map(lambda x: x[fin], back),
+                                     _map(lambda x: x[fin], st), codec,
+                                     label=what)
+        log(f"[wire] {what}: within the codec's bound on "
+            f"{int(fin.sum())} of {fin.numel()} streams (the rest hold "
+            f"non-finite cells)")
+        return states_equal(torch, back, wc.get_codec(codec).roundtrip(st))
+    n = wc.pytree.leaves(st)[0].shape[0]
+    engs = []
+    for s in (st, back):
+        eng = plane_engine(name, "sparse", num_streams=n)
+        eng.state = s
+        engs.append(eng)
+    k = TV_K if name == "tv" else K
+    with deterministic_mode(torch):
+        ok = states_equal(torch, st, back) \
+            and samples_equal(torch, engs[0].sample(k), engs[1].sample(k))
+        for eng in engs:
+            eng.ingest(step[0][:n], step[1][:n])
+            eng.flush()
+        ok = ok and states_equal(torch, engs[0].state, engs[1].state)
+    return ok
+
+
+def wire_checkpoints(torch, steps, st, tag) -> dict:
+    """(d) Checkpoints in a temporary directory: the one-pass state at B
+    streams under every codec, ``twopass``, ``tv`` and ``perfect`` on the
+    first SUB_B streams under none and q8; ``payload_nbytes`` equals
+    ``tree_nbytes``; save and restore MB/s; a flipped byte raises."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.distributed import codecs as wc
+    from repro_torch.train import checkpoint
+
+    d = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    out = {}
+    try:
+        states = [("onepass", st, CODECS)]
+        for name in ("twopass", "tv", "perfect"):
+            eng = plane_engine(name, "sparse", num_streams=SUB_B)
+            drive_plane(torch, eng, steps, SUB_B)
+            states.append((name, eng.state, ("none", "q8")))
+        for name, s, codecs in states:
+            n = wc.pytree.leaves(s)[0].shape[0]
+            for codec in codecs:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                path = checkpoint.save(d, 1, s, codec=codec)
+                t1 = time.perf_counter()
+                back = checkpoint.restore(d, 1, s, device=DEVICE)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                mb = checkpoint.payload_nbytes(path) / 1e6
+                what = f"{name} (B={n}) checkpoint under {codec}"
+                ok = checkpoint.payload_nbytes(path) == wc.tree_nbytes(
+                    s, codec) and check_restore(torch, what, name, s, back,
+                                                codec, steps[0])
+                rec = {"wire_mb": mb, "save_mb_per_s": mb / (t1 - t0),
+                       "restore_mb_per_s": mb / (t2 - t1), "ok": ok}
+                log(f"[wire] {what}: {mb:.1f} MB, save {t1 - t0:.3f} s "
+                    f"({rec['save_mb_per_s']:.1f} MB/s), restore "
+                    f"{t2 - t1:.3f} s ({rec['restore_mb_per_s']:.1f} MB/s); "
+                    f"{'bit for bit, the next sample and flush identical' if codec == 'none' else 'the roundtrip bit for bit, within the bound'}"
+                    f": {ok} {tag}")
+                if not ok:
+                    raise AssertionError(f"{what} did not restore")
+                out[f"{name}@{codec}"] = rec
+                del back
+                torch.cuda.empty_cache()
+        # a flipped byte of the table's wire image
+        path = checkpoint.save(d, 2, st, codec="q8")
+        fn = os.path.join(path, "sketch.table.npy")
+        arr = np.load(fn)
+        arr[12345] ^= 0xFF
+        np.save(fn, arr)
+        try:
+            checkpoint.restore(d, 2, st, device=DEVICE)
+            raised = False
+        except IOError:
+            raised = True
+        log(f"[wire] a flipped byte of the q8 table's wire image raises "
+            f"IOError: {raised} {tag}")
+        if not raised:
+            raise AssertionError("a corrupt checkpoint restored")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def wire_fleet(torch, steps, tag) -> dict:
+    """(e) The fleet plane at R = FLEET_REPLICAS, PIPE_STEPS flushes, against
+    the pipeline of as many shards, bit for bit in the deterministic mode,
+    under none and q8 (one partition, fed through ``ingest_shard``)."""
+    from repro_torch.engine import planes
+
+    parts = [planes.partition_by_key(k, v, FLEET_REPLICAS)
+             for k, v in steps[:PIPE_STEPS]]
+    out = {}
+    with deterministic_mode(torch):
+        for codec in ("none", "q8"):
+            engs = {}
+            for plane, opt in (("fleet", "replicas"), ("pipeline", "shards")):
+                eng = plane_engine("onepass", plane, codec=codec,
+                                   **{opt: FLEET_REPLICAS})
+                for blocks in parts:
+                    for shard, (k, v) in enumerate(blocks):
+                        eng.plane.ingest_shard(shard, k, v)
+                eng.flush()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st = eng.state
+                torch.cuda.synchronize()
+                out[f"{plane}@{codec}_collapse_ms"] = \
+                    (time.perf_counter() - t0) * 1e3
+                engs[plane] = (eng, st)
+            ok = states_equal(torch, engs["fleet"][1], engs["pipeline"][1]) \
+                and samples_equal(torch, engs["fleet"][0].sample(K),
+                                  engs["pipeline"][0].sample(K))
+            scratch = engs["fleet"][0].plane._scratch
+            engs["fleet"][0].plane.close()
+            ok = ok and not os.path.exists(scratch)
+            log(f"[wire] fleet (R={FLEET_REPLICAS}, {PIPE_STEPS} flushes, "
+                f"B={B}) under {codec}: state and sample(k={K}) bit for bit "
+                f"the pipeline's, scratch removed on close: {ok}; collapse "
+                f"{out[f'fleet@{codec}_collapse_ms']:.1f} ms (pipeline "
+                f"{out[f'pipeline@{codec}_collapse_ms']:.1f} ms) {tag}")
+            if not ok:
+                raise AssertionError(f"fleet under {codec} differs from the "
+                                     f"pipeline")
+            out[f"equal@{codec}"] = ok
+            del engs
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_wire(torch, steps, tag):
+    """The wire phase at the sparse plane's deployment (B streams, the
+    engine's defaults, the stream's STEPS steps): (a) codecs, (b) the
+    pipeline's codec and the byte budget, (c) serving aggregation, (d)
+    checkpoints, (e) the fleet plane.  Returns the scatter and estimate
+    launches of each part (and of the whole phase) and the record of the
+    ``[wire]`` line."""
+    from repro_torch.engine import EngineConfig, derive_stream_seeds
+
+    t_phase = time.perf_counter()
+    seeds, tseeds = derive_stream_seeds(
+        EngineConfig(num_streams=B, rows=ROWS, width=WIDTH,
+                     candidates=CANDIDATES, p=P), device=torch.device(DEVICE))
+    out, launches = {}, {}
+    reset_counts()
+    single = plane_engine("onepass", "sparse")
+    drive_plane(torch, single, steps)
+    st = single.state
+    launches["ingest"] = read_counts()
+
+    def serving():
+        want, tol = flush_plain(torch, steps, seeds, tseeds)
+        compare_tables(torch, "the engine of every step vs the plain "
+                       "scatter", st.sketch.table, want, tol)
+        del want
+        return wire_serving(torch, steps, st, tol, seeds, tag)
+
+    parts = (("codecs", lambda: wire_codecs(torch, st, tag)),
+             ("pipeline", lambda: wire_pipeline(torch, steps, tag)),
+             ("serving", serving),
+             ("checkpoints", lambda: wire_checkpoints(torch, steps, st, tag)),
+             ("fleet", lambda: wire_fleet(torch, steps, tag)))
+    for name, fn in parts:
+        t0 = time.perf_counter()
+        before = read_counts()
+        out[name] = fn()
+        launches[name] = since(before)
+        out[name + "_s"] = time.perf_counter() - t0
+        log(f"[wire] ({name}) {out[name + '_s']:.2f} s wall, launches "
+            f"{launches[name]} {tag}")
+        torch.cuda.empty_cache()
+    for name in ("ingest", "pipeline", "serving", "checkpoints", "fleet"):
+        got = launches[name]
+        if got["scatter"] <= 0 or got["estimate"] <= 0:
+            raise AssertionError(f"wire phase ({name}): launches {got}")
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    total = {key: sum(got[key] for got in launches.values())
+             for key in launches["ingest"]}
+    log(f"[phase] wire: {out['wall_s']:.2f} s wall")
+    return total, out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3239,6 +3766,10 @@ def main() -> int:
 
     # -- the deterministic flush path, the async and pipeline planes ------
     det_launches, planes = phase_determinism(torch, steps, tag)
+    torch.cuda.empty_cache()
+
+    # -- the wire: codecs, the pipeline's codec, serving, checkpoints, fleet
+    wire_launches, wire = phase_wire(torch, steps, tag)
     del steps, stream
     torch.cuda.empty_cache()
 
@@ -3291,10 +3822,11 @@ def main() -> int:
         "occupancy": OCCUPANCY.get(("countsketch_scatter", "det")),
         "tv_cascade_shape": {k: stv[k] for k in ("ms", "atomics_ms",
                                                  "bound_ms", "bound_by")}}
-    # the conformance grid's and the feeder's launches (the grid's and the
-    # feeder's default-mode runs take the shared-memory variant; their
-    # deterministic cells the det variant and the segment sum)
-    for got in (validate_launches, ingest_launches, ingest_det):
+    # the wire phase's, the conformance grid's and the feeder's launches
+    # (their default-mode runs take the shared-memory variant; their
+    # deterministic runs the det variant and the segment sum)
+    for got in (wire_launches, validate_launches, ingest_launches,
+                ingest_det):
         scatter["launches"] += got["scatter"]
         scatter["variants"]["smem"]["launches"] += got["smem"]
         scatter["variants"]["det"]["launches"] += got["det"]
@@ -3304,6 +3836,9 @@ def main() -> int:
     scatter["ingest_launches"] = {
         k: ingest_launches[k] + ingest_det[k]
         for k in ("scatter", "smem", "det")}
+    scatter["wire_launches"] = {k: wire_launches[k]
+                                for k in ("scatter", "smem", "det")}
+    est["wire_launches"] = wire_launches["estimate"]
     est["validate_launches"] = validate_launches["estimate"]
     est["ingest_launches"] = (ingest_launches["estimate"]
                               + ingest_det["estimate"])
@@ -3315,6 +3850,7 @@ def main() -> int:
                     "no pallas_call; the deterministic mode's form of "
                     "scatter_add_)",
         "launches": (det_launches["segment_sum"]
+                     + wire_launches["segment_sum"]
                      + validate_launches["segment_sum"]
                      + ingest_det["segment_sum"]),
         "max_abs_err": 0.0,
@@ -3333,6 +3869,7 @@ def main() -> int:
                                   if k not in ("scatter_flush", "scatter_tv",
                                                "segment_sum_flush",
                                                "segment_sum_tv")}))
+    log("[wire] " + json.dumps(wire))
     log("[validate] " + json.dumps(
         {k: v for k, v in validate.items() if k != "launches"}))
     log("[ingest] " + json.dumps(ingest))

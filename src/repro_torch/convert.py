@@ -8,7 +8,9 @@ state (batched or not) passes through ``np.asarray`` of its leaves, in
 states are NamedTuples with the reference's fields, so the leaf orders
 agree.  uint32 leaves (seeds) travel as uint32 and live in the port as
 int64 tensors (``hashing.as_u32``).  A state continued in either package
-gives the same samples.
+gives the same samples.  ``tree_to_numpy``/``tree_from_numpy`` carry dicts
+of states (``{"state": ..., "pass2": ...}``, a checkpoint's tree), with
+their keys in sorted order as JAX flattens them.
 """
 from __future__ import annotations
 
@@ -70,6 +72,39 @@ def state_to_numpy(st) -> list:
         a = st.detach().cpu().numpy()
         return [a.astype(np.uint32) if a.dtype == np.int64 else a]
     return [leaf for field in st for leaf in state_to_numpy(field)]
+
+
+def _num_leaves(kinds) -> int:
+    if isinstance(kinds, dict):
+        return sum(_num_leaves(k) for k in kinds.values())
+    return sum(1 if f is None else _num_leaves(f) for f in _FIELDS[kinds])
+
+
+def tree_to_numpy(tree) -> list:
+    """The numpy leaves of a port state or a dict of them, in the JAX
+    tree's leaf order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [a for key in sorted(tree) for a in tree_to_numpy(tree[key])]
+    return state_to_numpy(tree)
+
+
+def tree_from_numpy(kinds, leaves, device):
+    """A port state, or a dict of them, from numpy leaves in the JAX tree's
+    order: ``kinds`` is a state type (as for ``state_from_numpy``) or a
+    dict of them, e.g. ``{"state": worp.OnePassState, "pass2":
+    worp.TwoPassState}``."""
+    leaves = list(leaves)
+    if not isinstance(kinds, dict):
+        return state_from_numpy(kinds, leaves, device)
+    out, i = {}, 0
+    for key in sorted(kinds):
+        n = _num_leaves(kinds[key])
+        out[key] = tree_from_numpy(kinds[key], leaves[i:i + n], device)
+        i += n
+    if i != len(leaves):
+        raise ValueError(f"tree_from_numpy: {len(leaves)} leaves for a tree "
+                         f"of {i}")
+    return out
 
 
 def onepass_state_from_numpy(table, seed, cand_keys, seed_transform,

@@ -1,0 +1,239 @@
+"""Sketch merge trees: the distributed reduction layer of the port.
+
+The port's counterpart of the merge-tree half of
+``repro.distributed.sharding``.  Sampler states are composable: merge(a, b)
+is the state of the union of the two shards' data.  Every helper accepts
+either a bare merge callable or anything exposing a ``.merge`` attribute
+(a ``SamplerSpec``), so the layer works for any registered sampler:
+
+  tree_merge          host-side pairwise tree over a list of states
+  merge_states        the selection rule of every host-form aggregation
+                      point: the butterfly for power-of-two counts, the
+                      tree otherwise
+  butterfly_allmerge  the hypercube exchange: round r merges each state
+                      with its XOR-partner at distance 2**r.  Host form on
+                      a list; collective form over a ``torch.distributed``
+                      process group (``batch_isend_irecv`` with the partner
+                      rank), where every rank ends with the global state
+  psum_sketch         linear-table fast path: ``all_reduce(SUM)`` of a
+                      CountSketch table
+
+Seed guards: shards whose uint32 seed leaves (int64 tensors in the port)
+differ are not shards of one logical stream, and every form raises rather
+than merge them.
+
+The logical-axis sharding rules of the reference module (``DEFAULT_RULES``,
+``resolve_pspec``, ``shard``, ``set_mesh``, ``named_sharding``) serve only
+its model stack, and come with the port's models.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.core import hashing
+from repro_torch.distributed import codecs as _codecs
+from repro_torch.distributed import pytree
+
+
+def _resolve_merge(merge_fn):
+    """A merge callable, from either a function or a SamplerSpec-like
+    object carrying one as ``.merge``."""
+    if callable(merge_fn):
+        return merge_fn
+    merge = getattr(merge_fn, "merge", None)
+    if callable(merge):
+        return merge
+    raise TypeError(
+        f"expected a merge callable or a SamplerSpec with .merge, got "
+        f"{type(merge_fn).__name__}")
+
+
+def _seed_pairs(a, b):
+    """The seed leaves of two states, pairwise: the port's int64 tensors
+    (uint32 seeds) and any uint32 array."""
+    for x, y in zip(pytree.leaves(a), pytree.leaves(b)):
+        if _codecs.wire_dtype(x) == "uint32":
+            yield x, y
+
+
+def _check_shard_seeds(states: Sequence) -> None:
+    """Merge safety: all shards must agree on every seed leaf.
+
+    Shards hashed under different seeds disagree on every r_x/bucket/sign,
+    and merging them silently yields garbage samples -- fail loudly instead
+    (mirroring ``SketchEngine.merge_with`` and ``worp.check_merge_seeds``).
+    """
+    for i, st in enumerate(states[1:], start=1):
+        for a, b in _seed_pairs(states[0], st):
+            if hashing.seeds_concretely_differ(a, b):
+                raise ValueError(
+                    f"tree_merge: shard 0 and shard {i} carry different "
+                    f"hash/transform seeds ({a!r} vs {b!r}); states built "
+                    f"from different seeds are not shards of one logical "
+                    f"stream and cannot be merged")
+
+
+def tree_merge(states: Sequence, merge_fn, codec=None):
+    """Reduce a list of composable states pairwise: ceil(log2 D) rounds.
+
+    ``codec`` (a name or ``codecs.Codec``) models the wire boundary: each
+    shard state is encoded by the sender and decoded on arrival BEFORE the
+    seed guard + merge.  Seed/key leaves travel lossless under every codec,
+    so the guard is unchanged; ``codec=None``/``"none"`` is a copy-free
+    identity."""
+    merge_fn = _resolve_merge(merge_fn)
+    cdc = _codecs.get_codec(codec)
+    states = [cdc.roundtrip(s) for s in states]
+    if not states:
+        raise ValueError("tree_merge of no states")
+    _check_shard_seeds(states)
+    while len(states) > 1:
+        nxt = [merge_fn(states[i], states[i + 1])
+               for i in range(0, len(states) - 1, 2)]
+        if len(states) % 2:
+            nxt.append(states[-1])
+        states = nxt
+    return states[0]
+
+
+def merge_states(states: Sequence, merge_fn, codec=None):
+    """Collapse a host-side list of composable shard states through the
+    butterfly for power-of-two shard counts, the pairwise tree otherwise.
+
+    This is THE selection rule for every host-form aggregation point
+    (multi-worker serving, the ``fleet`` data plane), so they share one
+    seed-agreement contract.  ``codec`` applies ONE wire crossing per shard
+    state before merging; callers whose states already crossed the wire
+    (the fleet plane restores codec'd checkpoints) must NOT pass one, or
+    the states would be quantized twice."""
+    states = list(states)
+    if not states:
+        raise ValueError("merge_states of no states")
+    if len(states) == 1:
+        states = [_codecs.get_codec(codec).roundtrip(states[0])]
+        _check_shard_seeds(states)  # degenerate fleet: still validated
+        return states[0]
+    if len(states) & (len(states) - 1) == 0:  # power of two: butterfly
+        return butterfly_allmerge(states, None, merge_fn, codec=codec)
+    return tree_merge(states, merge_fn, codec=codec)
+
+
+def _check_partner_seeds(a, b, round_idx: int) -> None:
+    """butterfly_allmerge's per-round mirror of the ``tree_merge`` guard:
+    the XOR-partner's seed leaves must agree with ours before the pair is
+    merged."""
+    for x, y in _seed_pairs(a, b):
+        if hashing.seeds_concretely_differ(x, y):
+            raise ValueError(
+                f"butterfly_allmerge: round {round_idx} would merge states "
+                f"with different hash/transform seeds ({x!r} vs {y!r}); "
+                f"shards built from different seeds are not shards of one "
+                f"logical stream and cannot be merged (same contract as "
+                f"tree_merge)")
+
+
+def butterfly_rounds(states: list, merge_fn) -> list:
+    """The host butterfly's every entry: after log2(D) XOR rounds, entry i
+    is what rank i of the collective form holds."""
+    d = len(states)
+    for r in range(d.bit_length() - 1):
+        dist = 1 << r
+        for i in range(d):
+            _check_partner_seeds(states[i], states[i ^ dist], r)
+        states = [merge_fn(states[i], states[i ^ dist]) for i in range(d)]
+    return states
+
+
+def _require_group(group, what: str):
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"{what}: the collective form needs an initialised "
+            f"torch.distributed process group (init_process_group first); "
+            f"pass a list of states for the host form")
+    return dist
+
+
+def _exchange(dist, state, peer: int, group):
+    """Send every leaf of ``state`` to ``peer`` and receive its state."""
+    mine = pytree.leaves(state)
+    theirs = [torch.empty_like(t) for t in mine]
+    ops = [op for t, u in zip(mine, theirs)
+           for op in (dist.P2POp(dist.isend, t.contiguous(), peer, group),
+                      dist.P2POp(dist.irecv, u, peer, group))]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return pytree.unflatten(state, theirs)
+
+
+def butterfly_allmerge(state, group, merge_fn, codec=None):
+    """O(log D) all-merge for any composable state.
+
+    Two forms:
+      * host-side: ``state`` is a LIST/TUPLE of per-shard states
+        (``group`` ignored); the XOR-partner rounds run as plain indexing.
+        Requires a power-of-two shard count; use ``tree_merge`` for ragged
+        counts.
+      * collective: ``state`` is this rank's shard, ``group`` a
+        ``torch.distributed`` process group (None: the default group).
+        Round r exchanges states with rank ``i ^ 2**r`` through
+        ``batch_isend_irecv`` and merges ``(own, partner)``, so every rank
+        ends with the global state; a group whose size is not a power of
+        two takes an ``all_gather`` of every shard and ``tree_merge``.
+
+    Both forms enforce the tree_merge seed-agreement contract.  ``codec``
+    (host form only): each shard state crosses the wire encoded ONCE,
+    before round 0.  The collective form rejects lossy codecs.
+    """
+    merge_fn = _resolve_merge(merge_fn)
+    cdc = _codecs.get_codec(codec)
+    # Host form = a plain list/tuple of shard states.  Sampler states are
+    # NamedTuples (tuple subclasses), so match exact types only.
+    if isinstance(state, list) or type(state) is tuple:
+        states = [cdc.roundtrip(s) for s in state]
+        d = len(states)
+        if d == 0:
+            raise ValueError("butterfly_allmerge of no states")
+        if d & (d - 1):
+            raise ValueError(
+                f"butterfly_allmerge host form needs a power-of-two shard "
+                f"count, got {d}; use tree_merge for ragged counts")
+        return butterfly_rounds(states, merge_fn)[0]
+    if cdc.rel_step != 0.0:
+        raise ValueError(
+            f"butterfly_allmerge collective form cannot apply lossy codec "
+            f"{cdc.name!r} inside the collective; use the host form")
+    dist = _require_group(group, "butterfly_allmerge")
+    d = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    if d == 1:
+        return state
+    if d & (d - 1):  # not a power of two: gather every shard, then a tree
+        gathered = []
+        for t in pytree.leaves(state):
+            parts = [torch.empty_like(t) for _ in range(d)]
+            dist.all_gather(parts, t.contiguous(), group=group)
+            gathered.append(parts)
+        shards = [pytree.unflatten(state, [g[i] for g in gathered])
+                  for i in range(d)]
+        return tree_merge(shards, merge_fn)
+    for r in range(d.bit_length() - 1):
+        peer = rank ^ (1 << r)
+        if group is not None:
+            peer = dist.get_global_rank(group, peer)
+        partner = _exchange(dist, state, peer, group)
+        _check_partner_seeds(state, partner, r)
+        state = merge_fn(state, partner)
+    return state
+
+
+def psum_sketch(sketch, group=None):
+    """Merge CountSketch shards across a process group by an
+    ``all_reduce(SUM)`` of the table (linearity); the seed is kept."""
+    dist = _require_group(group, "psum_sketch")
+    table = sketch.table.clone()
+    dist.all_reduce(table, op=dist.ReduceOp.SUM, group=group)
+    return type(sketch)(table=table, seed=sketch.seed)

@@ -347,6 +347,12 @@ class SketchEngine:
         return self._plane
 
     @property
+    def merge_fn(self):
+        """The batched merge of two states of this engine's sampler (the
+        kernel route, else the spec's): what the merge trees reduce with."""
+        return self._merge
+
+    @property
     def state(self):
         """The batched sampler state (microbatches still in the host buffer
         stay pending; ``flush()`` applies them)."""

@@ -44,9 +44,16 @@ and trades that away.  The synchronous planes test it at ingest time;
 within the interval on its own.
 
 Planes are registered by name (``register_plane``, ``make_plane``,
-``available_planes``); ``"ingest"`` is an alias of ``"sparse"``.  Wire
-codecs other than ``none``, and the fleet plane, come with later slices of
-the port.
+``available_planes``); ``"ingest"`` is an alias of ``"sparse"``.  The
+``fleet`` plane (``repro_torch.distributed.fleet``: the pipeline's routing,
+collapsed through the checkpoint merge protocol) registers last, so the
+order is (dense, sparse, async, pipeline, fleet).
+
+Wire codecs (``repro_torch.distributed.codecs``): ``codec=`` names the
+codec a plane's state crosses boundaries under.  ``FlushPolicy.max_bytes``
+budgets the pending microbatches' WIRE bytes under it (int32 keys raw,
+float32 values encoded; with ``none`` the raw bytes), and the pipeline's
+collapse roundtrips each shard state through it once before merging.
 """
 from __future__ import annotations
 
@@ -65,6 +72,7 @@ from torch.profiler import record_function
 from repro_torch.core import countsketch, hashing, transforms, tv_sampler, worp
 from repro_torch.core import sampler as core_sampler
 from repro_torch.core.sampler import SamplerSpec
+from repro_torch.distributed import codecs as wire_codecs
 from repro_torch.engine.engine import _MERGES, _leaves, _refresh_candidates
 from repro_torch.kernels import ops, tiling
 
@@ -296,10 +304,10 @@ class DataPlane:
 
     def __init__(self, spec: SamplerSpec, state,
                  policy: Optional[FlushPolicy] = None, codec: str = "none"):
-        if codec != "none":
-            raise NotImplementedError(
-                f"wire codec {codec!r} is not ported yet (only 'none')")
         self.spec = spec
+        # the wire codec this plane's state crosses boundaries under; the
+        # byte budget counts the pending microbatches as it encodes them
+        self.codec = wire_codecs.get_codec(codec)
         self.policy = policy if policy is not None else FlushPolicy()
         self.device = _leaves(state)[0].device
         self._state = state
@@ -314,20 +322,24 @@ class DataPlane:
 
     def ingest(self, keys, values):
         """Buffer one sparse signed (B, n) microbatch; dispatch when the
-        flush policy fires.  Bytes count the raw int32 keys and float32
-        values."""
+        flush policy fires.  Bytes count the wire bytes of the int32 keys
+        and float32 values under the plane's codec."""
         keys = np.asarray(keys, np.int32)
         values = np.asarray(values, np.float32)
         self._buf_keys.append(keys)
         self._buf_vals.append(values)
         self._buf_elems += keys.shape[1]
-        self._buf_bytes += keys.nbytes + values.nbytes
+        self._buf_bytes += self._wire_bytes(keys, values)
         if self._buf_t0 is None:
             self._buf_t0 = time.monotonic()
         if self.policy.should_flush(self._buf_elems, self._buf_bytes,
                                     time.monotonic() - self._buf_t0):
             self._flush_buffer()
         return self
+
+    def _wire_bytes(self, keys: np.ndarray, values: np.ndarray) -> int:
+        return (self.codec.payload_nbytes(keys)
+                + self.codec.payload_nbytes(values))
 
     @property
     def pending(self) -> int:
@@ -648,7 +660,7 @@ class AsyncPlane(SparsePlane):
                 self._buf_keys.insert(0, keys)
                 self._buf_vals.insert(0, vals)
                 self._buf_elems += keys.shape[1]
-                self._buf_bytes += keys.nbytes + vals.nbytes
+                self._buf_bytes += self._wire_bytes(keys, vals)
             if self._buf_t0 is None and self._buf_keys:
                 self._buf_t0 = time.monotonic()
             pending = self._buf_elems
@@ -743,7 +755,10 @@ class PipelinePlane(DataPlane):
     Contract: within the summing tolerances of a single plane, with the
     same samples (the merge refreshes candidates in another order); async
     sub-planes equal sparse sub-planes bit for bit where dispatch is
-    deterministic.
+    deterministic.  With a lossy ``codec`` each shard state crosses the
+    wire once (``Codec.roundtrip``) before the merge, so the collapse
+    equals the merge of the roundtripped shard states; the sub-planes run
+    in-process under codec ``none``.
 
     ``ingest_shard(s, keys, values)`` feeds sub-plane ``s`` a block already
     partitioned (safe from one producer thread per shard).  ``set_state``
@@ -793,9 +808,11 @@ class PipelinePlane(DataPlane):
         """The shard states merged into one, settled."""
         self._settle()
         if self._merged is None:
-            merged = self._subplanes[0].state
+            # each shard state crosses the wire ONCE (encoded + decoded)
+            # before merging; codec "none" is a copy-free identity
+            merged = self.codec.roundtrip(self._subplanes[0].state)
             for sub in self._subplanes[1:]:
-                merged = self._merge(merged, sub.state)
+                merged = self._merge(merged, self.codec.roundtrip(sub.state))
             self._merged = merged
         return self._merged
 
@@ -809,3 +826,11 @@ class PipelinePlane(DataPlane):
     def close(self):
         for sub in self._subplanes:
             sub.close()
+
+
+# The in-process fleet registers itself as the "fleet" plane (replica-
+# sharded ingest collapsed through the checkpoint merge protocol).
+# Imported LAST, so the registry order -- and with it the conformance PATHS
+# grid -- is (dense, sparse, async, pipeline, fleet) whichever module pulls
+# the plane layer in first; fleet.py needs only names defined above.
+from repro_torch.distributed import fleet as _fleet  # noqa: E402,F401

@@ -17,7 +17,9 @@ Run it:
 from . import bounds, empirics, report  # noqa: F401
 from .conformance import (  # noqa: F401
     BOTTOMK,
+    CODEC_PLANES,
     ConformanceConfig,
+    check_codec_admissible,
     check_ht_ks,
     check_ht_unbiased,
     check_inclusion_probabilities,
@@ -25,8 +27,10 @@ from .conformance import (  # noqa: F401
     check_tv_single_draw,
     check_wor_beats_wr,
     check_wor_distinct,
+    codec_negative_control,
     prepare_cell,
     run_cell,
+    run_codec_cell,
     run_suite,
 )
 from .report import CheckResult, summary_line  # noqa: F401

@@ -36,12 +36,12 @@ def main(argv=None) -> int:
                     help="data planes (the port's plane registry): dense "
                          "(plain update), ingest (scatter kernel), async "
                          "(double-buffered worker thread), pipeline "
-                         "(per-shard, merged at every read)")
-    ap.add_argument("--codecs", nargs="*", default=[],
+                         "(per-shard, merged at every read), fleet "
+                         "(per-replica, merged through checkpoints)")
+    ap.add_argument("--codecs", nargs="*", default=None,
                     help="lossy wire codecs for the codec-axis cells "
-                         "(default: none; the codec axis is not ported yet "
-                         "and comes with the wire codecs, ROADMAP Queue 1 "
-                         "item 6)")
+                         "(default: fp16 q8; deep adds size_adaptive; "
+                         "pass an empty list to skip the codec axis)")
     ap.add_argument("--trials", type=int, default=None,
                     help="Monte-Carlo trials per cell (default: fast 96, "
                          "deep 384, otherwise 160)")
@@ -65,20 +65,24 @@ def main(argv=None) -> int:
         ps = args.ps or list(conformance.PS)
         trials = args.trials or 384
         table3 = args.table3_trials if args.table3_trials is not None else 12
+        codecs = (args.codecs if args.codecs is not None
+                  else ["fp16", "q8", "size_adaptive"])
     elif args.fast:
         ps = args.ps or [1.0]
         trials = args.trials or 96
         table3 = args.table3_trials or 0
+        codecs = args.codecs if args.codecs is not None else ["fp16", "q8"]
     else:
         ps = args.ps or [1.0]
         trials = args.trials or 160
         table3 = args.table3_trials or 0
+        codecs = args.codecs if args.codecs is not None else ["fp16", "q8"]
 
     cfg = conformance.ConformanceConfig(trials=trials, ref_trials=3 * trials,
                                         seed=args.seed, device=args.device)
     rep = conformance.run_suite(samplers=args.samplers, schemes=args.schemes,
                                 ps=ps, paths=args.paths, cfg=cfg,
-                                table3_trials=table3, codecs=args.codecs)
+                                table3_trials=table3, codecs=codecs)
     for line in check_lines(rep):
         print(line)
     print(report.summary_line(rep))

@@ -36,11 +36,12 @@ Every check returns a ``report.CheckResult``; ``run_suite`` sweeps sampler
 x scheme x p x data-plane cells and builds the JSON report (the
 reference's schema).
 
-Wire codecs: the codec axis (lossy codecs on the ``pipeline`` and
-``fleet`` planes, their admissibility gate and negative control) comes
-with the port's codecs (ROADMAP Queue 1 item 6).  Until then ``"none"`` is
-the only codec accepted, and its widenings are zero, as the reference's
-are for a lossless codec.
+Wire codecs: the codec axis runs the one-pass sampler's trials through
+the ``pipeline`` and ``fleet`` planes with their merge boundary crossing a
+lossy codec (``run_codec_cell``, checks widened by the derived
+quantization allowances), gates the widenings with
+``check_codec_admissible``, and proves the gate can fail with the q2
+negative control (``codec_negative_control``).
 """
 from __future__ import annotations
 
@@ -52,6 +53,7 @@ import torch
 from repro_torch.core import transforms
 from repro_torch.core.device import resolve_device
 from repro_torch.core.sampler import SamplerSpec, available
+from repro_torch.distributed import codecs as wire_codecs
 
 from . import bounds, empirics
 from .report import FAIL, PASS, SKIP, CheckResult, build
@@ -66,15 +68,12 @@ ESTIMATED = ("onepass", "twopass", "tv")
 SCHEMES = (transforms.PPSWOR, transforms.PRIORITY)
 PS = (0.5, 1.0, 1.5, 2.0)
 
-CODEC_ITEM = "ROADMAP Queue 1 item 6 (the wire codecs)"
-
-
-def _lossless(codec: str) -> None:
-    """Accept the lossless codec only: the codec axis is not ported yet."""
-    if codec != "none":
-        raise NotImplementedError(
-            f"wire codec {codec!r} is not ported yet (only 'none'); the "
-            f"codec axis comes with {CODEC_ITEM}")
+# Codec-axis cells run on the sharded planes, whose merge boundary is the
+# wire the codec actually crosses; both default to 2 shards/replicas
+# (planes.PipelinePlane / fleet.FleetPlane), which sets the ``shards``
+# factor in the derived quantization allowances.
+CODEC_PLANES = ("pipeline", "fleet")
+CODEC_SHARDS = 2
 
 
 class ConformanceConfig(NamedTuple):
@@ -127,7 +126,9 @@ _REF_CACHE: dict = {}
 
 
 def _reference(freqs, p: float, scheme: str, cfg: ConformanceConfig):
-    key = (scheme, p, cfg)
+    # the exact oracle never crosses a wire: codec variants of the same
+    # operating point share one reference ensemble
+    key = (scheme, p, cfg._replace(codec="none"))
     if key not in _REF_CACHE:
         _REF_CACHE[key] = empirics.perfect_trials(
             freqs, cfg.k, p, scheme, cfg.ref_trials, cfg.seed,
@@ -139,7 +140,6 @@ def prepare_cell(name: str, scheme: str, p: float, path: str,
                  cfg: ConformanceConfig,
                  spec: Optional[SamplerSpec] = None) -> CellData:
     """Run the cell's trials once (sampler + cached oracle reference)."""
-    _lossless(cfg.codec)
     freqs = _freqs(cfg)
     spec = spec if spec is not None else _spec(name, p, scheme, cfg)
     sample, state = empirics.run_trials(spec, freqs, cfg.k, cfg.trials,
@@ -186,6 +186,13 @@ def check_inclusion_probabilities(name: str, scheme: str, p: float,
             data.ref_tstar, data.ref_thresholds,
             width=data.spec.cfg.width, rows=data.spec.cfg.rows)
         tol = tol + flip
+    qflip = np.zeros(cfg.n)
+    cdc = wire_codecs.get_codec(cfg.codec)
+    if cdc.rel_step != 0.0:  # lossy wire: derived quantization widening
+        qflip = bounds.quantization_flip_allowance(
+            data.ref_tstar, data.ref_thresholds, cdc.rel_step,
+            shards=CODEC_SHARDS, clamp=cdc.clamp)
+        tol = tol + qflip
     dev = np.abs(emp - ref)
     worst = int(np.argmax(dev - tol))
     margin = float((dev - tol)[worst])
@@ -197,7 +204,7 @@ def check_inclusion_probabilities(name: str, scheme: str, p: float,
          "worst_tol": float(tol[worst]),
          "mean_abs_dev": float(dev.mean()),
          "mean_flip_allowance": float(np.mean(flip)),
-         "mean_quant_flip_allowance": 0.0,  # lossless wire
+         "mean_quant_flip_allowance": float(np.mean(qflip)),
          "trials": cfg.trials, "ref_trials": cfg.ref_trials})
 
 
@@ -210,6 +217,7 @@ def check_ht_unbiased(name: str, scheme: str, p: float, path: str,
         return CheckResult("ht_unbiased", name, scheme, p, path, SKIP,
                            {"reason": "no bottom-k threshold (HT undefined)"})
     data = _data(name, scheme, p, path, cfg, spec, data)
+    cdc = wire_codecs.get_codec(cfg.codec)
     powers = (1.0, 2.0)
     details, margin = {}, -np.inf
     for power in powers:
@@ -221,11 +229,18 @@ def check_ht_unbiased(name: str, scheme: str, p: float, path: str,
         if name in ESTIMATED:
             allowance = bounds.sketch_bias_allowance(
                 truth, cfg.k, data.spec.cfg.width)
+        qallow = 0.0
+        if cdc.rel_step != 0.0:  # lossy wire: derived quantization bias
+            qallow = bounds.quantization_ht_allowance(
+                data.freqs, data.ref_tstar, data.ref_thresholds,
+                cdc.rel_step, shards=CODEC_SHARDS, clamp=cdc.clamp,
+                power=power)
+            allowance = allowance + qallow
         m = abs(float(est.mean()) - truth) - radius - allowance
         details[f"pow{power:g}"] = {
             "mean": float(est.mean()), "truth": truth,
             "clt_radius": radius, "bias_allowance": allowance,
-            "quant_allowance": 0.0,  # lossless wire
+            "quant_allowance": qallow,
             "rel_err": abs(float(est.mean()) - truth) / truth}
         margin = max(margin, m / truth)  # relative, comparable across powers
     details["worst_margin"] = float(margin)
@@ -405,6 +420,48 @@ def check_tv_single_draw(name: str, scheme: str, p: float, path: str,
          "trials": cfg.trials})
 
 
+def check_codec_admissible(name: str, scheme: str, p: float, path: str,
+                           cfg: ConformanceConfig,
+                           spec: Optional[SamplerSpec] = None,
+                           data: Optional[CellData] = None) -> CheckResult:
+    """The codec's derived tolerance widenings leave the cell falsifiable.
+
+    A lossy codec PASSES its distributional checks only inside WIDENED
+    tolerances (``bounds.quantization_*_allowance``), so a coarse-enough
+    codec could trivially 'pass' by widening the tolerances past the
+    quantities' own ranges.  This gate computes the widenings from the
+    reference ensemble alone and FAILS any codec whose mean inclusion-flip
+    allowance covers >= 0.5 or whose relative HT-bias allowance reaches 1.0
+    (``bounds.codec_admissible``).  Needs no sampler trials, so it also
+    powers the cheap q2 negative control.
+    """
+    cdc = wire_codecs.get_codec(cfg.codec)
+    if cdc.rel_step == 0.0:
+        return CheckResult("codec_admissible", name, scheme, p, path, SKIP,
+                           {"reason": "lossless codec: no widening"})
+    if data is not None:
+        freqs, tstar, thr = data.freqs, data.ref_tstar, data.ref_thresholds
+    else:
+        freqs = _freqs(cfg)
+        _, tstar, thr = _reference(freqs, p, scheme, cfg)
+    flip = bounds.quantization_flip_allowance(
+        tstar, thr, cdc.rel_step, shards=CODEC_SHARDS, clamp=cdc.clamp)
+    bias = bounds.quantization_ht_allowance(
+        freqs, tstar, thr, cdc.rel_step, shards=CODEC_SHARDS,
+        clamp=cdc.clamp)
+    rel_bias = bias / empirics.moment_truth(freqs, 1.0)
+    mean_flip = float(np.mean(flip))
+    ok = bounds.codec_admissible(mean_flip, rel_bias)
+    return CheckResult(
+        "codec_admissible", name, scheme, p, path,
+        PASS if ok else FAIL,
+        {"codec": cdc.name, "rel_step": cdc.rel_step,
+         "shards": CODEC_SHARDS,
+         "mean_flip_allowance": mean_flip,
+         "rel_bias_allowance": float(rel_bias),
+         "worst_margin": float(max(mean_flip - 0.5, rel_bias - 1.0))})
+
+
 # Assumed trial count behind the paper's reported Table 3 numbers (the
 # benchmark reproduction's default); sets the golden values' own
 # chi-square uncertainty in check_table3_nrmse.
@@ -430,19 +487,22 @@ def check_table3_nrmse(trials: int = 12, delta: float = 1e-3,
     where F_meas / f_paper are the chi-square factors bounding how far a
     ``trials``-run (resp. PAPER_RUNS-run) NRMSE estimate can sit from its
     population value, and the floor is the float32 accumulation limit --
-    golden values below it (1e-10 rows) are not reachable in fp32.  (The
-    reference adds a wire-quantization allowance for a lossy ``codec``;
-    with the lossless codec, the only one ported, it is zero.)  Returns
+    golden values below it (1e-10 rows) are not reachable in fp32 --
+    composed with the wire-quantization allowance when ``codec`` is lossy
+    and the sampler trials run through a composable ``path`` whose collapse
+    crosses the codec (``bounds.quantization_nrmse_allowance``).  Returns
     one CheckResult per (row, method).
     """
     from .table3 import PAPER, ROWS  # golden values
 
-    _lossless(codec)
     rows = list(rows if rows is not None else ROWS)
     d_each = delta / (len(rows) * len(methods))
     factor = (bounds.nrmse_upper_factor(trials, d_each)
               / bounds.nrmse_lower_factor(PAPER_RUNS, d_each))
-    floor = bounds.fp32_nrmse_floor(k)
+    cdc = wire_codecs.get_codec(codec)
+    floor = (bounds.fp32_nrmse_floor(k)
+             + bounds.quantization_nrmse_allowance(cdc.rel_step, k,
+                                                   shards=CODEC_SHARDS))
     results = []
     for (p, alpha, power) in rows:
         freqs = empirics.zipf_freqs(n, alpha, seed=int(alpha * 10))
@@ -462,11 +522,12 @@ def check_table3_nrmse(trials: int = 12, delta: float = 1e-3,
                                            device=device)
                 measured[method] = empirics.nrmse(
                     empirics.ht_estimates(s, p, f), truth)
+        label = path if cdc.rel_step == 0.0 else f"{path}@{cdc.name}"
         for method, got in measured.items():
             golden = PAPER[(p, alpha, power)][method]
             tol = golden * factor + floor
             results.append(CheckResult(
-                "table3_nrmse", method, transforms.PPSWOR, p, path,
+                "table3_nrmse", method, transforms.PPSWOR, p, label,
                 PASS if got <= tol else FAIL,
                 {"row": [p, alpha, power], "measured": got,
                  "golden": golden, "tolerance": tol, "chi2_factor": factor,
@@ -484,6 +545,14 @@ CELL_CHECKS = (check_inclusion_probabilities, check_ht_unbiased,
                check_tv_single_draw)
 
 
+# Codec cells certify inclusion probabilities and HT-unbiasedness within
+# DERIVED widened tolerances, WOR-ness untouched, and the widenings
+# themselves falsifiable (admissibility gate).  ht_ks is excluded: its dense
+# reference carries no codec noise, so pure DKW is not the right tolerance.
+CODEC_CELL_CHECKS = (check_inclusion_probabilities, check_ht_unbiased,
+                     check_wor_distinct, check_codec_admissible)
+
+
 def run_cell(name: str, scheme: str, p: float, path: str,
              cfg: ConformanceConfig) -> list:
     """All named checks for one (sampler, scheme, p, path) cell, sharing
@@ -491,6 +560,38 @@ def run_cell(name: str, scheme: str, p: float, path: str,
     data = prepare_cell(name, scheme, p, path, cfg)
     return [chk(name, scheme, p, path, cfg, data=data)
             for chk in CELL_CHECKS]
+
+
+def run_codec_cell(name: str, scheme: str, p: float, plane: str,
+                   codec: str, cfg: ConformanceConfig) -> list:
+    """One codec-axis cell: run the sampler's trials through ``plane``
+    (pipeline or fleet) with its merge boundary crossing ``codec``, then
+    apply the codec check set, labeled ``plane@codec``."""
+    ccfg = cfg._replace(codec=codec)
+    data = prepare_cell(name, scheme, p, plane, ccfg)
+    label = f"{plane}@{codec}"
+    return [chk(name, scheme, p, label, ccfg, data=data)
+            for chk in CODEC_CELL_CHECKS]
+
+
+def codec_negative_control(scheme: str, p: float,
+                           cfg: ConformanceConfig) -> CheckResult:
+    """The harness must REJECT a too-coarse codec, or the codec cells prove
+    nothing.  The 2-bit ``q2`` codec's rel_step (1/2) makes the derived
+    flip allowance saturate the whole probability range, so
+    ``check_codec_admissible`` FAILS it deterministically.  This control
+    PASSes iff that rejection fired, so ``failed=0`` stays the green
+    criterion."""
+    ctrl = check_codec_admissible("onepass", scheme, p, "fleet@q2",
+                                  cfg._replace(codec="q2"))
+    return CheckResult(
+        "codec_negative_control", "onepass", scheme, p, "fleet@q2",
+        PASS if ctrl.status == FAIL else FAIL,
+        {"control_check": "codec_admissible",
+         "control_status": ctrl.status,
+         "mean_flip_allowance": ctrl.details.get("mean_flip_allowance"),
+         "rel_bias_allowance": ctrl.details.get("rel_bias_allowance"),
+         "worst_margin": -float(ctrl.details.get("worst_margin", 1.0))})
 
 
 def run_suite(samplers: Optional[Sequence[str]] = None,
@@ -504,13 +605,14 @@ def run_suite(samplers: Optional[Sequence[str]] = None,
 
     ``table3_trials > 0`` additionally runs the Table-3 golden-value check
     with that many randomizations (the expensive, n=10^4 rows), on
-    ``cfg.device``.  ``codecs`` must be empty until the codec axis is
-    ported (``CODEC_ITEM``).
+    ``cfg.device``.
+
+    ``codecs`` names lossy wire codecs to certify: for each one, a
+    ``plane@codec`` cell per sharded plane (``CODEC_PLANES``) runs the
+    one-pass sampler's trials through that plane's merge boundary under
+    the codec and applies ``CODEC_CELL_CHECKS``, plus ONE q2 negative
+    control proving the admissibility gate rejects a too-coarse codec.
     """
-    if codecs:
-        raise NotImplementedError(
-            f"codec-axis cells {list(codecs)} are not ported yet; they come "
-            f"with {CODEC_ITEM}")
     samplers = list(samplers if samplers is not None else available())
     results = []
     for name in samplers:
@@ -518,6 +620,12 @@ def run_suite(samplers: Optional[Sequence[str]] = None,
             for p in ps:
                 for path in paths:
                     results.extend(run_cell(name, scheme, p, path, cfg))
+    for codec in codecs:
+        for plane in CODEC_PLANES:
+            results.extend(run_codec_cell("onepass", schemes[0], ps[0],
+                                          plane, codec, cfg))
+    if codecs:
+        results.append(codec_negative_control(schemes[0], ps[0], cfg))
     if table3_trials:
         results.extend(check_table3_nrmse(trials=table3_trials,
                                           delta=cfg.delta,

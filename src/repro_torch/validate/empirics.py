@@ -8,8 +8,9 @@ stream-seed derivation) hands out T independent seed pairs, ``run_trials``
 feeds the same data to all T samplers through a DATA PLANE from the port's
 plane registry (``repro_torch.engine.planes``) -- the plain ``dense``
 reference plane, the scatter-kernel plane (grid name ``"ingest"``, the
-registry alias of ``"sparse"``), the double-buffered ``async`` plane and
-the per-shard ``pipeline`` plane -- and every downstream statistic --
+registry alias of ``"sparse"``), the double-buffered ``async`` plane, the
+per-shard ``pipeline`` plane and the per-replica ``fleet`` plane -- and
+every downstream statistic --
 per-key inclusion counts, HT sum/moment estimates, sample distinctness --
 is computed over the leading (T,) axis.  ``PATHS`` is derived from the
 plane registry, so a new plane joins the conformance grid without edits
@@ -94,8 +95,9 @@ def run_trials(spec: SamplerSpec, freqs: np.ndarray, k: int, trials: int,
     ``"dense"`` is the spec's plain update, ``"ingest"`` the scatter-kernel
     plane (registry alias of ``"sparse"``; the spec's update for the
     perfect oracle, which holds no sketch), ``"async"`` the double-buffered
-    worker-thread plane and ``"pipeline"`` the per-shard plane merged at
-    every read -- every plane faces the same distributional acceptance
+    worker-thread plane, ``"pipeline"`` the per-shard plane merged at every
+    read and ``"fleet"`` the per-replica plane merged through checkpoint
+    round-trips -- every plane faces the same distributional acceptance
     bounds.  The stream is split into ``chunks`` element microbatches, each
     dispatched at its own flush boundary (``FlushPolicy(max_elems=1)``
     fires once per ingest), so streaming accumulation is exercised with
@@ -105,8 +107,10 @@ def run_trials(spec: SamplerSpec, freqs: np.ndarray, k: int, trials: int,
     sketches through the estimate kernel; the others (and an injected spec
     under a name without a route) run the spec.
 
-    ``codec`` names a wire codec forwarded to the plane; the port's planes
-    take only ``"none"`` until the codecs are ported.
+    ``codec`` names a wire codec (``repro_torch.distributed.codecs``)
+    forwarded to the plane: the sharded planes (pipeline, fleet) cross
+    their merge boundary through it, so codec-axis cells measure the real
+    lossy data path.
     """
     if path not in PATHS:
         raise ValueError(f"unknown trial path {path!r}; expected {PATHS}")

@@ -232,12 +232,16 @@ def test_not_ported_paths_raise():
     assert eng.freeze().pass2.keys.shape == (2, cfg.capacity)
     with pytest.raises(ValueError, match="second pass"):
         perfect.freeze()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tplanes.make_plane("sparse", eng.spec, eng.state, codec="q8")
+    # the codecs and the fleet plane are ported: an unknown codec or plane
+    # still raises
+    assert tplanes.make_plane("sparse", eng.spec, eng.state,
+                              codec="q8").codec.name == "q8"
+    with pytest.raises(ValueError, match="unknown codec"):
+        tplanes.make_plane("sparse", eng.spec, eng.state, codec="zstd")
     with pytest.raises(ValueError, match="unknown data plane"):
-        tplanes.make_plane("fleet", eng.spec, eng.state)
+        tplanes.make_plane("warp", eng.spec, eng.state)
     assert tplanes.available_planes() == ("dense", "sparse", "async",
-                                          "pipeline")
+                                          "pipeline", "fleet")
     # the perfect oracle holds no sketch: its spec's update; a
     # sketch-backed sampler with no registered path raises
     keys = torch.tensor([[3], [-1]], dtype=torch.int32)

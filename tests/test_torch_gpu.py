@@ -1020,3 +1020,96 @@ def test_frequency_sketcher_kernel_path_on_card():
                        torch.sort(plain.state.cand_keys).values)
     assert torch.equal(torch.sort(kern.sample().keys).values,
                        torch.sort(plain.sample().keys).values)
+
+
+# ---------------------------------------------------------------------------
+# the wire on the card: codecs, checkpoints, the fleet plane
+# ---------------------------------------------------------------------------
+
+def _wire_states(cfg, steps, plane="sparse", **opts):
+    eng = SketchEngine(cfg, plane=plane, flush_elems=1000, plane_opts=opts)
+    for keys, vals in steps:
+        eng.ingest(keys, vals)
+    eng.flush()
+    return eng
+
+
+def _wire_cfg_steps(name="onepass"):
+    cfg = EngineConfig(num_streams=8, rows=7, width=2048, candidates=64,
+                       capacity=64, sampler=name, domain=1 << 16,
+                       num_samplers=3)
+    stream = TurnstileZipfStream(vocab_size=1 << 16, alpha=1.2, seed=6)
+    steps = [tuple(np.stack(x) for x in zip(*[
+        stream.sparse_batch_at(t, b, 600) for b in range(8)]))
+        for t in range(3)]
+    return cfg, steps
+
+
+@pytest.mark.parametrize("codec", ["fp16", "q8", "size_adaptive", "q2"])
+def test_fake_quant_on_card_matches_host_grid(codec):
+    """``fake_quant`` on the card: bit for bit the CPU's, and equal (``==``:
+    a q grid's -0 decodes to +0 through int8) to the host byte codec's
+    decode(encode), on the finite slices; a slice holding inf or NaN is
+    left out."""
+    _need_card()
+    from repro_torch.distributed import codecs as wc
+
+    cdc = wc.get_codec(codec)
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy((rng.standard_t(3, (16, 7, 2048)) * 40).astype(
+        np.float32))
+    x[3, 2, 5], x[9, 0, 0] = float("inf"), float("nan")
+    fin = x.isfinite().flatten(1).all(1)
+    got = cdc.fake_quant(x.cuda()).cpu()
+    host = torch.from_numpy(wc.decode_leaf(cdc.encode_leaf(x)))
+    assert _same_bits(got[fin], cdc.fake_quant(x)[fin])
+    assert torch.equal(got[fin], host[fin])
+
+
+def test_codec_roundtrip_and_checkpoint_on_card(tmp_path):
+    """A state on the card crosses the wire and a checkpoint back onto the
+    card (``restore``'s default device), in its own dtypes: bit for bit
+    under none (the next sample too), within the codec's bound under q8."""
+    _need_card()
+    from repro_torch.distributed import codecs as wc
+    from repro_torch.train import checkpoint
+
+    cfg, steps = _wire_cfg_steps()
+    eng = _wire_states(cfg, steps)
+    st = eng.state
+    back = wc.get_codec("q8").roundtrip(st)
+    for a, b in zip(_leaves(back), _leaves(st)):
+        assert a.device == b.device and a.dtype == b.dtype
+    wc.assert_trees_within_codec(back, st, "q8")
+    for codec in ("none", "q8"):
+        checkpoint.save(str(tmp_path / codec), 1, st, codec=codec)
+        got = checkpoint.restore(str(tmp_path / codec), 1, st)
+        assert all(x.is_cuda and x.dtype == y.dtype
+                   for x, y in zip(_leaves(got), _leaves(st)))
+        if codec == "q8":
+            wc.assert_trees_within_codec(got, st, "q8")
+            continue
+        assert all(_same_bits(x, y) if x.is_floating_point()
+                   else torch.equal(x, y)
+                   for x, y in zip(_leaves(got), _leaves(st)))
+        fresh = SketchEngine(cfg, flush_elems=1000)
+        fresh.state = got
+        assert torch.equal(fresh.sample(8).keys, eng.sample(8).keys)
+
+
+@pytest.mark.parametrize("codec", ["none", "q8"])
+def test_fleet_plane_on_card_equals_pipeline(codec):
+    """The fleet plane at R = 2 on the card: state and sample bit for bit
+    the pipeline's in the deterministic mode."""
+    _need_card()
+    cfg, steps = _wire_cfg_steps()
+    with _deterministic():
+        fleet = _wire_states(cfg, steps, "fleet", replicas=2, codec=codec)
+        pipe = _wire_states(cfg, steps, "pipeline", shards=2, codec=codec)
+        assert all(_same_bits(x, y) if x.is_floating_point()
+                   else torch.equal(x, y)
+                   for x, y in zip(_leaves(fleet.state), _leaves(pipe.state)))
+        s1, s2 = fleet.sample(8), pipe.sample(8)
+        assert torch.equal(s1.keys, s2.keys)
+        assert _same_bits(s1.freqs, s2.freqs)
+    fleet.plane.close()

@@ -128,7 +128,8 @@ def test_interval_zero_dispatches_every_ingest(plane):
 
 
 def test_registry_order_alias_and_plane_opts():
-    assert P.available_planes() == ("dense", "sparse", "async", "pipeline")
+    assert P.available_planes() == ("dense", "sparse", "async", "pipeline",
+                                    "fleet")
     cfg = _cfg("onepass")
     eng = _engine(cfg)
     plane = P.make_plane("ingest", eng.spec, eng.state)

@@ -235,8 +235,9 @@ def test_trial_seeds_bitwise(trials, seed, offset):
 def test_paths_cover_plane_registry():
     want = tuple("ingest" if n == "sparse" else n
                  for n in P.available_planes())
-    assert empirics.PATHS == want == ("dense", "ingest", "async", "pipeline")
-    assert set(empirics.PATHS) <= set(JE.PATHS)
+    assert empirics.PATHS == want == ("dense", "ingest", "async", "pipeline",
+                                      "fleet")
+    assert empirics.PATHS == JE.PATHS
 
 
 def _assert_freqs_close(got, want, what):
@@ -324,13 +325,23 @@ def test_async_path_bitwise_matches_ingest():
 
 
 def test_run_trials_rejects_unknown_path_and_codec():
+    """``fleet`` is a path and q8 a codec now (the trials equal the
+    pipeline's at 2 shards, bit for bit); an unknown path or codec still
+    raises."""
     spec = empirics.spec_for("onepass", 16, 2, 1.0, "ppswor")
+    freqs = empirics.zipf_freqs(16, 2.0, seed=3)
+    fleet = empirics.run_trials(spec, freqs, 2, 4, 0, path="fleet",
+                                codec="q8", device="cpu")
+    pipe = empirics.run_trials(spec, freqs, 2, 4, 0, path="pipeline",
+                               codec="q8", device="cpu")
+    for a, b in zip(list(fleet[0]) + P._leaves(fleet[1]),
+                    list(pipe[0]) + P._leaves(pipe[1])):
+        assert _bits_equal(a.numpy(), b.numpy())
     with pytest.raises(ValueError, match="unknown trial path"):
-        empirics.run_trials(spec, np.ones(16), 2, 4, 0, path="fleet",
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="codec"):
-        empirics.run_trials(spec, np.ones(16), 2, 4, 0, codec="q8",
-                            device="cpu")
+        empirics.run_trials(spec, freqs, 2, 4, 0, path="warp", device="cpu")
+    with pytest.raises(ValueError, match="unknown codec"):
+        empirics.run_trials(spec, freqs, 2, 4, 0, path="pipeline",
+                            codec="zstd", device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -402,7 +413,8 @@ def _grid():
     params = []
     for name, scheme, p, path in itertools.product(
             available(), C.SCHEMES, C.PS, empirics.PATHS):
-        fast = p == 1.0 and not (name == "tv" and path == "pipeline")
+        fast = p == 1.0 and not (name == "tv"
+                                 and path in C.CODEC_PLANES)
         marks = () if fast else (pytest.mark.deep,)
         params.append(pytest.param(name, scheme, p, path, marks=marks,
                                    id=f"{name}-{scheme}-p{p:g}-{path}"))
@@ -462,12 +474,69 @@ def test_caches_are_keyed_by_device(monkeypatch):
 
 
 def test_codec_axis_not_ported():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        C.run_suite(samplers=["perfect"], paths=["dense"], codecs=["q8"],
-                    cfg=CFG_FAST)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        C.prepare_cell("onepass", "ppswor", 1.0, "pipeline",
-                       CFG_FAST._replace(codec="fp16"))
+    """The codec axis is ported: ``run_suite(codecs=)`` adds a
+    ``plane@codec`` cell per sharded plane and the q2 control, all
+    passing, with the reference's paths, checks and statuses."""
+    cfg = C.ConformanceConfig(trials=48, ref_trials=96, device="cpu")
+    rep = C.run_suite(samplers=["perfect"], paths=["dense"], codecs=["q8"],
+                      cfg=cfg)
+    want = JC.run_suite(samplers=["perfect"], paths=["dense"], codecs=["q8"],
+                        cfg=JC.ConformanceConfig(trials=48, ref_trials=96))
+    key = [(r["check"], r["sampler"], r["path"], r["status"])
+           for r in rep["results"]]
+    assert key == [(r["check"], r["sampler"], r["path"], r["status"])
+                   for r in want["results"]]
+    assert rep["summary"]["failed"] == 0
+    grid = len(C.SCHEMES) * len(C.CELL_CHECKS)
+    assert [k[2] for k in key[grid:]] == \
+        ["pipeline@q8"] * 4 + ["fleet@q8"] * 4 + ["fleet@q2"]
+    assert rep["meta"]["codecs"] == ["q8"]
+
+
+@pytest.mark.parametrize("plane,codec", list(itertools.product(
+    C.CODEC_PLANES, ["fp16", "q8", "size_adaptive"])))
+def test_codec_cell_matches_reference(plane, codec):
+    """A codec-axis cell (onepass, ppswor, p = 1) through the plane's lossy
+    merge boundary: the reference's checks, statuses and details."""
+    got = C.run_codec_cell("onepass", "ppswor", 1.0, plane, codec,
+                           C.ConformanceConfig(device="cpu", **PARITY))
+    want = JC.run_codec_cell("onepass", "ppswor", 1.0, plane, codec,
+                             JC.ConformanceConfig(**PARITY))
+    assert [r.status for r in got] == [r.status for r in want] \
+        == [report.PASS] * len(C.CODEC_CELL_CHECKS)
+    for g, w in zip(got, want):
+        assert g[:6] == w[:6] and g.path == f"{plane}@{codec}"
+        _close(g.to_dict()["details"], w.to_dict()["details"], g.check, "")
+
+
+def test_codec_negative_control_rejects_q2():
+    cfg = C.ConformanceConfig(device="cpu", **PARITY)
+    got = C.codec_negative_control("ppswor", 1.0, cfg)
+    want = JC.codec_negative_control("ppswor", 1.0,
+                                     JC.ConformanceConfig(**PARITY))
+    assert got.status == want.status == report.PASS
+    assert got.details["control_status"] == report.FAIL
+    _close(got.to_dict()["details"], want.to_dict()["details"], "control", "")
+    lossless = C.check_codec_admissible("onepass", "ppswor", 1.0, "pipeline",
+                                        cfg)
+    assert lossless.status == report.SKIP
+
+
+def test_table3_codec_floor():
+    """Table 3 through the pipeline's q8 boundary: the floor composes the
+    quantization allowance (the reference's floor), and the row passes."""
+    from repro_torch.validate.table3 import ROWS
+
+    res = C.check_table3_nrmse(trials=8, rows=[ROWS[0]], methods=("one",),
+                               path="pipeline", codec="q8", device="cpu")
+    want = JC.check_table3_nrmse(trials=8, rows=[ROWS[0]], methods=("one",),
+                                 path="pipeline", codec="q8")
+    assert [r.status for r in res] == [r.status for r in want] \
+        == [report.PASS]
+    assert res[0].path == want[0].path == "pipeline@q8"
+    assert res[0].details["fp32_floor"] == want[0].details["fp32_floor"] \
+        > C.check_table3_nrmse(trials=8, rows=[ROWS[0]], methods=("one",),
+                               device="cpu")[0].details["fp32_floor"]
 
 
 @pytest.mark.parametrize("rows", [[(1.0, 2.0, 3.0)]])
@@ -577,16 +646,35 @@ def test_cli_fast_on_cpu(tmp_path, capsys):
     assert jreport.ok(rep)
     assert jreport.summary_line(rep) in lines
     assert rep["meta"]["paths"] == list(empirics.PATHS)
+    # the grid, then the default codec axis (fp16, q8 on pipeline and fleet)
+    # and the q2 control
     assert sum(ln.startswith("conformance_check,") for ln in lines) \
-        == rep["summary"]["total"] == 4 * 2 * 4 * len(C.CELL_CHECKS)
+        == rep["summary"]["total"] \
+        == 4 * 2 * 5 * len(C.CELL_CHECKS) + 2 * 2 * 4 + 1
+    assert rep["meta"]["codecs"] == ["fp16", "q8"]
     assert threading.active_count() <= before
 
 
-def test_cli_codecs_default_empty_and_rejected():
-    args = ["--fast", "--device", "cpu", "--samplers", "perfect",
-            "--paths", "dense", "--codecs", "q8"]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cli.main(args)
+def test_cli_codecs_default_empty_and_rejected(tmp_path, monkeypatch):
+    """The reference's codec defaults: fp16 and q8, ``--deep`` adds
+    size_adaptive, an empty ``--codecs`` skips the axis, and an explicit
+    list is taken as given; an unknown codec raises."""
+    seen = []
+
+    def run_suite(**kw):
+        seen.append(kw["codecs"])
+        return C.build([], {})
+
+    monkeypatch.setattr(C, "run_suite", run_suite)
+    base = ["--device", "cpu", "--samplers", "perfect", "--paths", "dense"]
+    for extra in (["--fast"], [], ["--deep"], ["--fast", "--codecs"],
+                  ["--codecs", "q2", "q8"]):
+        assert cli.main(base + extra) == 0
+    assert seen == [["fp16", "q8"], ["fp16", "q8"],
+                    ["fp16", "q8", "size_adaptive"], [], ["q2", "q8"]]
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="unknown codec"):
+        cli.main(base + ["--fast", "--trials", "16", "--codecs", "zstd"])
 
 
 # ---------------------------------------------------------------------------
@@ -596,7 +684,8 @@ def test_cli_codecs_default_empty_and_rejected():
 PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
 
-@pytest.mark.parametrize("sub", ["validate", "data"])
+@pytest.mark.parametrize("sub", ["validate", "data", "distributed", "train",
+                                 "launch"])
 def test_no_jax_or_reference_imports(sub):
     for path in sorted((PKG / sub).glob("*.py")):
         tree = ast.parse(path.read_text())
