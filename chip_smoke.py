@@ -510,12 +510,17 @@ def report_occupancy(tag):
     from repro_torch.kernels import build, tiling
 
     table = ROWS * WIDTH * 4
+    det = tiling.table_plan(B, INSERTS, None, ROWS, WIDTH, 132,
+                            variant="det")
+    wide = tiling.table_plan(B, INSERTS, None, 1, WIDE_WIDTH, 132,
+                             variant="det")
+    seg = tiling.SEGMENT_THREADS
     for name, variant, label, threads, smem in (
             ("countsketch_scatter", 1, "smem", tiling.TABLE_THREADS, table),
             ("countsketch_scatter", 0, "global", tiling.THREADS_PER_BLOCK, 0),
-            ("countsketch_scatter", 2, "det", 32 * min(ROWS,
-                                                       tiling.DET_MAX_WARPS),
-             tiling.det_smem_bytes(ROWS, WIDTH)),
+            ("countsketch_scatter", 2, "det", det.threads, det.smem_bytes),
+            ("countsketch_scatter", 3, "det 32-bit entries", wide.threads,
+             wide.smem_bytes),
             ("countsketch_update", 1, "smem", tiling.TABLE_THREADS, table),
             ("countsketch_update", 0, "global", tiling.THREADS_PER_BLOCK, 0),
             ("countsketch_query", 0, "", tiling.THREADS_PER_BLOCK, 0),
@@ -528,7 +533,8 @@ def report_occupancy(tag):
              tiling.THREADS_PER_BLOCK, 0),
             ("ppswor_transform", 3, "bfloat16 vector",
              tiling.THREADS_PER_BLOCK, 0),
-            ("segment_sum", 0, "", tiling.THREADS_PER_BLOCK, 0)):
+            ("segment_sum", 0, "", seg, 0),
+            ("segment_sum", 1, "4- and 8-byte copies", seg, 0)):
         info = build.kernel_info(name, variant, threads, smem)
         info.update(threads=threads, dynamic_smem=smem)
         OCCUPANCY[(name, label)] = info
@@ -601,6 +607,15 @@ def plan_of(B, n, lengths, rows=ROWS, width=WIDTH, variant=None):
                           width, tiling.sm_count(DEVICE), variant)
     return {"blocks": p.blocks, "threads": p.threads, "chunk": p.chunk,
             "one_per_stream": p.one_per_stream, "smem_bytes": p.smem_bytes}
+
+
+def segment_plan_of(rows):
+    """The segment sum's launch at a ``_dedup_topc`` shape of the flush."""
+    from repro_torch.kernels import tiling
+
+    return dict(tiling.segment_plan(
+        rows, CANDIDATES + INSERTS + int(INSERTS * DELETE_FRACTION))._asdict(),
+        threads=tiling.SEGMENT_THREADS, tile=tiling.SEGMENT_TILE)
 
 
 def variants_entry(source, launches, errs, ms, plans, hot_ms=None):
@@ -2397,6 +2412,23 @@ def samples_equal(torch, a, b) -> bool:
     return all(same_bits(torch, x, y) for x, y in zip(a, b))
 
 
+# The det scatter's and segment sum's designs these kernels replaced, as
+# PERF.md's kernel table quotes them (NVIDIA H100 80GB HBM3, 700.00 W): ms,
+# and the same-run ratio to the yardstick (the atomics variant;
+# scatter_add_ with the mode off)
+EARLIER_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+EARLIER = {("det", "flush shape"): (2.2955, 3.76),
+           ("det", "TV cascade shape"): (17.5413, 3.95),
+           ("segment sum", "flush shape"): (0.5851, 1.47),
+           ("segment sum", "TV cascade shape"): (4.0409, 1.32)}
+
+
+def earlier(kernel, what) -> str:
+    ms, ratio = EARLIER[(kernel, what)]
+    return (f"earlier (the replaced design, PERF.md, {EARLIER_CARD}) "
+            f"{ms:.4f} ms, {ratio:.2f}x its yardstick")
+
+
 def det_scatter_shape(torch, what, keys, vals, seeds, tseeds, iters, tag):
     """The det scatter at one shape: three launches give the same bits,
     each cell within its rounding bound of the plain version and of the
@@ -2447,11 +2479,73 @@ def det_scatter_shape(torch, what, keys, vals, seeds, tseeds, iters, tag):
         f"({100 * b_ms / det_ms:.1f} % of bound), shared-memory atomics "
         f"{smem_ms:.4f} ms ({100 * b_ms / smem_ms:.1f} %), bound "
         f"{b_ms:.4f} ms by {b_by}; det / atomics "
-        f"{det_ms / smem_ms:.2f}x {tag}")
+        f"{det_ms / smem_ms:.2f}x; {earlier('det', what)} {tag}")
     return {"ms": det_ms, "atomics_ms": smem_ms, "bound_ms": b_ms,
+            "ratio_to_atomics": det_ms / smem_ms,
             "bound_by": b_by, "max_abs_err": err,
             "worst_err_over_bound": ratio, "vs_atomics_max_abs_err": a_err,
             "vs_atomics_worst_err_over_bound": a_ratio}
+
+
+# A one-row table past 2**15 buckets, where the det scatter stages 32-bit
+# (bucket, sign) entries (tiling.det_entry_bytes); it fits a block up to
+# 57,072 buckets (tiling.det_fits); checked on at most WIDE_STREAMS of the
+# flush's streams
+WIDE_WIDTH, WIDE_STREAMS = 40_000, 64
+
+
+def det_wide_check(torch, keys, vals, seeds, tseeds, tag) -> dict:
+    """The det scatter's 32-bit-entry instantiation on ``WIDE_STREAMS`` of
+    the flush's streams (one of them padding, the rest with lengths) into
+    one row of ``WIDE_WIDTH`` buckets: three launches give the same bits,
+    which without the transform are the order model's
+    (``ref.countsketch_scatter_det_ref``, on the CPU) bit for bit, and with
+    it lie within the rounding bound of the plain version."""
+    from repro_torch.kernels import countsketch_scatter as s
+    from repro_torch.kernels import ref, tiling
+
+    if tiling.det_entry_bytes(WIDE_WIDTH) != 4 \
+            or not tiling.det_fits(1, WIDE_WIDTH):
+        raise AssertionError(f"width {WIDE_WIDTH} does not take the det "
+                             f"scatter's 32-bit entries")
+    keys, vals = keys[:WIDE_STREAMS].clone(), vals[:WIDE_STREAMS]
+    keys[1] = -1
+    streams, n = keys.shape
+    lengths = torch.arange(streams, device=keys.device) * 97 % n + 1
+    lengths[0] = n
+    sd, td = seeds[:streams], tseeds[:streams]
+    out = {"width": WIDE_WIDTH, "streams": streams}
+    for p in (None, P):
+        kw = dict(p=p, transform_seeds=td, lengths=lengths)
+        with deterministic_mode(torch):
+            got = [s.countsketch_scatter_batched(keys, vals, 1, WIDE_WIDTH,
+                                                 sd, **kw) for _ in range(3)]
+        torch.cuda.synchronize()
+        identical = all(same_bits(torch, g, got[0]) for g in got[1:])
+        if p is None:  # the order model on the CPU, as the card tests run it
+            cpu = [t.cpu() for t in (keys, vals, sd, lengths)]
+            model = same_bits(torch, got[0].cpu(),
+                              ref.countsketch_scatter_det_ref(
+                                  *cpu[:2], 1, WIDE_WIDTH, cpu[2],
+                                  lengths=cpu[3]))
+            out["equals_order_model"] = model
+        else:  # the plain version on the card, as det_scatter_shape's
+            model = True
+            want = ref.countsketch_scatter_batched_ref(keys, vals, 1,
+                                                       WIDE_WIDTH, sd, **kw)
+            tol = ref.scatter_tolerance(*ref.countsketch_scatter_mass_ref(
+                keys, vals, 1, WIDE_WIDTH, sd, **kw))
+            out["max_abs_err"], out["worst_err_over_bound"] = check_sum(
+                torch, f"scatter 1 x {WIDE_WIDTH} [det, 32-bit entries]",
+                got[0], want, tol)
+        vs = "" if p else f", equal to the order model bit for bit: {model}"
+        log(f"[det] scatter 1 x {WIDE_WIDTH} ({streams} streams, "
+            f"32-bit entries, p={p}): 3 launches identical: {identical}{vs} "
+            f"{tag}")
+        if not (identical and model):
+            raise AssertionError(f"det scatter 1 x {WIDE_WIDTH}, p={p}: "
+                                 f"identical {identical}, model {model}")
+    return out
 
 
 def segment_sum_shape(torch, what, rows, tag):
@@ -2496,9 +2590,11 @@ def segment_sum_shape(torch, what, rows, tag):
     log(f"[time] segment sum {what} ({rows} x {n}): kernel {k_ms:.4f} ms "
         f"({100 * b_ms / k_ms:.1f} % of bound {b_ms:.4f} ms by {b_by}); "
         f"PyTorch's deterministic scatter_add_ {plain_ms:.4f} ms; atomics "
-        f"scatter_add_ (mode off) {lib_ms:.4f} ms {tag}")
+        f"scatter_add_ (mode off) {lib_ms:.4f} ms; kernel / atomics "
+        f"{k_ms / lib_ms:.2f}x; {earlier('segment sum', what)} {tag}")
     return {"ms": k_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by,
+            "ratio_to_atomics": k_ms / lib_ms}
 
 
 def nan_fill_ms(torch, streams, tag) -> dict:
@@ -2835,6 +2931,8 @@ def phase_determinism(torch, steps, tag):
     out["scatter_tv"] = det_scatter_shape(
         torch, "TV cascade shape", keys.repeat_interleave(r, 0),
         vals.repeat_interleave(r, 0), tv_seeds, tv_tseeds, 5, tag)
+    out["scatter_wide"] = det_wide_check(torch, keys, vals, seeds, tseeds,
+                                         tag)
     del keys, vals, tv_seeds, tv_tseeds
     torch.cuda.empty_cache()
     out["segment_sum_flush"] = segment_sum_shape(torch, "flush shape", B,
@@ -3820,8 +3918,12 @@ def main() -> int:
         "plan": plan_of(B, INSERTS + int(INSERTS * DELETE_FRACTION), None,
                         variant="det"),
         "occupancy": OCCUPANCY.get(("countsketch_scatter", "det")),
-        "tv_cascade_shape": {k: stv[k] for k in ("ms", "atomics_ms",
-                                                 "bound_ms", "bound_by")}}
+        "ratio_to_atomics": sf["ratio_to_atomics"],
+        "tv_cascade_shape": {k: stv[k] for k in (
+            "ms", "atomics_ms", "bound_ms", "bound_by",
+            "ratio_to_atomics")},
+        "wide_table": dict(planes["scatter_wide"], occupancy=OCCUPANCY.get(
+            ("countsketch_scatter", "det 32-bit entries")))}
     # the wire phase's, the conformance grid's and the feeder's launches
     # (their default-mode runs take the shared-memory variant; their
     # deterministic runs the det variant and the segment sum)
@@ -3859,14 +3961,17 @@ def main() -> int:
         "ms": ssf["ms"], "plain_ms": ssf["plain_ms"],
         "bound_ms": ssf["bound_ms"], "bound_by": ssf["bound_by"],
         "library_ms": ssf["library_ms"],
+        "ratio_to_atomics": ssf["ratio_to_atomics"],
         "plain": "PyTorch's deterministic scatter_add_ (the mode on)",
         "library": "scatter_add_ with atomics (the mode off)",
         "occupancy": OCCUPANCY.get(("segment_sum", "")),
+        "plan": segment_plan_of(B),
         "tv_cascade_shape": sstv})
     log("[samplers] " + json.dumps({k: v for k, v in samplers.items()
                                     if k != "tv_shapes"}))
     log("[planes] " + json.dumps({k: v for k, v in planes.items()
                                   if k not in ("scatter_flush", "scatter_tv",
+                                               "scatter_wide",
                                                "segment_sum_flush",
                                                "segment_sum_tv")}))
     log("[wire] " + json.dumps(wire))

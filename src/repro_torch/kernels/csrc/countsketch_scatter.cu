@@ -23,9 +23,10 @@
 //     slot, the mask, the transform once, then rows global atomicAdds into
 //     a zeroed delta.
 //   * worp_countsketch_scatter_det, under
-//     torch.use_deterministic_algorithms(True) where the table and a
-//     1024-slot stage fit a block: one block per stream, one warp per row,
-//     each cell summed in an order fixed by slot index
+//     torch.use_deterministic_algorithms(True) where the table and two
+//     256-slot stages fit a block: one block per stream, producer warps
+//     hashing each stage once and one walker warp a row adding it, each
+//     cell summed in an order fixed by the slot indices
 //     (smem_table.cuh det_table_block), so every run gives the same bits.
 //     A larger table has no deterministic variant: the wrapper raises.
 // The first two sum in an order that changes from run to run, so the
@@ -104,27 +105,35 @@ __global__ void __launch_bounds__(worp::kTableThreads, 3)
   worp::table_block(worp::SparseSlots{keys, values}, args, table);
 }
 
-__global__ void __launch_bounds__(worp::kTableThreads)
+// Entry: a row's staged bucket and sign, 16 bits where width <= 2**15.
+template <class Entry>
+__global__ void __launch_bounds__(worp::kTableThreads, 3)
     countsketch_scatter_det(const int32_t* __restrict__ keys,
                             const float* __restrict__ values,
                             worp::TableArgs args) {
   extern __shared__ float table[];
-  worp::det_table_block(worp::SparseSlots{keys, values}, args, table);
+  worp::det_table_block<Entry>(worp::SparseSlots{keys, values}, args, table);
+}
+
+// The det kernel's instantiation for a table `width` buckets wide.
+void (*det_kernel(int width))(const int32_t*, const float*, worp::TableArgs) {
+  if (width <= (1 << 15)) return countsketch_scatter_det<uint16_t>;
+  return countsketch_scatter_det<uint32_t>;
 }
 
 }  // namespace
 
-// The deterministic variant: one block of `threads` (32 a row, at most
-// 512) per stream, `smem_bytes` (rows x width x 4 + kDetTile x 8) of
-// dynamic shared memory, the delta written whole.  Launches on `stream`;
-// returns a CUDA error code (0 on success).
+// The deterministic variant: one block of `threads` (32 x (8 producer
+// warps + min(rows, 8) walkers)) per stream, `smem_bytes`
+// (worp::det_smem_bytes) of dynamic shared memory, the delta written whole.
+// Launches on `stream`; returns a CUDA error code (0 on success).
 extern "C" int worp_countsketch_scatter_det(
     const void* keys, const void* values, const void* seeds,
     const void* tseeds, const void* lengths, void* delta, int B, int n,
     int rows, int width, int has_p, float neg_inv_p, int scheme, int threads,
     int smem_bytes, void* stream) {
-  const int err = worp::prepare_table_kernel(countsketch_scatter_det,
-                                             smem_bytes);
+  const auto kernel = det_kernel(width);
+  const int err = worp::prepare_table_kernel(kernel, smem_bytes);
   if (err) return err;
   const worp::TableArgs args{
       static_cast<const int32_t*>(seeds),
@@ -133,8 +142,7 @@ extern "C" int worp_countsketch_scatter_det(
       nullptr,
       static_cast<float*>(delta), B, n, rows, width, 0, has_p, scheme,
       neg_inv_p};
-  countsketch_scatter_det<<<B, threads, smem_bytes,
-                            static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<B, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(keys), static_cast<const float*>(values),
       args);
   return static_cast<int>(cudaGetLastError());
@@ -169,16 +177,15 @@ extern "C" int worp_countsketch_scatter_smem(
 }
 
 // Registers, static shared memory, blocks per SM and dynamic shared memory
-// (worp::kernel_info) of variant 0 (global atomics), 1 (shared memory) or
-// 2 (deterministic).
+// (worp::kernel_info) of variant 0 (global atomics), 1 (shared memory), 2
+// (deterministic, width <= 2**15) or 3 (deterministic, 32-bit entries).
 extern "C" int worp_countsketch_scatter_info(int variant, int threads,
                                              int smem_bytes, int* out) {
-  if (variant == 2) {
-    const int err = worp::prepare_table_kernel(countsketch_scatter_det,
-                                               smem_bytes);
+  if (variant >= 2) {
+    const auto kernel = det_kernel(variant == 2 ? 1 : (1 << 15) + 1);
+    const int err = worp::prepare_table_kernel(kernel, smem_bytes);
     if (err) return err;
-    return worp::kernel_info(countsketch_scatter_det, threads, smem_bytes,
-                             out);
+    return worp::kernel_info(kernel, threads, smem_bytes, out);
   }
   if (variant == 1) {
     const int err = worp::prepare_table_kernel(countsketch_scatter_smem,

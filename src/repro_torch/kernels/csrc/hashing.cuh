@@ -45,8 +45,13 @@ __device__ __forceinline__ float uniform01(uint32_t key, uint32_t salt) {
   return __fadd_rn(__fmul_rn(static_cast<float>(h >> 8), 0x1p-24f), 0x1p-25f);
 }
 
+// 1 where the key's sign in the row of `salt` is -1, else 0.
+__device__ __forceinline__ uint32_t sign_bit(uint32_t key, uint32_t salt) {
+  return hash_u32(key, salt ^ kSignSalt) & 1u;
+}
+
 __device__ __forceinline__ float sign_hash(uint32_t key, uint32_t salt) {
-  return (hash_u32(key, salt ^ kSignSalt) & 1u) ? -1.0f : 1.0f;
+  return sign_bit(key, salt) ? -1.0f : 1.0f;
 }
 
 // hash % width.  For a power-of-two width the mask gives the same bucket

@@ -25,7 +25,8 @@
 // in an order that changes from run to run: the tables match the plain version within float
 // tolerance, not bit for bit.  The scatter's deterministic variant
 // (det_table_block below, under torch.use_deterministic_algorithms) fixes
-// the order: one warp owns each row and walks the slots in order.
+// the order: producer warps hash a stage of slots once, and one warp a row
+// then adds the staged terms to its row in slot order.
 //
 // Shared memory: rows x width x 4 B, 57,344 B at the defaults (7 x 2048).
 // Above 48 KB a block needs the opt-in attribute, which prepare_table_kernel
@@ -104,17 +105,40 @@ __device__ __forceinline__ void add_rows(float* table, uint32_t key, float v,
   }
 }
 
+// The live lanes of one match set (`peers`, from __match_any_sync; a dead
+// lane's tag matches no live lane's) sum their v in lane order to the lowest
+// of them: v_lead = ((v_1 + v_2) + v_3) + ...  Returns true for the live
+// leads.  Every lane of the warp calls it.
+__device__ __forceinline__ bool ordered_combine(unsigned peers, bool live,
+                                                float& v) {
+  constexpr unsigned kAll = 0xFFFFFFFFu;
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const bool lead = live && (peers & ((1u << lane) - 1u)) == 0u;
+  unsigned rest = lead ? peers & (peers - 1u) : 0u;  // the other peers
+  const unsigned most =
+      __reduce_max_sync(kAll, lead ? static_cast<unsigned>(__popc(peers)) : 0u);
+  const float x = v;
+  for (unsigned k = 1; k < most; ++k) {
+    const float y = __shfl_sync(kAll, x, rest ? __ffs(rest) - 1 : lane);
+    if (rest) {
+      v = __fadd_rn(v, y);
+      rest &= rest - 1u;
+    }
+  }
+  return lead;
+}
+
 // Combines the lanes of a warp (all 32 present; `live` false for a lane
 // without a slot) that hold the same key, so they hit the same 7 cells:
 // __match_any_sync finds them, and the lowest of them sums the others'
-// values (shuffled to it in lane order; a butterfly of 5 shuffles where
-// the whole warp holds one key).  Returns true for the lanes that then add
-// their (summed) value, once per row.  sign_r(key) * sum is the sum of the
-// signed terms, regrouped.  Without this, k lanes on one cell retry the
-// compare-and-swap k times in turn: a stream of one key took 4.8x the Zipf
-// deployment's time (chip_smoke.py's hot-key cell, H100 80GB HBM3,
-// 700.00 W); matching cells row by row instead of keys once cost the
-// deployment a third more.
+// values (shuffled to it in lane order by ordered_combine; a butterfly of
+// 5 shuffles where the whole warp holds one key).  Returns true for the
+// lanes that then add their (summed) value, once per row.  sign_r(key) *
+// sum is the sum of the signed terms, regrouped.  Without this, k lanes on
+// one cell retry the compare-and-swap k times in turn: a stream of one key
+// took 4.8x the Zipf deployment's time (chip_smoke.py's hot-key cell, H100
+// 80GB HBM3, 700.00 W); matching cells row by row instead of keys once
+// cost the deployment a third more.
 __device__ __forceinline__ bool combine_lanes(uint32_t key, bool live,
                                               float& v) {
   constexpr unsigned kAll = 0xFFFFFFFFu;
@@ -127,18 +151,7 @@ __device__ __forceinline__ bool combine_lanes(uint32_t key, bool live,
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kAll, v, o);
     return lane == 0;
   }
-  const bool lead = (peers & ((1u << lane) - 1u)) == 0u;
-  unsigned rest = lead ? peers & (peers - 1u) : 0u;  // the other peers
-  const unsigned most = __reduce_max_sync(kAll, __popc(peers));
-  const float x = v;
-  for (unsigned k = 1; k < most; ++k) {
-    const float y = __shfl_sync(kAll, x, rest ? __ffs(rest) - 1 : lane);
-    if (rest) {
-      v += y;
-      rest &= rest - 1u;
-    }
-  }
-  return lead && live;
+  return ordered_combine(peers, live, v);
 }
 
 template <class Slots>
@@ -210,87 +223,237 @@ __device__ __forceinline__ void table_block(const Slots& slots,
   }
 }
 
-// The deterministic block body of the scatter (kernels/tiling.py
-// table_plan "det"): every cell sums its terms in one order fixed by slot
-// index, so a launch gives the same bits on every run.  One block per
-// stream, one warp per row (warp w takes rows w, w + warps, ...).  The
-// block walks its stream in tiles of kDetTile slots:
-//   1. all threads stage the tile's keys and transformed values in shared
-//      memory, the transform once a slot (a dead slot, past the length or
-//      key -1, is staged as key 0xFFFFFFFF, which no live scatter key is);
-//   2. each warp walks the tile for each of its rows in slot order, 32
-//      slots at a time, lane l on slot j0 + l.  The lanes whose slots fall
-//      in one bucket sum their signed values to the lowest of them in lane
-//      order (combine_lanes, matched on the bucket), and that lane adds the
-//      sum to its cell with a plain load and store: only this warp writes
-//      the row, and only one lane a cell per step.
-// A cell's value is thus ((0 + group 1) + group 2) + ..., each group's sum
-// taken in lane order: fixed by the slots, whatever the timing.  The delta
-// is written whole with plain stores, as the one-block-per-stream flush of
-// table_block does.  Shared memory: the table plus kDetTile x 8 B (65,536 B
-// at 7 x 2048), so 3 blocks of 7 warps an SM.  Each (slot, row) is hashed
-// once, as in the atomics variant, but with a third of the threads in
-// flight and a match and the shuffles per step: 2.30 ms at the flush
-// shape, 20 % of its bound and 3.8x the atomics (chip_smoke.py, H100 80GB
-// HBM3, 700.00 W).
-constexpr int kDetTile = 1024;
-constexpr uint32_t kDeadKey = 0xFFFFFFFFu;
+// ---------------------------------------------------------------------------
+// The deterministic block body of the scatter (kernels/tiling.py table_plan
+// "det", under torch.use_deterministic_algorithms): every cell sums its
+// terms in one order fixed by the slot indices and the shape alone, so a
+// launch gives the same bits on every run, whatever the timing, the SM
+// count or the blocks resident.
+//
+// The order.  A stream's slots fall in groups of 32 (slots 32g .. 32g + 31,
+// counted from slot 0); a slot is dead past the stream's length or at key
+// -1.  In each group the live slots of one key sum their transformed values
+// in slot order to the lowest of them, its lead: c = ((v1 + v2) + v3) + ...
+// In each row, the leads whose distinct keys fall in one bucket sum their
+// signed sums sign * c (exact: the sign is +-1) in slot order to the lowest
+// of them, d = (t1 + t2) + ..., and the cell then takes cell + d.  Groups
+// add in slot order, each cell from 0.0f.  kernels/ref.py
+// countsketch_scatter_det_ref is this order in plain PyTorch, and the card
+// tests hold the kernel to it bit for bit.
+//
+// The design.  One block per stream, warp-specialised: 8 producer warps and
+// one row-walker warp a row (at most 8; walker w takes rows w, w + 8, ...),
+// over a double-buffered stage of kDetStage = 256 slots in shared memory
+// beside the table:
+//   * producer warp g takes group g of each stage (its next key and value
+//     loaded one stage ahead, into registers).  Its lanes compute the
+//     transform once a slot, match equal keys (__match_any_sync, once a
+//     group, not once a row), sum each key's values to its lead in lane
+//     order (ordered_combine), and stage the lead's sum, a live mask of the
+//     leads, and for every row the lead's bucket and sign, packed in 16 bits
+//     (bucket | sign << 15) where width <= 2**15, else 32.  All the hashing,
+//     the issue-bound part, runs here, on 8 warps, off the ordered walk.
+//   * walker warp w adds stage t to its rows while the producers hash stage
+//     t + 1: per group and row, lane l takes its entry and value (the
+//     stage's row loaded ahead into registers), reads its cell, marks it
+//     with its lane's tag and reads the mark back.
+//     Where every lead reads its own tag, no two distinct keys share a
+//     bucket, and each adds its value to the cell it read, a plain store
+//     (only this warp writes the row, no two lanes one cell).  Where one
+//     reads another's tag, the warp matches the buckets and sums each to
+//     its lowest lane in lane order first.  With the keys combined, k
+//     distinct keys collide in about k(k-1)/2 / width of the (group, row)
+//     steps.  The tag needs no shared memory of its own, and in trials on
+//     the card it beat both a 2048-bit map a walker (shared-memory
+//     atomicOr, then a clear) and a __match_any_sync a step.
+//   * named barriers hand the stages over (bar.arrive / bar.sync with the
+//     block's thread count): kBarFull + s when producers have filled stage
+//     s, kBarFree + s when the walkers are done with it, so stage t + 1 is
+//     hashed while stage t is walked, with no __syncthreads in the loop
+//     (three or four stages were no faster than two in trials).
+// The delta is written whole with plain stores, as the one-block-per-stream
+// flush of table_block does.
+//
+// Budget at the defaults (rows 7, width 2048): the table 57,344 B and two
+// stages of 256 x (4 B value + 7 x 2 B entries) + 8 masks, 9,280 B: 66,624
+// B a block, so 3 blocks of 15 warps (480 threads) an SM: 45 warps, where
+// the design this replaced had 21, at 40 registers a thread
+// (__launch_bounds__(512, 3); chip_smoke.py's [occupancy] line prints what
+// ptxas gave).  Bound: the hashing, some 360 32-bit operations a live slot
+// (chip_smoke.py SCATTER_OPS_PER_SLOT): 0.449 ms at the flush shape (B =
+// 4096 x n = 5120) on an H100.  Measured there, over two runs of the
+// final tree: 0.890-0.891 ms, half the bound, 1.42-1.46x the atomics
+// variant timed in the same run; 6.53-6.77 ms at the TV cascade's 32,768
+// streams, 1.45-1.49x (chip_smoke.py, H100 80GB HBM3, 700.00 W; the
+// design this replaced: 2.30 ms, 3.76x).  The producers'
+// hashing sets the time, and the slowest of a stage's 8 producer warps
+// paces each stage.
+constexpr int kDetStage = 256;              // slots a stage
+constexpr int kDetGroups = kDetStage / 32;  // 32-slot groups a stage
+constexpr int kDetProducers = kDetGroups;   // one producer warp a group
+constexpr int kDetMaxWalkers = 8;           // row-walker warps at most
+constexpr int kBarFull = 1;                 // named barriers 1, 2: full
+constexpr int kBarFree = 3;                 // 3, 4: free (0: __syncthreads)
+constexpr uint32_t kDeadKey = 0xFFFFFFFFu;  // key -1: padding
+constexpr uint32_t kTag = 0xFFC00000u;      // | lane: a lane's mark
 
+// Bytes of one stage: the values, the live masks and rows x kDetStage
+// entries of `entry_bytes` each.  A det block's shared memory is the table
+// and two stages, in that order (kernels/tiling.py det_smem_bytes).
+__host__ __device__ constexpr int det_stage_bytes(int rows, int entry_bytes) {
+  return kDetStage * 4 + kDetGroups * 4 + rows * kDetStage * entry_bytes;
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// One det stage in shared memory.
+template <class Entry>
+struct DetStage {
+  float* vals;     // kDetStage: a lead's sum of its key's values
+  uint32_t* live;  // kDetGroups: the leads of each group, a bit a lane
+  Entry* ent;      // rows x kDetStage: bucket | sign << (bits - 1)
+
+  __device__ __forceinline__ DetStage(float* stages, int rows, int s) {
+    char* base = reinterpret_cast<char*>(stages) +
+                 s * det_stage_bytes(rows, static_cast<int>(sizeof(Entry)));
+    vals = reinterpret_cast<float*>(base);
+    live = reinterpret_cast<uint32_t*>(vals + kDetStage);
+    ent = reinterpret_cast<Entry*>(live + kDetGroups);
+  }
+};
+
+template <class Entry>
+__device__ __forceinline__ void det_produce(const SparseSlots& slots,
+                                            const TableArgs& a, float* stages,
+                                            int b, int64_t len, int tiles) {
+  constexpr unsigned kAll = 0xFFFFFFFFu;
+  constexpr int kShift = 8 * static_cast<int>(sizeof(Entry)) - 1;
+  const int g = static_cast<int>(threadIdx.x >> 5);
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int threads = static_cast<int>(blockDim.x);
+  const uint32_t seed = static_cast<uint32_t>(a.seeds[b]);
+  const uint32_t tseed = static_cast<uint32_t>(a.tseeds[b]);
+  const uint32_t width = static_cast<uint32_t>(a.width);
+  const int64_t row0 = static_cast<int64_t>(b) * a.n;
+  const int j = g * 32 + lane;  // this lane's slot in every stage
+  // this lane's next two slots, loaded two stages ahead (key -1 loads as
+  // kDeadKey too)
+  uint32_t key1 = kDeadKey, key2 = kDeadKey;
+  float v1 = 0.0f, v2 = 0.0f;
+  if (j < len) slots(b, j, row0 + j, key1, v1);
+  if (j + kDetStage < len) {
+    slots(b, j + kDetStage, row0 + j + kDetStage, key2, v2);
+  }
+  int64_t i = j + 2 * kDetStage;
+  for (int t = 0; t < tiles; ++t, i += kDetStage) {
+    const uint32_t key = key1;
+    float v = v1;
+    key1 = key2;
+    v1 = v2;
+    key2 = kDeadKey;
+    if (i < len) slots(b, i, row0 + i, key2, v2);
+    const bool live = key != kDeadKey;
+    if (live && a.has_p) {
+      v = transform_value(v, key, tseed, a.scheme, a.neg_inv_p);
+    }
+    const bool lead = ordered_combine(__match_any_sync(kAll, key), live, v);
+    const unsigned leads = __ballot_sync(kAll, lead);
+    const int s = t & 1;
+    if (t >= 2) named_sync(kBarFree + s, threads);  // stage t - 2 walked
+    const DetStage<Entry> st(stages, a.rows, s);
+    st.vals[j] = v;
+    if (lane == 0) st.live[g] = leads;
+    // branch-free and unrolled, so that rows' hash chains interleave
+#pragma unroll 4
+    for (int r = 0; r < a.rows; ++r) {
+      const uint32_t salt = row_salt(seed, static_cast<uint32_t>(r));
+      const uint32_t e =
+          bucket_hash(key, salt, width) | (sign_bit(key, salt) << kShift);
+      st.ent[r * kDetStage + j] = static_cast<Entry>(lead ? e : 0u);
+    }
+    named_arrive(kBarFull + s, threads);
+  }
+}
+
+template <class Entry>
+__device__ __forceinline__ void det_walk(const TableArgs& a, float* table,
+                                         float* stages, int walker,
+                                         int walkers, int tiles) {
+  constexpr unsigned kAll = 0xFFFFFFFFu;
+  constexpr int kShift = 8 * static_cast<int>(sizeof(Entry)) - 1;
+  constexpr uint32_t kBucket = (1u << kShift) - 1u;
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int threads = static_cast<int>(blockDim.x);
+  const uint32_t tag = kTag | static_cast<uint32_t>(lane);
+  for (int t = 0; t < tiles; ++t) {
+    const int s = t & 1;
+    named_sync(kBarFull + s, threads);  // stage t hashed
+    const DetStage<Entry> st(stages, a.rows, s);
+    for (int r = walker; r < a.rows; r += walkers) {
+      float* row = table + static_cast<int64_t>(r) * a.width;
+      const Entry* ent = st.ent + r * kDetStage;
+      // the stage's row, loaded ahead of the ordered adds
+      unsigned leads[kDetGroups];
+      uint32_t ents[kDetGroups];
+      float vals[kDetGroups];
+#pragma unroll
+      for (int g = 0; g < kDetGroups; ++g) {
+        leads[g] = st.live[g];
+        ents[g] = ent[g * 32 + lane];
+        vals[g] = st.vals[g * 32 + lane];
+      }
+#pragma unroll
+      for (int g = 0; g < kDetGroups; ++g) {
+        if (leads[g] == 0u) continue;  // warp-uniform
+        const bool live = (leads[g] >> lane) & 1u;
+        const uint32_t bucket = ents[g] & kBucket;
+        const float v = (ents[g] >> kShift) ? -vals[g] : vals[g];
+        float* cell = row + bucket;
+        // each lead reads its cell, then marks it with its lane's tag: a
+        // lead that reads back another lane's tag shares its bucket
+        const float old = live ? *cell : 0.0f;
+        __syncwarp();
+        if (live) *cell = __uint_as_float(tag);
+        __syncwarp();
+        const bool shared = live && __float_as_uint(*cell) != tag;
+        if (__any_sync(kAll, shared)) {  // two distinct keys, one bucket
+          float d = v;
+          const unsigned peers =
+              __match_any_sync(kAll, live ? bucket : 0x80000000u | lane);
+          if (ordered_combine(peers, live, d)) *cell = __fadd_rn(old, d);
+        } else if (live) {
+          *cell = __fadd_rn(old, v);
+        }
+        __syncwarp();  // this group's adds before the next group's reads
+      }
+    }
+    if (t + 2 < tiles) named_arrive(kBarFree + s, threads);
+  }
+}
+
+template <class Entry>
 __device__ __forceinline__ void det_table_block(const SparseSlots& slots,
                                                 const TableArgs& a,
                                                 float* table) {
   const int b = blockIdx.x;
   const int64_t len = a.lengths[b];
   const int cells = a.rows * a.width;
-  uint32_t* tile_keys = reinterpret_cast<uint32_t*>(table + cells);
-  float* tile_vals = reinterpret_cast<float*>(tile_keys + kDetTile);
+  float* stages = table + cells;
   for (int c = threadIdx.x; c < cells; c += blockDim.x) table[c] = 0.0f;
-
-  const uint32_t seed = static_cast<uint32_t>(a.seeds[b]);
-  const uint32_t tseed = static_cast<uint32_t>(a.tseeds[b]);
-  const uint32_t width = static_cast<uint32_t>(a.width);
-  const int64_t row0 = static_cast<int64_t>(b) * a.n;
+  __syncthreads();
+  const int tiles = static_cast<int>((len + kDetStage - 1) / kDetStage);
   const int warp = static_cast<int>(threadIdx.x >> 5);
-  const int lane = static_cast<int>(threadIdx.x & 31);
-  const int warps = static_cast<int>(blockDim.x >> 5);
-  for (int64_t t0 = 0; t0 < len; t0 += kDetTile) {
-    const int tile =
-        static_cast<int>(len - t0 < kDetTile ? len - t0 : kDetTile);
-    __syncthreads();  // the zeroed table, or the previous tile's walk
-    for (int j = threadIdx.x; j < tile; j += blockDim.x) {
-      const int64_t i = t0 + j;
-      uint32_t key = kDeadKey;
-      float v = 0.0f;
-      if (slots(b, i, row0 + i, key, v)) {
-        if (a.has_p) {
-          v = transform_value(v, key, tseed, a.scheme, a.neg_inv_p);
-        }
-      } else {
-        key = kDeadKey;
-        v = 0.0f;
-      }
-      tile_keys[j] = key;
-      tile_vals[j] = v;
-    }
-    __syncthreads();
-    // warp-uniform trip counts, so every lane reaches the warp collectives
-    for (int r = warp; r < a.rows; r += warps) {
-      const uint32_t salt = row_salt(seed, static_cast<uint32_t>(r));
-      float* row = table + static_cast<int64_t>(r) * a.width;
-      for (int j0 = 0; j0 < tile; j0 += 32) {
-        const int j = j0 + lane;
-        const uint32_t key = j < tile ? tile_keys[j] : kDeadKey;
-        const bool live = key != kDeadKey;
-        uint32_t bucket = 0;
-        float v = 0.0f;
-        if (live) {
-          bucket = bucket_hash(key, salt, width);
-          v = sign_hash(key, salt) * tile_vals[j];
-        }
-        if (combine_lanes(bucket, live, v)) row[bucket] += v;
-        __syncwarp();  // this step's stores before the next step's loads
-      }
-    }
+  if (warp < kDetProducers) {
+    det_produce<Entry>(slots, a, stages, b, len, tiles);
+  } else {
+    det_walk<Entry>(a, table, stages, warp - kDetProducers,
+                    a.rows < kDetMaxWalkers ? a.rows : kDetMaxWalkers, tiles);
   }
   __syncthreads();
 

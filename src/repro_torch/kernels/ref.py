@@ -81,6 +81,62 @@ def countsketch_scatter_batched_ref(keys, values, rows: int, width: int,
     return _scatter_rows(keys, vals, rows, width, seeds)
 
 
+def _lead_sums(tags, terms, live):
+    """Per 32-slot group (B, m): the live slots of one tag sum their terms
+    in slot order to the lowest of them, their lead, ``((t1 + t2) + t3) +
+    ...`` in float32.  Returns the leads' mask and their sums (zero
+    elsewhere)."""
+    B, m = tags.shape
+    lane = torch.arange(m, device=tags.device)
+    same = (tags[:, :, None] == tags[:, None, :]) & live[:, :, None] \
+        & live[:, None, :]
+    # the lowest live slot with this slot's tag (its own index if none)
+    lead = torch.where(same.any(1), same.to(torch.int8).argmax(1), lane)
+    is_lead = live & (lead == lane)
+    sums = torch.where(is_lead, terms, 0.0)
+    for j in range(m):  # slot order
+        add = live[:, j] & ~is_lead[:, j]
+        at = lead[:, j:j + 1]
+        acc = sums.gather(1, at)[:, 0]
+        sums.scatter_(1, at, torch.where(add, acc + terms[:, j], acc)[:, None])
+    return is_lead, sums
+
+
+def countsketch_scatter_det_ref(keys, values, rows: int, width: int, seeds,
+                                p: float | None = None, transform_seeds=None,
+                                lengths=None,
+                                scheme: str = transforms.PPSWOR
+                                ) -> torch.Tensor:
+    """The deterministic scatter's summation order (csrc/smem_table.cuh
+    det_table_block), in float32, slot by slot: (B, rows, width).
+
+    In each group of 32 slots (from slot 0) the live slots of one key sum
+    their transformed values in slot order to the lowest of them; in each
+    row the leads whose keys share a bucket sum their signed sums in slot
+    order, and the cell adds that; groups add in slot order, each cell from
+    0.0.  With ``p`` set the transform is the plain version's, so only with
+    ``p=None`` (or values transformed by the card) does the kernel give
+    these bits."""
+    seeds, valid, vals = _scatter_terms(keys, values, seeds, p,
+                                        transform_seeds, lengths, scheme)
+    B, n = keys.shape
+    table = torch.zeros((B, rows, width + 1), dtype=torch.float32,
+                        device=keys.device)  # column ``width``: no cell
+    k64 = keys.to(torch.int64)
+    for g0 in range(0, n, 32):
+        gk, gl = k64[:, g0:g0 + 32], valid[:, g0:g0 + 32]
+        is_lead, sums = _lead_sums(gk, vals[:, g0:g0 + 32], gl)
+        for r in range(rows):
+            salt = hashing.row_salt(seeds[:, None], r)
+            bucket = hashing.bucket_hash(gk, salt, width)
+            terms = hashing.sign_hash(gk, salt) * sums
+            first, d = _lead_sums(bucket, terms, is_lead)
+            at = torch.where(first, bucket, width)
+            row = table[:, r, :]
+            row.scatter_(1, at, row.gather(1, at) + d)
+    return table[..., :width].contiguous()
+
+
 def countsketch_scatter_mass_ref(keys, values, rows: int, width: int, seeds,
                                  p: float | None = None, transform_seeds=None,
                                  lengths=None,

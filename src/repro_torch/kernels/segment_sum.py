@@ -3,10 +3,11 @@
 ``segment_sum(values, seg)`` sums each row's runs of equal segment ids
 (``seg`` nondecreasing from 0 in steps of 0 or 1, as a stable key sort
 leaves them): segment s's sum at index s, zero past the last.  A CUDA
-tensor launches the hand-written kernel, which adds each run in index
-order, so every launch gives the same bits (PyTorch's CPU ``scatter_add_``
-adds in that order too, and gives the same bits); a CPU tensor takes the
-plain version in ``ref``.  ``core.worp.segment_sum`` calls it under
+tensor launches the hand-written kernel (blocks of whole rows walked in
+tiles, ``tiling.segment_plan``), which adds each run in index order, so
+every launch gives the same bits (PyTorch's CPU ``scatter_add_`` adds in
+that order too, and gives the same bits); a CPU tensor takes the plain
+version in ``ref``.  ``core.worp.segment_sum`` calls it under
 ``torch.use_deterministic_algorithms(True)``.  ``launches`` counts kernel
 launches, and nothing else.
 """
@@ -20,8 +21,8 @@ from . import build, ref, tiling
 
 launches = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 \
-    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3 \
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _require(ok: bool, msg: str) -> None:
@@ -47,10 +48,15 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     if values.numel() == 0:
         return out
     rows = values.numel() // n
+    plan = tiling.segment_plan(rows, n)
+    # 16-byte copies: rows a whole number of 4 slots, both arrays on 16 B
+    vec = n % 4 == 0 and values.data_ptr() % 16 == 0 \
+        and seg.data_ptr() % 16 == 0
     fn = build.function("segment_sum", "worp_segment_sum", _ARGTYPES)
     with torch.cuda.device(values.device):
         err = fn(values.data_ptr(), seg.data_ptr(), out.data_ptr(), rows, n,
-                 tiling.grid_1d(rows * n), tiling.THREADS_PER_BLOCK,
+                 plan.rows_per_block, plan.blocks, tiling.SEGMENT_THREADS,
+                 tiling.SEGMENT_TILE, int(vec),
                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"segment_sum kernel launch failed: CUDA error "

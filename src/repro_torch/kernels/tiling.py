@@ -29,17 +29,26 @@ SMEM_PER_BLOCK_OPTIN = 232_448
 # SM: two waves of the 4 resident blocks, so the ragged last wave and
 # uneven streams cost little.
 TABLE_BLOCKS_PER_SM = 8
-# The deterministic scatter (csrc/smem_table.cuh det_table_block): one warp
-# a row, at most DET_MAX_WARPS, and a stage of DET_TILE slots (key and
-# transformed value, 8 B each) beside the table.
-DET_TILE = 1024
-DET_MAX_WARPS = 16
+# The deterministic scatter (csrc/smem_table.cuh det_table_block): 8
+# producer warps, one a 32-slot group of each stage of DET_STAGE slots, and
+# a walker warp a row, at most DET_MAX_WALKERS; two stages (each slot's
+# value and, for every row, its bucket and sign in ``det_entry_bytes``)
+# beside the table.
+DET_STAGE = 256
+DET_PRODUCERS = DET_STAGE // 32
+DET_MAX_WALKERS = 8
 # The quantum of a packed host block (``data.ingest_pipeline.PackedBatcher``):
 # a whole number of the shared-memory scatter's passes (``TABLE_THREADS``
 # slots; every chunk of ``table_plan`` is a multiple of it) and of the
-# deterministic scatter's stage (``DET_TILE`` slots), so a full block costs
+# deterministic scatter's stage (``DET_STAGE`` slots), so a full block costs
 # no partial pass on either variant.
-PACK_QUANTUM = DET_TILE
+PACK_QUANTUM = 1024
+# The sorted segment sum (csrc/segment_sum.cu): blocks of SEGMENT_THREADS
+# walking their rows in tiles of SEGMENT_TILE slots.  The kernel's own
+# constants; the wrapper passes both, and the kernel refuses a launch
+# whose geometry is not its own.
+SEGMENT_THREADS = 256
+SEGMENT_TILE = 1024
 
 
 def pad_to(x: int, m: int) -> int:
@@ -88,8 +97,9 @@ class TablePlan(NamedTuple):
     into a zeroed delta.  "global": one thread per slot with global atomics
     into a zeroed delta, for tables too large for shared memory.  "det"
     (the scatter under ``torch.use_deterministic_algorithms(True)``): one
-    block per stream, one warp a row, the stream walked in stages of
-    ``chunk`` slots, every cell summed in an order fixed by slot index."""
+    block per stream, producer warps hashing its stream in stages of
+    ``chunk`` slots and a warp a row adding them, every cell summed in an
+    order fixed by the slot indices."""
     variant: str
     blocks: int
     threads: int
@@ -104,10 +114,24 @@ def table_fits(rows: int, width: int) -> bool:
     return rows * width * 4 <= SMEM_PER_BLOCK_OPTIN
 
 
+def det_entry_bytes(width: int) -> int:
+    """Bytes of a staged (bucket, sign) entry of the deterministic scatter:
+    16 bits (15 of bucket, the sign) where ``width <= 2**15``, else 32."""
+    return 2 if width <= 2**15 else 4
+
+
+def det_threads(rows: int) -> int:
+    """Threads of a deterministic scatter block: the producers and a
+    walker a row."""
+    return 32 * (DET_PRODUCERS + min(rows, DET_MAX_WALKERS))
+
+
 def det_smem_bytes(rows: int, width: int) -> int:
-    """Shared memory of a deterministic scatter block: the table and its
-    stage of ``DET_TILE`` keys and values."""
-    return rows * width * 4 + DET_TILE * 8
+    """Shared memory of a deterministic scatter block: the table and two
+    stages (csrc/smem_table.cuh det_stage_bytes)."""
+    stage = DET_STAGE * 4 + DET_PRODUCERS * 4 \
+        + rows * DET_STAGE * det_entry_bytes(width)
+    return rows * width * 4 + 2 * stage
 
 
 def det_fits(rows: int, width: int) -> bool:
@@ -181,15 +205,15 @@ def table_plan(B: int, n: int, lengths, rows: int, width: int,
         if not det_fits(rows, width):
             raise ValueError(
                 f"deterministic mode: the scatter's {rows} x {width} float32 "
-                f"table and its {DET_TILE}-slot stage "
+                f"table and its two {DET_STAGE}-slot stages "
                 f"({det_smem_bytes(rows, width)} B) do not fit the "
                 f"{SMEM_PER_BLOCK_OPTIN} B of shared memory of a block, and "
                 f"the deterministic scatter has no variant for a larger "
                 f"table")
         if B > MAX_GRID_X:
             raise ValueError(f"{B} blocks exceed the grid limit {MAX_GRID_X}")
-        return TablePlan("det", B, 32 * min(rows, DET_MAX_WARPS), DET_TILE,
-                         True, det_smem_bytes(rows, width))
+        return TablePlan("det", B, det_threads(rows), DET_STAGE, True,
+                         det_smem_bytes(rows, width))
     if variant != "smem":
         raise ValueError(f"unknown kernel variant {variant!r}")
     if not fits:
@@ -233,3 +257,25 @@ def table_launch(B: int, n: int, lengths, rows: int, width: int, device,
     plan = table_plan(B, n, lens, rows, width, sm_count(device), variant)
     alloc = torch.empty if plan.one_per_stream else torch.zeros
     return plan, alloc((B, rows, width), dtype=torch.float32, device=device)
+
+
+class SegmentPlan(NamedTuple):
+    """Launch of the sorted segment sum over ``rows`` rows of ``n`` slots:
+    block g (of ``SEGMENT_THREADS`` threads) takes rows
+    [g * rows_per_block, (g + 1) * rows_per_block) (the last block fewer),
+    walked as one range in tiles of ``SEGMENT_TILE`` slots, in order."""
+    rows_per_block: int
+    blocks: int
+
+
+def segment_plan(rows: int, n: int) -> SegmentPlan:
+    """The segment sum's launch: a block a row where a row fills a tile or
+    more (a long row is walked tile by tile, a run that crosses a tile
+    carried over in order), else as many whole rows as fit one tile."""
+    if rows < 1 or n < 1:
+        raise ValueError(f"segment sum over {rows} rows of {n} slots")
+    per = max(1, SEGMENT_TILE // n)
+    blocks = -(-rows // per)
+    if blocks > MAX_GRID_X:
+        raise ValueError(f"{blocks} blocks exceed the grid limit {MAX_GRID_X}")
+    return SegmentPlan(per, blocks)

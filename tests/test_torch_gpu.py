@@ -762,8 +762,8 @@ DET_CASES = {
 def test_cuda_det_scatter_same_bits_every_launch(case):
     """Under the deterministic mode the scatter takes its "det" variant by
     itself; three launches give the same bits, and each cell is within its
-    rounding bound of the plain version (stages of 1024 slots: 2500 slots
-    make three)."""
+    rounding bound of the plain version (stages of 256 slots: 2500 slots
+    make ten, the last part full)."""
     _need_card()
     opts = dict(DET_CASES[case])
     keys, vals, seeds, tseeds = _streams(4, 2500, seed=21)
@@ -795,6 +795,108 @@ def test_cuda_det_scatter_same_bits_every_launch(case):
         **opts))
     if pad is not None:
         assert not outs[0][pad].any() and not outs[0][2].any()
+
+
+def _det_case(case, seed=21):
+    """DET_CASES' layout: (4, 2500) streams, hot key, padding, lengths."""
+    opts = dict(DET_CASES[case])
+    keys, vals, seeds, tseeds = _streams(4, 2500, seed=seed)
+    if opts.pop("hot", False):
+        keys[:, ::2] = 4242
+    pad = opts.pop("pad_stream", None)
+    if pad is not None:
+        keys[pad] = -1
+    lengths = opts.pop("lengths", None)
+    lengths = None if lengths is None else torch.tensor(lengths)
+    return keys, vals, seeds, tseeds, lengths, opts
+
+
+def _det_launch(keys, vals, seeds, tseeds, lengths, **opts):
+    with _deterministic():
+        return ts.countsketch_scatter_batched(
+            keys.cuda(), vals.cuda(), 7, 2048, seeds.cuda(),
+            transform_seeds=tseeds.cuda(),
+            lengths=None if lengths is None else lengths.cuda(),
+            **opts).cpu()
+
+
+@pytest.mark.parametrize("case", sorted(DET_CASES))
+def test_cuda_det_scatter_equals_order_model_bitwise(case):
+    """Without the transform the det kernel gives the bits of the plain
+    model of its summation order (``ref.countsketch_scatter_det_ref``),
+    over every DET_CASES layout."""
+    _need_card()
+    keys, vals, seeds, tseeds, lengths, opts = _det_case(case)
+    opts["p"] = None
+    got = _det_launch(keys, vals, seeds, tseeds, lengths, **opts)
+    want = ref.countsketch_scatter_det_ref(
+        keys, vals, 7, 2048, seeds, transform_seeds=tseeds, lengths=lengths,
+        **opts)
+    assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("case", sorted(c for c in DET_CASES
+                                        if DET_CASES[c].get("p")
+                                        and "scheme" not in DET_CASES[c]))
+def test_cuda_det_scatter_fused_transform_equals_model_bitwise(case):
+    """With ``p`` set the det kernel's fused transform gives the bits of
+    the ppswor_transform kernel's: the det kernel equals the order model
+    fed the values that kernel transformed, stream by stream."""
+    _need_card()
+    keys, vals, seeds, tseeds, lengths, opts = _det_case(case)
+    got = _det_launch(keys, vals, seeds, tseeds, lengths, **opts)
+    tvals = torch.stack([tt.ppswor_transform(
+        keys[b].cuda(), vals[b].cuda(), opts["p"], int(tseeds[b])).cpu()
+        for b in range(keys.shape[0])])
+    want = ref.countsketch_scatter_det_ref(
+        keys, tvals, 7, 2048, seeds, lengths=lengths)
+    assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("width", [40_000, 57_072])
+def test_cuda_det_scatter_wide_table_equals_order_model_bitwise(width):
+    """Past 2**15 buckets the det kernel stages 32-bit (bucket, sign)
+    entries (a one-row table fits a block up to 57,072 buckets): on Zipf
+    keys with a hot key, a padding stream and lengths, three launches give
+    the same bits, which without the transform are the order model's bit
+    for bit, and with it lie within the rounding bound of the plain
+    version."""
+    _need_card()
+    assert tiling.det_entry_bytes(width) == 4 and tiling.det_fits(1, width)
+    rng = np.random.default_rng(width)
+    keys = torch.from_numpy(np.minimum(rng.zipf(1.2, (6, 3000)) - 1,
+                                       2**20).astype(np.int32))
+    keys[:, ::5] = 4242
+    keys[1] = -1
+    vals = torch.from_numpy(rng.normal(size=(6, 3000)).astype(np.float32))
+    seeds = torch.from_numpy(rng.integers(0, 2**32, 6, dtype=np.int64))
+    tseeds = torch.from_numpy(rng.integers(0, 2**32, 6, dtype=np.int64))
+    lengths = torch.tensor([3000, 3000, 0, 1, 257, 2999])
+    for p in (None, 1.0):
+        opts = dict(p=p, transform_seeds=tseeds, lengths=lengths)
+        outs = []
+        with _deterministic():
+            for _ in range(3):
+                before = dict(ts.variant_launches)
+                outs.append(ts.countsketch_scatter_batched(
+                    keys.cuda(), vals.cuda(), 1, width, seeds.cuda(),
+                    transform_seeds=tseeds.cuda(), lengths=lengths.cuda(),
+                    p=p).cpu())
+                assert {v: ts.variant_launches[v] - before[v]
+                        for v in before} == {"smem": 0, "global": 0,
+                                             "det": 1}
+        assert all(_same_bits(o, outs[0]) for o in outs[1:])
+        if p is None:
+            assert _same_bits(outs[0], ref.countsketch_scatter_det_ref(
+                keys, vals, 1, width, seeds, **opts))
+        else:  # the plain version on the card, as chip_smoke.py's
+            dev = [t.cuda() for t in (keys, vals, seeds, tseeds, lengths)]
+            kw = dict(p=p, transform_seeds=dev[3], lengths=dev[4])
+            _check_sum(outs[0], ref.countsketch_scatter_batched_ref(
+                *dev[:2], 1, width, dev[2], **kw).cpu(),
+                [t.cpu() for t in ref.countsketch_scatter_mass_ref(
+                    *dev[:2], 1, width, dev[2], **kw)])
+        assert not outs[0][1].any() and not outs[0][2].any()
 
 
 def test_cuda_det_scatter_table_too_large_raises():
@@ -896,11 +998,15 @@ def _runs(rows, n, seed, hi):
 
 @pytest.mark.parametrize("rows,n,hi", [(4096, 5632, 2**20), (3, 1, 5),
                                        (5, 777, 0), (1, 100_000, 50),
-                                       (64, 4096, 2**31)])
+                                       (64, 4096, 2**31), (7, 3000, 3),
+                                       (3, 2500, 0), (300, 10, 4),
+                                       (4, 1031, 6)])
 def test_cuda_segment_sum_equals_cpu_bitwise(rows, n, hi):
     """The sorted segment sum adds each run in index order, as the CPU's
     scatter_add_ does: bit for bit equal to it, on every launch; a single
-    run of all n slots (hi = 0) included."""
+    run of all n slots (hi = 0) included, one longer than a 1024-slot tile
+    (3, 2500, 0), runs that cross tiles (7, 3000, 3), short rows sharing a
+    block (300, 10, 4) and rows of 4- and 8-byte copies (n = 1031)."""
     _need_card()
     vals, seg = _runs(rows, n, rows + n, hi)
     want = ref.segment_sum_ref(vals, seg)

@@ -18,6 +18,7 @@ deterministic flush path, on the CPU.
 """
 import threading
 import time
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -633,20 +634,156 @@ def test_segment_sum_forms_agree(deterministic):
 
 
 def test_det_plan_by_mode_and_shape():
-    """The deterministic scatter: one block per stream, a warp a row, the
-    table and a 1024-slot stage in shared memory; a table past a block's
-    shared memory raises, naming the shape (no fallback to atomics)."""
+    """The deterministic scatter: one block per stream of 8 producer warps
+    and a walker warp a row (at most 8), the table and two 256-slot stages
+    (each slot's value and 7 two-byte bucket-and-sign entries, and 8 live
+    masks) in shared memory; a table past a block's shared memory raises,
+    naming the shape (no fallback to atomics)."""
     plan = tiling.table_plan(4096, 5120, None, 7, 2048, 132,
                              deterministic=True)
-    assert plan == tiling.TablePlan("det", 4096, 224, tiling.DET_TILE, True,
-                                    7 * 2048 * 4 + tiling.DET_TILE * 8)
+    stage = 256 * 4 + 8 * 4 + 7 * 256 * 2
+    assert plan == tiling.TablePlan("det", 4096, 32 * (8 + 7),
+                                    tiling.DET_STAGE, True,
+                                    7 * 2048 * 4 + 2 * stage)
+    assert plan.smem_bytes == 66_624 and tiling.DET_STAGE == 256
     assert tiling.table_plan(3, 10, None, 40, 64, 132,
-                             deterministic=True).threads \
-        == 32 * tiling.DET_MAX_WARPS
+                             deterministic=True).threads == 32 * 16
     assert tiling.table_plan(3, 10, np.array([10] * 3), 7, 2048, 132,
                              variant="det").variant == "det"
     assert tiling.table_plan(3, 10, np.array([10] * 3), 7, 2048,
                              132).variant == "smem"
-    assert tiling.det_fits(7, 8000) and not tiling.det_fits(7, 8192)
+    # the edge: rows x width x 4 + the stages and maps = 232,448 B at most;
+    # past width 2**15 the entries take 4 bytes
+    edge = (tiling.SMEM_PER_BLOCK_OPTIN - 2 * stage) // 28
+    assert tiling.det_fits(7, edge) and not tiling.det_fits(7, edge + 1)
+    assert tiling.det_smem_bytes(1, 2**15 + 1) - tiling.det_smem_bytes(
+        1, 2**15) == 4 + 2 * 256 * 2
+    assert tiling.PACK_QUANTUM == 1024
+    assert tiling.PACK_QUANTUM % tiling.DET_STAGE == 0
+    assert tiling.PACK_QUANTUM % tiling.TABLE_THREADS == 0
     with pytest.raises(ValueError, match="deterministic mode.*7 x 16384"):
         tiling.table_plan(2, 300, None, 7, 16384, 132, deterministic=True)
+
+
+def _det_streams(seed, B, n, hot=False):
+    """Zipf keys over 2**16 with -1 padding, signed values, seeds."""
+    rng = np.random.default_rng(seed)
+    keys = np.minimum(rng.zipf(1.2, (B, n)) - 1, 2**16).astype(np.int32)
+    keys[:, 3::11] = -1
+    if hot:
+        keys[:, ::2] = 4242
+    vals = rng.normal(size=(B, n)).astype(np.float32)
+    seeds = rng.integers(0, 2**32, B, dtype=np.int64)
+    tseeds = rng.integers(0, 2**32, B, dtype=np.int64)
+    return [torch.from_numpy(x) for x in (keys, vals, seeds, tseeds)]
+
+
+@pytest.mark.parametrize("hot", [False, True])
+@pytest.mark.parametrize("p", [None, 1.0, 0.5])
+@pytest.mark.parametrize("width", [64, 2048])
+def test_det_order_model_within_tolerance(width, p, hot):
+    """The plain model of the det kernel's summation order (groups of 32
+    slots, equal keys summed to their lowest slot, a bucket's distinct keys
+    summed in slot order, groups in slot order) is within each cell's
+    rounding bound of the plain scatter: Zipf keys, padding, lengths (an
+    empty stream, a stream cut inside a group) and a hot key."""
+    keys, vals, seeds, tseeds = _det_streams(width + int(hot), 4, 700, hot)
+    lengths = torch.tensor([700, 0, 333, 64])
+    kw = dict(p=p, transform_seeds=tseeds, lengths=lengths)
+    got = ref.countsketch_scatter_det_ref(keys, vals, 7, width, seeds, **kw)
+    want = ref.countsketch_scatter_batched_ref(keys, vals, 7, width, seeds,
+                                               **kw)
+    tol = ref.scatter_tolerance(*ref.countsketch_scatter_mass_ref(
+        keys, vals, 7, width, seeds, **kw))
+    assert bool(((got - want).abs() <= tol).all())
+    assert not got[1].any() and got.dtype == torch.float32
+
+
+def test_det_order_model_sums_in_slot_order():
+    """Two slots of one key in a group sum to the lowest first; a distinct
+    key in the same bucket adds after, so the cell takes cell + (a + b)
+    + c in float32, not a + (b + c)."""
+    width = 4
+    seeds = torch.tensor([9])
+    salt = 9 + 0x9E3779B9  # row 0's salt
+    cand = torch.arange(1, 200, dtype=torch.int64)
+    from repro_torch.core import hashing
+    bk = hashing.bucket_hash(cand, torch.tensor(salt), width)
+    sg = hashing.sign_hash(cand, torch.tensor(salt))
+    k1 = int(cand[0])
+    k2 = int(cand[(bk == bk[0]) & (cand != k1)][0])
+    s1, s2 = float(sg[0]), float(sg[cand == k2][0])
+    keys = torch.tensor([[k1, k2, k1] + [-1] * 29 + [k1]], dtype=torch.int32)
+    vals = torch.tensor([[1.0, 2.0**-24, 2.0**24] + [0.0] * 29 + [3.0]])
+    got = ref.countsketch_scatter_det_ref(keys, vals, 1, width, seeds)
+    f = np.float32
+    c = f(s1) * (f(1.0) + f(2.0**24))
+    d = f(f(0.0) + f(c + f(s2) * f(2.0**-24)))
+    want = f(d + f(s1) * f(3.0))
+    assert float(got[0, 0, int(bk[0])]) == float(want)
+
+
+def _seg_walk(vals, seg, plan):
+    """The segment kernel's walk in plain Python: each block's rows as one
+    range in tiles of ``tiling.SEGMENT_TILE``, each run summed in index
+    order from 0.0, a run that crosses a tile carried into the next."""
+    tile = tiling.SEGMENT_TILE
+    rows, n = vals.shape
+    v, sg = vals.reshape(-1), seg.reshape(-1)
+    out = torch.zeros(rows * n, dtype=torch.float32)
+    for blk in range(plan.blocks):
+        r0 = blk * plan.rows_per_block
+        r1 = min(rows, r0 + plan.rows_per_block)
+        begin, end = r0 * n, r1 * n
+        acc, at = None, None
+        for t0 in range(begin, end, tile):
+            for f in range(t0, min(end, t0 + tile)):
+                if (f - begin) % n == 0 or sg[f] != sg[f - 1]:
+                    if acc is not None:
+                        out[at] = acc
+                    acc, at = torch.zeros((), dtype=torch.float32), \
+                        f - f % n + int(sg[f])
+                acc = acc + v[f]
+        out[at] = acc
+    return out.reshape(rows, n)
+
+
+def test_segment_geometry_is_the_kernels():
+    """The plan's block size and tile are the kernel's compile-time
+    constants (csrc/segment_sum.cu), which refuses any other launch."""
+    import re
+
+    src = (Path(tiling.__file__).parent / "csrc" / "segment_sum.cu")\
+        .read_text()
+    consts = dict(re.findall(r"constexpr int (kThreads|kTile) = (\d+);", src))
+    assert consts == {"kThreads": str(tiling.SEGMENT_THREADS),
+                      "kTile": str(tiling.SEGMENT_TILE)}
+    assert "if (threads != kThreads || tile != kTile)" in src
+
+
+@pytest.mark.parametrize("rows,n,hi", [(40, 10, 3), (2, 1500, 0),
+                                       (3, 2500, 4), (5, 1024, 30),
+                                       (1, 3000, 2**20)])
+def test_segment_plan_short_rows_long_runs_and_crossing_tiles(rows, n, hi):
+    """The segment sum's launch: whole short rows share a block (a tile of
+    1024 slots), a long row is one block walked tile by tile; a run of all
+    n slots (hi = 0) and runs crossing a tile carry over in order, and the
+    walk gives the CPU scatter_add_'s bits."""
+    plan = tiling.segment_plan(rows, n)
+    assert tiling.SEGMENT_THREADS == 256 and tiling.SEGMENT_TILE == 1024
+    assert plan == (max(1, 1024 // n), -(-rows // max(1, 1024 // n)))
+    rng = np.random.default_rng(rows * n)
+    keys = np.sort(np.minimum(rng.zipf(1.2, (rows, n)) - 1, hi), 1)
+    first = np.ones((rows, n), bool)
+    first[:, 1:] = keys[:, 1:] != keys[:, :-1]
+    seg = torch.from_numpy(np.cumsum(first, 1) - 1)
+    vals = torch.from_numpy(rng.normal(size=(rows, n)).astype(np.float32))
+    if hi == 0:
+        assert bool((seg == 0).all())
+    if n > 1024:  # a run crosses a tile boundary
+        assert bool((seg[:, 1023] == seg[:, 1024]).any())
+    want = ref.segment_sum_ref(vals, seg)
+    assert torch.equal(_seg_walk(vals, seg, plan).view(torch.int32),
+                       want.view(torch.int32))
+    with pytest.raises(ValueError, match="segment sum"):
+        tiling.segment_plan(rows, 0)
