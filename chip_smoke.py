@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Eight paths, each driven with the kernels' launch counts set to 0 just
+Ten paths, each driven with the kernels' launch counts set to 0 just
 before it and read just after:
 
 * Sparse plane.  Per-key analytics over B = 4096 independent turnstile
@@ -78,6 +78,32 @@ before it and read just after:
   the scatter and the estimate kernels, and no plane's thread may
   outlive the grid.  In the deterministic mode the async path's trials
   equal the ingest path's bit for bit.
+* Multi-process fleet.  ``FleetCoordinator`` at the sparse plane's
+  deployment (the same stream, 8 steps): R = 2 replica processes on the
+  card, ``publish_every=4``, replica 1 killed after 3 blocks, in the
+  deterministic mode (each replica inherits it across the spawn):
+  ``merged_state()`` and ``sample(k=64)`` bit for bit the in-process
+  ``fleet`` plane's; the default (atomics) mode at R = 2 over 2 steps within
+  the summing tolerances of the fleet plane's state, samples equal but for
+  near ties; R = 3 on the first 256 streams (**cut**) under a hang found by
+  the probe, a corrupt publish (IOError) then a wrong-seed publish
+  (ValueError) then healed, and a slow replica under backpressure, each bit
+  for bit the fleet plane's; ``python -m repro_torch.launch.fleet_serve
+  --replicas 2 --kill-replica 1 --kill-after 3 --verify`` in a subprocess,
+  which must print ``parity=bitwise``.  Start and recovery seconds, route
+  p50/p99, events/s, published MB and the replicas' kernel launches (each
+  replica reports its counts with its publishes and its stop) recorded.
+* Gradient compression.  ``optim.gradcomp`` on the dense phase's gemma2_2b
+  layer (11 leaves, 77.9 M coordinates; **cut** to 1 layer of 26) over a
+  one-rank NCCL group: 3 error-feedback steps of
+  ``tree_compress_step_engine(k_per_leaf=32, cand_per_leaf=64)`` at the
+  ``CompressorConfig()`` defaults, each applied by ``adamw.update`` to
+  float32 parameters; ``tree_compress_step`` and
+  ``tree_compress_step_sharded`` once; the engine path once under q8.
+  Sampled values equal a at the ids and ``sparse + err == a`` bit for bit,
+  1 to 32 nonzeros a leaf, the ids of the plain path (the ``ref`` table and
+  plain estimate) but for near ties, ``comm_bytes`` by the reference's
+  formula, 1 update-kernel and 1 estimate launch per engine call.
 * Ingest pipeline.  ``PrefetchingFeeder`` at the sparse plane's
   deployment: one canonical ``TurnstileZipfStream(2**20, alpha=1.2,
   delete_fraction=0.25)`` over 4 producer shards, packed into (4096, 4096)
@@ -143,6 +169,11 @@ the script exits non-zero without the final ``ok`` line):
   wire.  codecs, the pipeline's codec and byte budget, serving
      aggregation, checkpoints, the fleet plane (above), with their wire
      MB, stage times, MB/s and launches by part;
+  fleet.  the replica processes against the fleet plane (above), their
+     start, recovery and route times, published MB and launches, and the
+     fleet_serve subprocess;
+  gradcomp.  the three gradient-compression paths and AdamW (above), each
+     path's ms, the launches per engine call, peak memory;
   validate.  the conformance grid, its codec axis and Table 3, one
      ``conformance_check`` line per check and the ``conformance_summary``
      line, times by path and by sampler, launches by path, live threads;
@@ -1800,21 +1831,12 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    """The launch counters: the scatter (and its variants), the estimate,
-    the batched row read, the segment sum, and every other kernel's
-    launches summed."""
-    from repro_torch.kernels import countsketch_query as q
-    from repro_torch.kernels import countsketch_scatter as s
-    from repro_torch.kernels import countsketch_update as u
-    from repro_torch.kernels import ppswor_transform as tr
-    from repro_torch.kernels import segment_sum as sg
+    """The launch counters (``kernels.launch_counts``): the scatter (and
+    its variants), the estimate, the batched row read, the segment sum,
+    and every other kernel's launches summed."""
+    from repro_torch.kernels import launch_counts
 
-    return {"scatter": s.launches, "smem": s.variant_launches["smem"],
-            "global": s.variant_launches["global"],
-            "det": s.variant_launches["det"], "segment_sum": sg.launches,
-            "estimate": q.estimate_launches, "row_read": q.launches,
-            "other": (q.single_launches + q.estimate_single_launches
-                      + u.launches + u.single_launches + tr.launches)}
+    return launch_counts()
 
 
 def since(before: dict) -> dict:
@@ -3789,6 +3811,527 @@ def phase_wire(torch, steps, tag):
     return total, out
 
 
+# -- the multi-process fleet ---------------------------------------------------
+
+# the fleet phase: R = 2 replica processes over the deployment (replica 1
+# killed after its 3rd block), R = 3 on the first SUB_B streams (cut) for
+# the chaos scenarios; the fleet_serve subprocess's own time limit
+FLEET_R, FLEET_PUBLISH, FLEET_KILL_AFTER = 2, 4, 3
+CHAOS_R, CHAOS_STEPS, SERVE_TIMEOUT_S = 3, 8, 600
+
+
+def fleet_config(num_streams=None, **kw):
+    from repro_torch.distributed.fleet import FleetConfig
+    from repro_torch.engine import EngineConfig
+
+    base = dict(engine=EngineConfig(num_streams=num_streams or B, rows=ROWS,
+                                    width=WIDTH, candidates=CANDIDATES, p=P),
+                replicas=FLEET_R, publish_every=FLEET_PUBLISH,
+                ack_timeout=60.0, ping_timeout=30.0, device=DEVICE)
+    base.update(kw)
+    return FleetConfig(**base)
+
+
+def fleet_reference(torch, fcfg, steps, snapshot_after=None):
+    """The in-process ``fleet`` plane of the same stream (the bitwise
+    reference): its state, its sample(K), and, after ``snapshot_after``
+    steps, a snapshot of its state; seconds of its ingest."""
+    from repro_torch.engine import SketchEngine
+
+    eng = SketchEngine(fcfg.engine, flush_elems=1, plane="fleet",
+                       device=DEVICE, plane_opts={"replicas": fcfg.replicas})
+    snap = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t, (keys, vals) in enumerate(steps):
+        eng.ingest(keys, vals)
+        if snapshot_after is not None and t + 1 == snapshot_after:
+            snap = eng.state
+    st = eng.state
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    samp = eng.sample(K)
+    eng.plane.close()
+    return st, samp, snap, secs
+
+
+def run_fleet(torch, fcfg, steps, faults=None, script=None):
+    """Drive a ``FleetCoordinator``: start (timed), route every step
+    (``script(co, t)`` after step t), then ``merged_state()`` and
+    ``sample(K)``.  Returns (state, sample, record); the record's launches
+    are the coordinator's (this process, the run alone) and the replicas'
+    (as they report them)."""
+    from repro_torch.distributed.fleet import FleetCoordinator
+
+    rec = {}
+    before = read_counts()
+    t0 = time.perf_counter()
+    with FleetCoordinator(fcfg, faults=faults) as co:
+        rec["start_wall_s"] = time.perf_counter() - t0
+        info = co.replica_info
+        t1 = time.perf_counter()
+        for t, (keys, vals) in enumerate(steps):
+            co.route(keys, vals)
+            if script is not None:
+                script(co, t)
+        rec["route_wall_s"] = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        st = co.merged_state()
+        torch.cuda.synchronize()
+        rec["merged_state_s"] = time.perf_counter() - t2
+        samp = co.sample(K)
+        stats = co.stats
+    rec["coordinator_launches"] = since(before)
+    events = sum(int((k != -1).sum()) for k, _ in steps)
+    rec.update({
+        "replica_info": info, "restarts": stats.restarts,
+        "probes": stats.probes, "retries": stats.retries,
+        "start_s": stats.start_s, "recover_s": stats.recover_s,
+        "route_p50_ms": stats.latency_percentile(50) * 1e3,
+        "route_p99_ms": stats.latency_percentile(99) * 1e3,
+        "events": events,
+        "events_per_s": events / max(sum(stats.route_s), 1e-9),
+        "publishes": stats.publishes,
+        "published_mb": stats.published_bytes / 1e6,
+        "replica_launches": dict(stats.replica_launches)})
+    return st, samp, rec
+
+
+def fleet_line(what, rec, verdict, tag):
+    log(f"[fleet] {what}: {verdict}; restarts "
+        f"{rec['restarts']}, probes {rec['probes']}, retries "
+        f"{rec['retries']}; replica starts "
+        + ", ".join(f"{s:.2f}" for s in rec["start_s"])
+        + " s (of them device context, engine and restore "
+        + ", ".join(f"{i['init_s']:.2f}" for i in rec["replica_info"])
+        + " s), recoveries " + ", ".join(f"{s:.2f}" for s in rec["recover_s"])
+        + f" s; route p50 {rec['route_p50_ms']:.1f} ms, p99 "
+        f"{rec['route_p99_ms']:.1f} ms, {rec['events_per_s']:.3e} events/s; "
+        f"published {rec['published_mb']:.1f} MB in {rec['publishes']} "
+        f"publishes; replicas' launches {rec['replica_launches']} {tag}")
+
+
+def fleet_chaos(torch, steps, tag) -> dict:
+    """R = 3 replicas on the first SUB_B streams (cut), deterministic mode:
+    a hang found by the probe and recovered; a corrupt publish refused with
+    IOError, a wrong-seed publish with ValueError, then healed; a slow
+    replica under backpressure, no restart.  Each ends bit for bit the
+    fleet plane's."""
+    from repro_torch.distributed.fleet import FaultPlan
+
+    sub = [(k[:SUB_B], v[:SUB_B]) for k, v in steps[:CHAOS_STEPS]]
+    fcfg = fleet_config(SUB_B, replicas=CHAOS_R, publish_every=2,
+                        ack_timeout=5.0, ping_timeout=2.0)
+    want_st, want_s, _, _ = fleet_reference(torch, fcfg, sub)
+    out = {}
+
+    def rejections(co, t):
+        if t != 2:
+            return
+        co.inject_fault(0, FaultPlan(corrupt_publish=True))
+        try:
+            co.merged_state()
+        except IOError as e:
+            out["corrupt_refused"] = str(e)
+        co.inject_fault(0, FaultPlan(publish_wrong_seed=True))
+        try:
+            co.merged_state()
+        except ValueError as e:
+            out["wrong_seed_refused"] = str(e)[:80]
+        co.inject_fault(0, FaultPlan())
+
+    scenarios = (
+        ("hang", fcfg, {0: FaultPlan(hang_after=2)}, None),
+        ("rejections", fcfg, None, rejections),
+        ("slow", fcfg._replace(queue_depth=1, publish_every=3,
+                               ack_timeout=20.0, ping_timeout=5.0),
+         {0: FaultPlan(delay_s=0.05)}, None))
+    for name, cfg, faults, script in scenarios:
+        st, samp, rec = run_fleet(torch, cfg, sub, faults, script)
+        ok = states_equal(torch, st, want_st) and samples_equal(torch, samp,
+                                                                want_s)
+        fleet_line(f"R={CHAOS_R}, {SUB_B} streams (cut), {name}", rec,
+                   f"bit for bit the fleet plane's: {ok}", tag)
+        checks = {"hang": rec["restarts"] >= 1 and rec["probes"] >= 1,
+                  "rejections": "corrupt_refused" in out
+                  and "wrong_seed_refused" in out,
+                  "slow": rec["restarts"] == 0}
+        if not (ok and checks[name]):
+            raise AssertionError(f"fleet chaos ({name}): bitwise {ok}, "
+                                 f"scenario check {checks[name]}, {rec}")
+        out[name] = rec
+    log(f"[fleet] refused: corrupt publish ({out['corrupt_refused']}); "
+        f"wrong-seed publish ({out['wrong_seed_refused']}...) {tag}")
+    return out
+
+
+def fleet_serve_run(tag) -> dict:
+    """``python -m repro_torch.launch.fleet_serve --replicas 2
+    --kill-replica 1 --kill-after 3 --verify`` at its defaults, on the
+    card, in a subprocess that must print ``parity=bitwise``."""
+    env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "repro_torch.launch.fleet_serve",
+           "--replicas", "2", "--kill-replica", "1", "--kill-after", "3",
+           "--verify"] + (["--device", DEVICE] if DEVICE != "cuda" else [])
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          timeout=SERVE_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    summary = [ln for ln in lines if ln.startswith("fleet_serve_summary,")]
+    ok = proc.returncode == 0 and any(ln.startswith("parity=bitwise")
+                                      for ln in lines) and len(summary) == 1
+    log(f"[fleet] fleet_serve --replicas 2 --kill-replica 1 --kill-after 3 "
+        f"--verify: exit {proc.returncode}, parity=bitwise printed: {ok}, "
+        f"{secs:.1f} s wall; {summary[0] if summary else 'no summary'} {tag}")
+    if not ok:
+        raise AssertionError(f"fleet_serve failed:\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    return {"seconds": secs, "summary": summary[0]}
+
+
+def phase_fleet(torch, steps, tag):
+    """The multi-process fleet at the sparse plane's deployment (B streams,
+    the engine's defaults, the stream's STEPS steps): R = 2 replica
+    processes on the card in the deterministic mode, replica 1 killed after
+    its 3rd block, ``merged_state()`` and ``sample(K)`` bit for bit the
+    in-process fleet plane's; the default (atomics) mode at R = 2 over
+    PIPE_STEPS steps within the summing tolerances of the fleet plane's
+    state at that point, samples equal but for near ties; the chaos
+    scenarios at R = 3; ``fleet_serve --verify``.  Returns the launches
+    of the coordinators and their replicas (as the replicas report them),
+    and the record."""
+    from repro_torch.distributed.fleet import FaultPlan
+    from repro_torch.engine import EngineConfig, derive_stream_seeds
+
+    t_phase = time.perf_counter()
+    out = {}
+    fcfg = fleet_config()
+    runs = {}
+    with deterministic_mode(torch):
+        st, samp, rec = run_fleet(
+            torch, fcfg, steps, {1: FaultPlan(kill_after=FLEET_KILL_AFTER)})
+        want_st, want_s, snap, ref_s = fleet_reference(torch, fcfg, steps,
+                                                       PIPE_STEPS)
+        ok = states_equal(torch, st, want_st) and samples_equal(torch, samp,
+                                                                want_s)
+        det = all(i["deterministic"] and i["device"].split(":")[0] == DEVICE
+                  for i in rec["replica_info"])
+    rec["reference_ingest_s"] = ref_s
+    fleet_line(f"R={FLEET_R}, B={B}, {len(steps)} steps, replica 1 killed "
+               f"after {FLEET_KILL_AFTER} blocks, deterministic mode (every "
+               f"replica on the card with the mode on: {det})", rec,
+               f"bit for bit the fleet plane's: {ok}", tag)
+    if not (ok and det and rec["restarts"] == 1):
+        raise AssertionError(f"fleet (R={FLEET_R}) differs from the fleet "
+                             f"plane: {rec}")
+    launched = rec["replica_launches"]
+    if launched.get("det", 0) <= 0 or launched.get("segment_sum", 0) <= 0 \
+            or launched.get("estimate", 0) <= 0 \
+            or rec["coordinator_launches"]["estimate"] <= 0:
+        raise AssertionError(f"fleet launches: replicas {launched}, "
+                             f"coordinator {rec['coordinator_launches']}")
+    out["deterministic"] = runs["deterministic"] = rec
+    del st, samp, want_st, want_s
+    torch.cuda.empty_cache()
+
+    # the default (atomics) mode, recorded: within the summing tolerances
+    st, samp, rec = run_fleet(torch, fcfg, steps[:PIPE_STEPS])
+    seeds, tseeds = derive_stream_seeds(
+        EngineConfig(num_streams=B, rows=ROWS, width=WIDTH,
+                     candidates=CANDIDATES, p=P), device=torch.device(DEVICE))
+    _, tol = flush_plain(torch, steps[:PIPE_STEPS], seeds, tseeds)
+    rec["history_streams"] = compare_histories(
+        torch, f"fleet R={FLEET_R} in the default mode ({PIPE_STEPS} steps) "
+        f"vs the fleet plane (deterministic)", st, snap, tol, seeds)
+    fleet_line(f"R={FLEET_R}, B={B}, {PIPE_STEPS} steps, default mode", rec,
+               "within the summing tolerances of the fleet plane's state, "
+               "samples but for near ties (not bitwise in this mode)", tag)
+    out["default_mode"] = runs["default_mode"] = rec
+    del st, samp, snap, tol
+    torch.cuda.empty_cache()
+
+    with deterministic_mode(torch):
+        out["chaos"] = fleet_chaos(torch, steps, tag)
+    for name in ("hang", "rejections", "slow"):
+        runs[f"chaos_{name}"] = out["chaos"][name]
+    out["fleet_serve"] = fleet_serve_run(tag)
+    # the main path's launches: the coordinators' and their replicas', not
+    # the reference planes' or the comparisons'
+    total = dict.fromkeys(read_counts(), 0)
+    for rec in runs.values():
+        for got in (rec["coordinator_launches"], rec["replica_launches"]):
+            for key, n in got.items():
+                total[key] = total.get(key, 0) + n
+    out["launches"] = {name: {"coordinator": rec["coordinator_launches"],
+                              "replicas": rec["replica_launches"]}
+                       for name, rec in runs.items()}
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[fleet] launches: {out['launches']}; in all {total} {tag}")
+    log(f"[phase] fleet: {out['wall_s']:.2f} s wall")
+    return total, out
+
+
+# -- WORp gradient compression -------------------------------------------------
+
+GC_STEPS, GC_K_LEAF, GC_CAND_LEAF = 3, 32, 64  # gradcomp's defaults
+
+
+class plain_kernels:
+    """``kernels.ops``'s dense update and estimate swapped for their plain
+    versions (``ref``) for the duration: the plain path of
+    ``tree_compress_step_engine`` on the card."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops, ref
+
+        self.ops = ops
+        self.swap = {
+            "sketch_dense_batch": lambda v, rows, width, seeds, p=None,
+            scheme="ppswor", transform_seeds=None, base_keys=None,
+            lengths=None: ref.countsketch_update_batched_ref(
+                v, rows, width, seeds, p=p, transform_seeds=transform_seeds,
+                base_keys=base_keys, lengths=lengths, scheme=scheme),
+            "estimate_batched": ref.countsketch_estimate_batched_ref}
+
+    def __enter__(self):
+        self.was = {k: getattr(self.ops, k) for k in self.swap}
+        for k, fn in self.swap.items():
+            setattr(self.ops, k, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.was.items():
+            setattr(self.ops, k, fn)
+        return False
+
+
+def gc_comm_bytes(L, k_leaf, ncand, codec) -> float:
+    """The reference's wire formula for the engine path at a world of one
+    (``gradcomp._comm_bytes`` of the L x rows x width table block and the
+    L x k pass-II values, L scale slices each, plus L x ncand int32 ids),
+    written out for the two codecs the phase runs."""
+    if codec == "none":
+        return 4.0 * (L * ROWS * WIDTH + L * k_leaf + L * ncand)
+    if codec == "q8":
+        return float(L * ROWS * WIDTH + 4 * L + L * k_leaf + 4 * L
+                     + 4 * L * ncand)
+    raise ValueError(codec)
+
+
+def gc_gradients(torch, seed, steps):
+    """One gemma2_2b layer's leaves (LEAVES, flat), made on the card: a
+    fixed per-coordinate scale exp(1.5 g) per leaf times fresh N(0, 1)
+    noise each step (the shape of ``make_gradients``)."""
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    scales = {name: torch.exp(GRAD_LOG_SCALE * torch.randn(
+        n, generator=gen, device=DEVICE)) for name, n in LEAVES}
+    return [{name: scales[name] * torch.randn(n, generator=gen,
+                                              device=DEVICE)
+             for name, n in LEAVES} for _ in range(steps)]
+
+
+def gc_check(torch, what, grads, err, sparse, new_err, k):
+    """The two-pass invariants of one compression round: each leaf has 1
+    to ``k`` nonzeros, the update equals a = g + e at them bit for bit, and
+    ``sparse + err == a`` bit for bit."""
+    for name in grads:
+        a = grads[name].float() + err[name]
+        s = sparse[name]
+        nz = torch.nonzero(s).ravel()
+        ok = 1 <= nz.numel() <= k and same_bits(torch, s[nz], a[nz]) \
+            and same_bits(torch, s + new_err[name], a)
+        if not ok:
+            raise AssertionError(f"{what}: leaf {name} breaks the two-pass "
+                                 f"invariants ({nz.numel()} nonzeros)")
+
+
+def gc_ids_check(torch, what, grads, err, sparse, plain, tau_plain, cc):
+    """The engine path's ids against the plain path's on the same inputs
+    (the ``ref`` table and the plain estimate): per leaf the same set but
+    for near ties -- an id in one set only must have |estimate| on the
+    plain table within twice the leaf's largest table difference of the
+    plain threshold.  Returns (leaves identical, leaves excused)."""
+    from repro_torch.core import countsketch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.optim import gradcomp as G
+
+    names = [name for name, _ in LEAVES]
+    sizes = [n for _, n in LEAVES]
+    L, n_max = len(sizes), max(sizes)
+    a_pad = torch.zeros((L, n_max), device=DEVICE)
+    for li, name in enumerate(names):
+        a_pad[li, :sizes[li]] = grads[name].float() + err[name]
+    t_seeds = torch.tensor([int(G._leaf_salt(cc, li)) for li in range(L)],
+                           dtype=torch.int64, device=DEVICE)
+    args = (a_pad, cc.rows, cc.width, t_seeds ^ 1)
+    kw = dict(p=cc.p, transform_seeds=t_seeds, lengths=sizes)
+    tk = ops.sketch_dense_batch(*args, **kw)
+    tp = ref.countsketch_update_batched_ref(*args, **kw)
+    _, _, ratio = cell_check(torch, tk, tp, ref.scatter_tolerance(
+        *ref.countsketch_update_mass_ref(*args, **kw)))
+    same = excused = 0
+    for li, name in enumerate(names):
+        got = set(torch.nonzero(sparse[name]).ravel().tolist())
+        want = set(torch.nonzero(plain[name]).ravel().tolist())
+        if got == want:
+            same += 1
+            continue
+        band = 2.0 * float((tk[li] - tp[li]).abs().max())
+        ids = torch.tensor(sorted(got ^ want), dtype=torch.int32,
+                           device=DEVICE)
+        est = countsketch.estimate(countsketch.CountSketch(
+            table=tp[li], seed=t_seeds[li] ^ 1), ids).abs()
+        gap = float((est - tau_plain[li]).abs().max())
+        if gap > band:
+            raise AssertionError(f"{what}: leaf {name}'s ids differ from "
+                                 f"the plain path's outside near ties "
+                                 f"(gap {gap:.3e} > band {band:.3e})")
+        excused += 1
+    log(f"[gradcomp] {what}: ids of {same}/{L} leaves identical to the "
+        f"plain path's (ref table and plain estimate), {excused} differ "
+        f"within a near tie; table worst err / cell bound {ratio:.3e}")
+    return same, excused
+
+
+def phase_gradcomp(torch, seed, tag):
+    """WORp gradient compression of one gemma2_2b layer's 11 leaves at the
+    published widths (cut: 1 layer of 26), over a one-rank NCCL group:
+    GC_STEPS error-feedback steps of ``tree_compress_step_engine(k_per_leaf
+    =32, cand_per_leaf=64)``, each applied by ``adamw.update`` to float32
+    parameters; ``tree_compress_step`` and ``tree_compress_step_sharded``
+    once each, and the engine path once under q8.  Gates: the two-pass
+    invariants bit for bit, 1 to 32 nonzeros a leaf, the ids of the plain
+    path but for near ties, ``comm_bytes`` by the reference's formula, 1
+    update-kernel and 1 estimate launch per engine call."""
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.kernels import countsketch_query as q
+    from repro_torch.kernels import countsketch_update as u
+    from repro_torch.optim import adamw
+    from repro_torch.optim import gradcomp as G
+
+    t_phase = time.perf_counter()
+    out = {"engine_ms": [], "adamw_ms": []}
+    names = [name for name, _ in LEAVES]
+    L = len(names)
+    torch.cuda.reset_peak_memory_stats()
+    steps = gc_gradients(torch, seed, GC_STEPS + 1)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed + 1)
+    params = {name: 0.02 * torch.randn(n, generator=gen, device=DEVICE)
+              for name, n in LEAVES}
+    opt = adamw.init(params)
+    err = G.init_error(params)
+    cc = G.CompressorConfig()
+    store_dir = tempfile.mkdtemp(prefix="chip-smoke-gradcomp-")
+    dist.init_process_group(
+        "nccl" if DEVICE == "cuda" else "gloo", store=dist.FileStore(
+        os.path.join(store_dir, "store"), 1), rank=0, world_size=1)
+    launches = {"update": 0, "estimate": 0}
+    try:
+        def engine(grads, e, cfg):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = G.tree_compress_step_engine(grads, e, cfg,
+                                              k_per_leaf=GC_K_LEAF,
+                                              cand_per_leaf=GC_CAND_LEAF)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = (u.launches, q.estimate_launches)
+            if got != (1, 1) or read_counts()["scatter"] \
+                    or read_counts()["segment_sum"]:
+                raise AssertionError(f"gradcomp engine path: launches "
+                                     f"{read_counts()}, expected 1 update "
+                                     f"and 1 estimate")
+            launches["update"] += 1
+            launches["estimate"] += 1
+            want = gc_comm_bytes(L, GC_K_LEAF, GC_CAND_LEAF, cfg.codec)
+            if float(res[2]["comm_bytes"]) != want:
+                raise AssertionError(f"comm_bytes {res[2]['comm_bytes']} "
+                                     f"under {cfg.codec}, formula {want}")
+            return res, ms
+
+        for t in range(GC_STEPS):
+            grads = steps[t]
+            (sparse, new_err, stats), ms = engine(grads, err, cc)
+            out["engine_ms"].append(ms)
+            gc_check(torch, f"engine step {t}", grads, err, sparse, new_err,
+                     GC_K_LEAF)
+            with plain_kernels():
+                plain, _, pstats = G.tree_compress_step_engine(
+                    grads, err, cc, k_per_leaf=GC_K_LEAF,
+                    cand_per_leaf=GC_CAND_LEAF)
+            same, _ = gc_ids_check(torch, f"engine step {t}", grads, err,
+                                   sparse, plain, pstats["tau"], cc)
+            out.setdefault("leaves_identical", []).append(same)
+            del plain, pstats
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt = adamw.update(params, sparse, opt)
+            torch.cuda.synchronize()
+            out["adamw_ms"].append((time.perf_counter() - t0) * 1e3)
+            err = new_err
+            nnz = sum(int(torch.count_nonzero(s)) for s in sparse.values())
+            log(f"[gradcomp] engine step {t}: {ms:.1f} ms ({nnz} of "
+                f"{sum(n for _, n in LEAVES)} coordinates kept, comm "
+                f"{float(stats['comm_bytes']) / 1e6:.3f} MB vs dense "
+                f"{float(stats['dense_bytes']) / 1e6:.1f} MB), adamw "
+                f"{out['adamw_ms'][-1]:.1f} ms; invariants bit for bit {tag}")
+            del sparse, new_err, stats
+        if not all(bool(p.isfinite().all()) for p in params.values()):
+            raise AssertionError("adamw: non-finite parameters")
+        grads = steps[GC_STEPS]
+        for name, fn, k in (
+                ("flat", lambda: G.tree_compress_step(grads, err, cc), cc.k),
+                ("sharded", lambda: G.tree_compress_step_sharded(
+                    grads, err, cc, cand_per_leaf=GC_CAND_LEAF), cc.k)):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sparse, new_err, stats = fn()
+            torch.cuda.synchronize()
+            out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+            if any(read_counts().values()):
+                raise AssertionError(f"gradcomp {name} path launched "
+                                     f"kernels: {read_counts()}")
+            for leaf in names:
+                a = grads[leaf] + err[leaf]
+                if not same_bits(torch, sparse[leaf] + new_err[leaf], a):
+                    raise AssertionError(f"{name}: sparse + err != a")
+            nnz = sum(int(torch.count_nonzero(s)) for s in sparse.values())
+            if not 1 <= nnz <= k:
+                raise AssertionError(f"{name}: {nnz} nonzeros")
+            out[f"{name}_kept"] = nnz
+            log(f"[gradcomp] {name} path (plain PyTorch, k={k}): "
+                f"{out[f'{name}_ms']:.1f} ms, {nnz} kept, comm "
+                f"{float(stats['comm_bytes']) / 1e6:.3f} MB; sparse + err "
+                f"== a bit for bit {tag}")
+            del sparse, new_err, stats
+        (sparse, _, stats), ms = engine(grads, err, cc._replace(codec="q8"))
+        out["engine_q8_ms"] = ms
+        per_leaf = [int(torch.count_nonzero(sparse[n])) for n in names]
+        if not all(1 <= c <= GC_K_LEAF for c in per_leaf):
+            raise AssertionError(f"engine path under q8: nonzeros {per_leaf}")
+        log(f"[gradcomp] engine path under q8: {ms:.1f} ms, comm "
+            f"{float(stats['comm_bytes']) / 1e6:.3f} MB (formula), nonzeros "
+            f"a leaf {per_leaf} {tag}")
+        del sparse, stats
+    finally:
+        dist.destroy_process_group()
+    out["peak_mb"] = torch.cuda.max_memory_allocated() / 1e6
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[gradcomp] peak {out['peak_mb']:.0f} MB; launches {launches} "
+        f"{tag}")
+    log(f"[phase] gradcomp: {out['wall_s']:.2f} s wall")
+    return launches, out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3868,7 +4411,13 @@ def main() -> int:
 
     # -- the wire: codecs, the pipeline's codec, serving, checkpoints, fleet
     wire_launches, wire = phase_wire(torch, steps, tag)
+    torch.cuda.empty_cache()
+
+    # -- the multi-process fleet; WORp gradient compression ----------------
+    fleet_launches, fleet = phase_fleet(torch, steps, tag)
     del steps, stream
+    torch.cuda.empty_cache()
+    gc_launches, gradcomp = phase_gradcomp(torch, args.seed, tag)
     torch.cuda.empty_cache()
 
     # -- the conformance grid; the ingest pipeline -------------------------
@@ -3928,7 +4477,7 @@ def main() -> int:
     # (their default-mode runs take the shared-memory variant; their
     # deterministic runs the det variant and the segment sum)
     for got in (wire_launches, validate_launches, ingest_launches,
-                ingest_det):
+                ingest_det, fleet_launches):
         scatter["launches"] += got["scatter"]
         scatter["variants"]["smem"]["launches"] += got["smem"]
         scatter["variants"]["det"]["launches"] += got["det"]
@@ -3941,6 +4490,15 @@ def main() -> int:
     scatter["wire_launches"] = {k: wire_launches[k]
                                 for k in ("scatter", "smem", "det")}
     est["wire_launches"] = wire_launches["estimate"]
+    scatter["fleet_launches"] = {k: fleet_launches[k]
+                                 for k in ("scatter", "smem", "det")}
+    est["fleet_launches"] = fleet_launches["estimate"]
+    est["launches"] += gc_launches["estimate"]
+    est["gradcomp_launches"] = gc_launches["estimate"]
+    update = by_name["countsketch_update_batched"]
+    update["launches"] += gc_launches["update"]
+    update["variants"]["smem"]["launches"] += gc_launches["update"]
+    update["gradcomp_launches"] = gc_launches["update"]
     est["validate_launches"] = validate_launches["estimate"]
     est["ingest_launches"] = (ingest_launches["estimate"]
                               + ingest_det["estimate"])
@@ -3954,7 +4512,8 @@ def main() -> int:
         "launches": (det_launches["segment_sum"]
                      + wire_launches["segment_sum"]
                      + validate_launches["segment_sum"]
-                     + ingest_det["segment_sum"]),
+                     + ingest_det["segment_sum"]
+                     + fleet_launches["segment_sum"]),
         "max_abs_err": 0.0,
         "parity": "bit for bit equal to the CPU's scatter_add_ (index "
                   "order), the same bits on every launch",
@@ -3978,6 +4537,8 @@ def main() -> int:
     log("[validate] " + json.dumps(
         {k: v for k, v in validate.items() if k != "launches"}))
     log("[ingest] " + json.dumps(ingest))
+    log("[fleet] " + json.dumps(fleet))
+    log("[gradcomp] " + json.dumps(gradcomp))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))

@@ -1,1 +1,3 @@
-"""Launchers of the port: ``serve``'s multi-worker aggregation helpers."""
+"""Launchers of the port: ``serve``'s multi-worker aggregation helpers and
+``fleet_serve`` (N replica processes behind the fault-injected fleet
+coordinator)."""

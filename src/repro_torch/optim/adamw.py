@@ -1,0 +1,88 @@
+"""AdamW (decoupled weight decay) on tensor trees (PyTorch port of
+``repro.optim.adamw``).
+
+The optimizer state mirrors the parameter tree; first and second moments
+are float32 whatever the parameters' dtype.  Trees are walked in the
+reference's leaf order (``repro_torch.distributed.pytree``).  The
+reference's ``abstract_state`` (a ``ShapeDtypeStruct`` mirror for dry-run
+lowering) comes with the port's dry-run tooling.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.distributed import pytree
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor  # scalar int32
+    mu: Any             # first moments (float32 tree)
+    nu: Any             # second moments (float32 tree)
+
+
+def init(params) -> AdamWState:
+    """Zero moments shaped as each parameter, on its device; step 0 on the
+    first parameter's device."""
+    leaves = pytree.leaves(params)
+    dev = leaves[0].device if leaves else torch.device("cpu")
+
+    def f32(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    return AdamWState(
+        step=torch.zeros((), dtype=torch.int32, device=dev),
+        mu=pytree.tree_map(f32, params),
+        nu=pytree.tree_map(f32, params),
+    )
+
+
+def update(
+    params,
+    grads,
+    state: AdamWState,
+    lr: float = 3e-4,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    weight_decay: float = 0.1,
+):
+    """One AdamW step.  Returns (new_params, new_state).
+
+    As the reference: the bias corrections are float32 powers of the step,
+    and every scalar enters the float32 arithmetic as a float32."""
+    step = state.step + 1
+    t = step.to(torch.float32)
+    bc1 = 1.0 - torch.pow(torch.full_like(t, b1), t)
+    bc2 = 1.0 - torch.pow(torch.full_like(t, b2), t)
+
+    def upd(p, g, m, v):
+        g32 = g.to(torch.float32)
+        m_new = b1 * m + (1.0 - b1) * g32
+        v_new = b2 * v + (1.0 - b2) * g32 * g32
+        mhat = m_new / bc1.to(m_new.device)
+        vhat = v_new / bc2.to(v_new.device)
+        delta = mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.to(
+            torch.float32)
+        p_new = (p.to(torch.float32) - lr * delta).to(p.dtype)
+        return p_new, m_new, v_new
+
+    flat_p = pytree.leaves(params)
+    flat_g = pytree.leaves(grads)
+    flat_m = pytree.leaves(state.mu)
+    flat_v = pytree.leaves(state.nu)
+    if not len(flat_p) == len(flat_g) == len(flat_m) == len(flat_v):
+        raise ValueError(
+            f"adamw.update: params, grads and moments must have the same "
+            f"leaves, got {len(flat_p)}, {len(flat_g)}, {len(flat_m)}, "
+            f"{len(flat_v)}")
+    outs = [upd(p, g, m, v)
+            for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v)]
+    new_p = pytree.unflatten(params, [o[0] for o in outs])
+    new_m = pytree.unflatten(params, [o[1] for o in outs])
+    new_v = pytree.unflatten(params, [o[2] for o in outs])
+    return new_p, AdamWState(step=step, mu=new_m, nu=new_v)
+
+
+__all__ = ["AdamWState", "init", "update"]

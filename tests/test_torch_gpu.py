@@ -38,6 +38,7 @@ flush's shapes, and the async plane against the sparse plane, must then
 give the same bits too.
 """
 import contextlib
+import os
 
 import numpy as np
 import pytest
@@ -1219,3 +1220,115 @@ def test_fleet_plane_on_card_equals_pipeline(codec):
         assert torch.equal(s1.keys, s2.keys)
         assert _same_bits(s1.freqs, s2.freqs)
     fleet.plane.close()
+
+
+# ---------------------------------------------------------------------------
+# the multi-process fleet and gradient compression on the card
+# ---------------------------------------------------------------------------
+
+def _fleet_cfg(**kw):
+    from repro_torch.distributed import fleet as F
+
+    cfg, _ = _wire_cfg_steps()
+    base = dict(engine=cfg, replicas=2, publish_every=2, ack_timeout=30.0,
+                ping_timeout=10.0)
+    base.update(kw)
+    return F.FleetConfig(**base)
+
+
+def test_fleet_coordinator_on_card_equals_fleet_plane_bitwise():
+    """Two replica processes on the card, replica 1 killed after its 3rd
+    block, in the deterministic mode (inherited across the spawn): the
+    aggregated sample bit for bit the in-process fleet plane's, and the
+    replicas report det scatter and estimate launches."""
+    _need_card()
+    from repro_torch.distributed import fleet as F
+
+    fcfg = _fleet_cfg()
+    _, steps = _wire_cfg_steps()
+    blocks = [(k[:, i:i + 300], v[:, i:i + 300]) for k, v in steps
+              for i in range(0, k.shape[1], 300)]
+    with _deterministic():
+        with F.FleetCoordinator(
+                fcfg, faults={1: F.FaultPlan(kill_after=3)}) as co:
+            for k, v in blocks:
+                co.route(k, v)
+            sample = co.sample(8)
+            info, stats = co.replica_info, co.stats
+        ref = F.reference_sample(fcfg.engine, blocks, 2, 8)
+    assert stats.restarts == 1
+    assert all(i["deterministic"] and i["device"].startswith("cuda")
+               for i in info)
+    assert torch.equal(sample.keys, ref.keys)
+    assert _same_bits(sample.freqs, ref.freqs)
+    got = stats.replica_launches
+    assert got["det"] > 0 and got["estimate"] > 0 and got["smem"] == 0
+
+
+def test_fleet_replica_inherits_the_deterministic_mode():
+    """A spawned replica starts with the parent's mode: off by default
+    (its scatters take the shared-memory atomics), on under the switch
+    (the det variant and the segment sum)."""
+    _need_card()
+    from repro_torch.distributed import fleet as F
+
+    _, steps = _wire_cfg_steps()
+    for on in (False, True):
+        with contextlib.ExitStack() as stack:
+            if on:
+                stack.enter_context(_deterministic())
+            with F.FleetCoordinator(_fleet_cfg(replicas=1)) as co:
+                assert co.replica_info[0]["deterministic"] is on
+                co.route(*steps[0])
+                co.merged_state()
+                got = dict(co.stats.replica_launches)
+        assert (got["det"] > 0) is on and (got["smem"] > 0) is not on
+        assert (got["segment_sum"] > 0) is on
+
+
+def test_tree_compress_step_engine_on_card():
+    """One launch of the dense update kernel and one of the estimate per
+    engine call, over a one-rank NCCL group; two-pass values exact,
+    ``sparse + err == a`` bit for bit, every leaf represented, and the ids
+    of the CPU's plain path on well-separated gradients."""
+    _need_card()
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.optim import gradcomp as G
+
+    rng = np.random.default_rng(31)
+    host = {"w": rng.normal(size=(256, 64)).astype(np.float32),
+            "v": rng.normal(size=5000).astype(np.float32),
+            "b": rng.normal(size=40).astype(np.float32)}
+    for i, x in enumerate(host.values()):
+        x.reshape(-1)[: 8] = (np.arange(8) + 1.0) * (100.0 + 10 * i)
+    cc = G.CompressorConfig(k=32, rows=7, width=2048, mode="twopass")
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(d, "store"), 1), rank=0, world_size=1)
+        try:
+            dev = {k: torch.tensor(v, device="cuda") for k, v in host.items()}
+            u0, e0 = tu.launches, tq.estimate_launches
+            sparse, err, stats = G.tree_compress_step_engine(
+                dev, G.init_error(dev), cc, k_per_leaf=8)
+            torch.cuda.synchronize()
+            assert (tu.launches - u0, tq.estimate_launches - e0) == (1, 1)
+        finally:
+            dist.destroy_process_group()
+        dist.init_process_group("gloo", store=dist.FileStore(
+            os.path.join(d, "store_cpu"), 1), rank=0, world_size=1)
+        try:
+            cpu = {k: torch.tensor(v) for k, v in host.items()}
+            want, _, _ = G.tree_compress_step_engine(
+                cpu, G.init_error(cpu), cc, k_per_leaf=8)
+        finally:
+            dist.destroy_process_group()
+    for k, a in dev.items():
+        nz = torch.nonzero(sparse[k].ravel()).ravel()
+        assert 1 <= len(nz) <= 8
+        assert _same_bits(sparse[k].ravel()[nz], a.ravel()[nz])
+        assert _same_bits(sparse[k] + err[k], a)
+        assert torch.equal(torch.nonzero(sparse[k].cpu()),
+                           torch.nonzero(want[k]))
+    assert stats["tau"].shape == (3,)

@@ -685,7 +685,7 @@ PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
 
 @pytest.mark.parametrize("sub", ["validate", "data", "distributed", "train",
-                                 "launch"])
+                                 "launch", "optim"])
 def test_no_jax_or_reference_imports(sub):
     for path in sorted((PKG / sub).glob("*.py")):
         tree = ast.parse(path.read_text())
