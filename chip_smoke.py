@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Ten paths, each driven with the kernels' launch counts set to 0 just
+Twelve paths, each driven with the kernels' launch counts set to 0 just
 before it and read just after:
 
 * Sparse plane.  Per-key analytics over B = 4096 independent turnstile
@@ -104,6 +104,43 @@ before it and read just after:
   1 to 32 nonzeros a leaf, the ids of the plain path (the ``ref`` table and
   plain estimate) but for near ties, ``comm_bytes`` by the reference's
   formula, 1 update-kernel and 1 estimate launch per engine call.
+* Deterministic dense update.  Under ``torch.use_deterministic_algorithms(
+  True)`` the dense update takes its "det" variant (each chunk of a segment
+  summed in slot order by the det scatter's block body, the chunk tables
+  then in chunk order by a second pass).  At the dense phase's gemma2_2b
+  layer (11 leaves, 77.9 M live slots; **cut** to 1 layer of 26), values
+  made on the card: three launches give the same bits, equal bit for bit
+  to the order model (``ref.countsketch_update_det_ref`` on the card, at
+  the plan's chunk) without the transform and, with it, fed the
+  ppswor_transform kernel's values; each cell within its rounding bound of
+  the plain version and of the shared-memory (atomics) variant.
+  ``SketchEngine.update_dense`` and ``gradcomp.tree_compress_step_engine``
+  (one-rank NCCL group) run twice each in the mode: the same bits both
+  times, 2 det launches each.  Times of both variants, the order model and
+  the bound.
+* Serving.  (a) gemma2_2b at its published widths, **cut** to 2 layers (one
+  local/global pair), float32 with TF32 off, random weights from the seed:
+  a 1024-token prompt and 8 greedy decode steps on the card, the same
+  weights through the port's CPU path (decode teacher-forced on the card's
+  ids), logits allclose (rtol 1e-4, atol 1e-3 x max(1, max|logit|)); on the
+  card, decode from a 512-token prefill against the forward's logits within
+  the reference test's 0.1.  (b) ``repro_torch.launch.serve.main`` at
+  gemma2_2b's full published configuration (26 layers, d_model 2304,
+  vocabulary 256,000, bfloat16, 2.6 B parameters) with ``--batch 4
+  --prompt-len 5120 --tokens 32 --worp-topk 8``: the prompt is longer than
+  the local window (4096), so the local layers' rings wrap.  Against one
+  causal forward over the prompt and its ids, in bfloat16 and (the weights
+  cast) in float32: decode from a 3072-token prefill, teacher-forced on
+  the prompt inside the window, within the reference test's 0.1 in
+  float32; the CLI's own decode recorded (its rings evict the wrong key
+  past the prompt, the reference's fault, ROADMAP Queue 3); the
+  token analytics' state and sample against a CPU ``dense``-plane engine
+  of the same ids (tables within the summing bounds, samples equal but for
+  near ties); scatter and estimate launched, the row read not.  (c) the
+  same with ``--workers 2 --worp-window 16 --plane async``: the aggregated
+  state and sample against one engine that saw every step and retraction.
+  Prefill ms, decode ms a step, tokens/s, the analytics' ms and peak memory
+  recorded.
 * Ingest pipeline.  ``PrefetchingFeeder`` at the sparse plane's
   deployment: one canonical ``TurnstileZipfStream(2**20, alpha=1.2,
   delete_fraction=0.25)`` over 4 producer shards, packed into (4096, 4096)
@@ -174,6 +211,15 @@ the script exits non-zero without the final ``ok`` line):
      fleet_serve subprocess;
   gradcomp.  the three gradient-compression paths and AdamW (above), each
      path's ms, the launches per engine call, peak memory;
+  det update.  the dense update's det variant at the gemma2_2b layer
+     (three launches identical, the order model bit for bit, each cell
+     within its bound of the plain version and of the atomics variant),
+     update_dense and the gradcomp engine step twice each in the mode, the
+     same bits, with the times of both variants and the bound;
+  serve.  the 2-layer float32 pair against the CPU path, the serving CLI
+     at the full configuration and with 2 workers, a window and the async
+     plane (above), with prefill and decode times, tokens/s, the
+     analytics' ms, peak memory and launches;
   validate.  the conformance grid, its codec axis and Table 3, one
      ``conformance_check`` line per check and the ``conformance_summary``
      line, times by path and by sampler, launches by path, live threads;
@@ -554,6 +600,7 @@ def report_occupancy(tag):
              wide.smem_bytes),
             ("countsketch_update", 1, "smem", tiling.TABLE_THREADS, table),
             ("countsketch_update", 0, "global", tiling.THREADS_PER_BLOCK, 0),
+            ("countsketch_update", 2, "det", det.threads, det.smem_bytes),
             ("countsketch_query", 0, "", tiling.THREADS_PER_BLOCK, 0),
             ("countsketch_query", 1, "estimate", tiling.THREADS_PER_BLOCK,
              0),
@@ -2758,7 +2805,7 @@ def overlap(torch, plane, steps, tag) -> dict:
             "busy_share": busy / wall_ms if rows else None}
 
 
-def compare_histories(torch, what, st, ss, tol, seeds) -> int:
+def compare_histories(torch, what, st, ss, tol, seeds, k=K, p=P) -> int:
     """Two one-pass states of the same stream fed with other flush
     boundaries or shards: tables within the bounds, and sample keys
     identical but for near ties, non-finite streams and candidate buffers
@@ -2775,22 +2822,22 @@ def compare_histories(torch, what, st, ss, tol, seeds) -> int:
     from repro_torch.engine.engine import onepass_sample_batched
 
     bad = compare_tables(torch, what, st.sketch.table, ss.sketch.table, tol)
-    samp, ssamp = (onepass_sample_batched(x, K, P) for x in (st, ss))
+    samp, ssamp = (onepass_sample_batched(x, k, p) for x in (st, ss))
     diff_a = ~(samp.keys[:, :, None] == ssamp.keys[:, None, :]).any(2)
     diff_b = ~(ssamp.keys[:, :, None] == samp.keys[:, None, :]).any(2)
     missing = ((diff_a & ~(samp.keys[:, :, None]
                            == ss.cand_keys[:, None, :]).any(2)).any(1)
                | (diff_b & ~(ssamp.keys[:, :, None]
                              == st.cand_keys[:, None, :]).any(2)).any(1))
-    compare_samples(torch, what, samp, ss, tol, seeds, K, P, bad,
+    compare_samples(torch, what, samp, ss, tol, seeds, k, p, bad,
                     excused=missing,
                     excuse="a sampled key missing from the other state's "
                            "candidate buffer")
     pool = union_pool(torch, st, ss)
     compare_samples(torch, f"{what}, both read over the union of their "
                     f"candidate buffers",
-                    onepass_sample_batched(st._replace(cand_keys=pool), K, P),
-                    ss._replace(cand_keys=pool), tol, seeds, K, P, bad)
+                    onepass_sample_batched(st._replace(cand_keys=pool), k, p),
+                    ss._replace(cand_keys=pool), tol, seeds, k, p, bad)
     return int(missing.sum())
 
 
@@ -4332,6 +4379,502 @@ def phase_gradcomp(torch, seed, tag):
     return launches, out
 
 
+
+def phase_det_update(torch, seed, tag):
+    """The dense update's deterministic variant (#3/#4 "det") at the dense
+    phase's shape, one gemma2_2b layer's 11 leaves (77.9 M live slots;
+    **cut**: 1 layer of 26), values made on the card as
+    ``gc_gradients``'s: in the deterministic mode three launches give the
+    same bits, equal bit for bit to the order model
+    (``ref.countsketch_update_det_ref`` at the plan's chunk, on the card)
+    without the transform and, with it, fed the ppswor_transform kernel's
+    values; each cell within its rounding bound of the plain version and
+    of the shared-memory (atomics) variant.  Then ``update_dense`` and
+    ``gradcomp.tree_compress_step_engine`` twice each in the mode (the
+    launches counted from 0, the det variant required): the same bits both
+    times.  Times of both variants by CUDA events beside the bound."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.engine import (EngineConfig, SketchEngine,
+                                    derive_stream_seeds)
+    from repro_torch.kernels import countsketch_update as u
+    from repro_torch.kernels import ppswor_transform as tr
+    from repro_torch.kernels import ref, tiling
+    from repro_torch.optim import gradcomp as G
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    grads = gc_gradients(torch, seed + 11, 1)[0]
+    sizes = [n for _, n in LEAVES]
+    L, n_max, live = len(sizes), max(sizes), sum(sizes)
+    v0 = torch.zeros((L, n_max), device=dev)
+    for b, (name, n) in enumerate(LEAVES):
+        v0[b, :n] = grads[name]
+    cfg = EngineConfig(num_streams=L)
+    seeds, tseeds = derive_stream_seeds(cfg, device=dev)
+    lengths = torch.tensor(sizes, device=dev)
+    plan = tiling.table_plan(L, n_max, np.asarray(sizes), ROWS, WIDTH,
+                             tiling.sm_count(dev), "det", det_chunks=True)
+    out = {"plan": plan._asdict(), "occupancy": OCCUPANCY.get(
+        ("countsketch_update", "det"))}
+    kw = dict(transform_seeds=tseeds, lengths=lengths)
+
+    def det(p):
+        before = dict(u.variant_launches)
+        with deterministic_mode(torch):
+            got = u.countsketch_update_batched(v0, ROWS, WIDTH, seeds, p=p,
+                                               **kw)
+        ran = {v: u.variant_launches[v] - before[v] for v in before}
+        if ran != {"smem": 0, "global": 0, "det": 1}:
+            raise AssertionError(f"det update: launched {ran}")
+        return got
+
+    # the order model, bit for bit: without the transform, and with the
+    # values the ppswor_transform kernel gives (the det kernel's fused
+    # transform is that kernel's)
+    for p in (None, P):
+        outs = [det(p) for _ in range(3)]
+        torch.cuda.synchronize()
+        identical = all(same_bits(torch, o, outs[0]) for o in outs[1:])
+        vals = v0
+        if p is not None:
+            vals = torch.zeros_like(v0)
+            for b, n in enumerate(sizes):
+                vals[b, :n] = tr.ppswor_transform(
+                    torch.arange(n, dtype=torch.int32, device=dev),
+                    v0[b, :n].contiguous(), p, int(tseeds[b]))
+        t0 = time.perf_counter()
+        model = ref.countsketch_update_det_ref(vals, ROWS, WIDTH, seeds,
+                                               lengths=lengths,
+                                               chunk=plan.chunk)
+        torch.cuda.synchronize()
+        out["order_model_s"] = time.perf_counter() - t0
+        equal = same_bits(torch, outs[0], model)
+        log(f"[det] update gemma2_2b layer (L={L}, n_max={n_max}, {live} "
+            f"live, p={p}): 3 launches in the deterministic mode, identical "
+            f"bits: {identical}; equal to the order model (chunk "
+            f"{plan.chunk}, {plan.blocks} blocks) bit for bit: {equal} "
+            f"({out['order_model_s']:.2f} s) {tag}")
+        if not (identical and equal):
+            raise AssertionError(f"det update, p={p}: identical {identical}, "
+                                 f"order model {equal}")
+        del outs[1:], vals, model
+    got = outs[0]
+    want = ref.countsketch_update_batched_ref(v0, ROWS, WIDTH, seeds, p=P,
+                                              **kw)
+    tol = ref.scatter_tolerance(*ref.countsketch_update_mass_ref(
+        v0, ROWS, WIDTH, seeds, p=P, **kw))
+    out["max_abs_err"], out["worst_err_over_bound"] = check_sum(
+        torch, "update gemma2_2b layer [det]", got, want, tol)
+    atomics = u.countsketch_update_batched(v0, ROWS, WIDTH, seeds, p=P,
+                                           _variant="smem", **kw)
+    out["vs_atomics_max_abs_err"], out["vs_atomics_worst_err_over_bound"] = \
+        check_sum(torch, "update gemma2_2b layer [det] vs [smem] (atomics)",
+                  got, atomics, tol)
+    del got, want, tol, atomics, outs
+    torch.cuda.empty_cache()
+
+    # times: the det variant, the atomics, the order model (its plain
+    # version), beside the bound of the smem row
+    with deterministic_mode(torch):
+        out["ms"] = cuda_ms(torch, lambda: u.countsketch_update_batched(
+            v0, ROWS, WIDTH, seeds, p=P, **kw), 10)
+    out["atomics_ms"] = cuda_ms(torch, lambda: u.countsketch_update_batched(
+        v0, ROWS, WIDTH, seeds, p=P, _variant="smem", **kw), 10)
+    out["plain_ms"] = cuda_ms(torch, lambda: ref.countsketch_update_det_ref(
+        v0, ROWS, WIDTH, seeds, p=P, chunk=plan.chunk, **kw), 1, warmup=0)
+    out["bound_ms"], out["bound_by"] = bound(
+        live * 4 + L * ROWS * WIDTH * 4, live * UPDATE_OPS_PER_SLOT)
+    out["ratio_to_atomics"] = out["ms"] / out["atomics_ms"]
+    log(f"[time] update gemma2_2b layer: det {out['ms']:.4f} ms "
+        f"({100 * out['bound_ms'] / out['ms']:.1f} % of bound), shared-"
+        f"memory atomics {out['atomics_ms']:.4f} ms "
+        f"({100 * out['bound_ms'] / out['atomics_ms']:.1f} %), order model "
+        f"(plain) {out['plain_ms']:.1f} ms, bound {out['bound_ms']:.4f} ms "
+        f"by {out['bound_by']}; det / atomics {out['ratio_to_atomics']:.2f}x "
+        f"{tag}")
+
+    # the dense paths in the mode, launches counted from 0: update_dense and
+    # the gradcomp engine step, twice each, the same bits
+    reset_counts()
+    states, ms = [], []
+    with deterministic_mode(torch):
+        for _ in range(2):
+            eng = SketchEngine(cfg, plane="sparse", device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.update_dense(v0, lengths=lengths)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            states.append(eng.state)
+    launches = {"update_dense": dict(u.variant_launches)}
+    same = states_equal(torch, *states)
+    out["update_dense_ms"] = ms
+    log(f"[det] update_dense twice in the deterministic mode: "
+        f"{ms[0]:.1f} / {ms[1]:.1f} ms, the same state bit for bit: {same}; "
+        f"update launches {launches['update_dense']} {tag}")
+    if not same or launches["update_dense"] != {"smem": 0, "global": 0,
+                                                "det": 2}:
+        raise AssertionError("update_dense in the deterministic mode")
+    del states, eng, v0
+    torch.cuda.empty_cache()
+    store_dir = tempfile.mkdtemp(prefix="chip-smoke-det-update-")
+    dist.init_process_group(
+        "nccl" if DEVICE == "cuda" else "gloo", store=dist.FileStore(
+        os.path.join(store_dir, "store"), 1), rank=0, world_size=1)
+    reset_counts()
+    try:
+        err = G.init_error(grads)
+        res, ms = [], []
+        with deterministic_mode(torch):
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sparse, new_err, _ = G.tree_compress_step_engine(
+                    grads, err, G.CompressorConfig(), k_per_leaf=GC_K_LEAF,
+                    cand_per_leaf=GC_CAND_LEAF)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                res.append((sparse, new_err))
+    finally:
+        dist.destroy_process_group()
+    launches["gradcomp"] = dict(u.variant_launches)
+    same = all(same_bits(torch, res[0][i][n], res[1][i][n])
+               for i in (0, 1) for n in grads)
+    out["gradcomp_ms"] = ms
+    log(f"[det] gradcomp engine step twice in the deterministic mode: "
+        f"{ms[0]:.1f} / {ms[1]:.1f} ms, the same sparse and error bit for "
+        f"bit: {same}; update launches {launches['gradcomp']} {tag}")
+    if not same or launches["gradcomp"] != {"smem": 0, "global": 0,
+                                            "det": 2}:
+        raise AssertionError("gradcomp engine step in the deterministic "
+                             "mode")
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[phase] det update: {out['wall_s']:.2f} s wall")
+    return out
+
+
+# the serve phase: (a) gemma2_2b at full width and 2 layers (one local/global
+# pair) in float32 against the port's CPU path; (b) and (c) the serving CLI
+# at the full published configuration
+SERVE_PAIR_PROMPT, SERVE_PAIR_DECODE = 1024, 8
+SERVE_ARGV = ["--arch", "gemma2_2b", "--batch", "4", "--prompt-len", "5120",
+              "--tokens", "32", "--worp-topk", "8"]
+SERVE_WORKERS_ARGV = ["--workers", "2", "--worp-window", "16", "--plane",
+                      "async"]
+SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-3  # x max(1, max|want|): card vs CPU
+# decode against the forward where the local rings are consistent: a
+# prefill of this many prompt tokens (a multiple of the attention's
+# 1024-key block) and its 32 steps inside the 4096-key window
+SERVE_WINDOW_START = 3072
+
+
+def serve_close(torch, what, got, want, tag) -> float:
+    """Logits of the card against the port's CPU path, both float32 with
+    TF32 off: allclose rtol SERVE_RTOL, atol SERVE_ATOL x max(1, max|want|)
+    (sums in other orders over d_model 2304 and 256,000 vocabulary rows).
+    Returns max |got - want| / max(1, max|want|)."""
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = max(1.0, float(want.abs().max()))
+    ok = bool(torch.allclose(got, want, rtol=SERVE_RTOL,
+                             atol=SERVE_ATOL * scale))
+    err = float((got - want).abs().max()) / scale
+    log(f"[serve] {what}: shape {tuple(got.shape)}, max err / scale "
+        f"{err:.3e}, allclose rtol {SERVE_RTOL} atol {SERVE_ATOL} x "
+        f"{scale:.2f}: {'ok' if ok else 'FAIL'} {tag}")
+    if not ok:
+        raise AssertionError(f"serve {what}: the card disagrees with the CPU")
+    return err
+
+
+def decode_vs_forward(torch, params, cfg, tokens, start, steps, forward):
+    """Prefill ``tokens[:, :start]``, then decode ``steps`` tokens
+    teacher-forced on ``tokens[:, start:]``; each step's logits against
+    ``forward[:, i]`` (the forward's logits at position start + i): the
+    largest |diff| / max|forward| over the steps (the reference test's
+    measure, gated at 0.1)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    with torch.no_grad():
+        _, cache = T.forward_prefill(params, {"tokens": tokens[:, :start]},
+                                     cfg)
+        cache = serve.grow_cache(cache, start, start + steps)
+        worst = 0.0
+        for i in range(steps):
+            lg, cache = T.forward_decode(params, {
+                "token": tokens[:, start + i:start + i + 1],
+                "pos": start + i, "cache": cache}, cfg)
+            want = forward[:, i].float()
+            worst = max(worst, float((lg[:, 0].float() - want).abs().max())
+                        / (float(want.abs().max()) + 1e-6))
+    return worst
+
+
+def tree_to(tree, dtype):
+    """A model tree's tensors cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def pair_config():
+    """gemma2_2b at its published widths, cut to 2 layers (one local and
+    one global layer)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+
+    return dataclasses.replace(get_config("gemma2_2b"), num_layers=2)
+
+
+def serve_pair(torch, seed, tag) -> dict:
+    """(a) gemma2_2b at full width, 2 layers (**cut** from 26), float32,
+    TF32 off: a 1024-token prompt and 8 greedy decode steps on the card,
+    the same weights through the port's CPU path (prefill, then decode
+    teacher-forced on the card's ids), logits allclose; on the card, decode
+    from a 512-token prefill against the forward's logits."""
+    from repro_torch import convert
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    cfg = pair_config()
+    gen = torch.Generator(DEVICE).manual_seed(seed + 21)
+    params = M.init_params(cfg, gen, dtype=torch.float32, device=DEVICE)
+    host = convert.params_from_numpy(convert.params_to_numpy(params), "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (1, SERVE_PAIR_PROMPT),
+                           generator=gen, device=DEVICE, dtype=torch.int32)
+    out = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "prompt": SERVE_PAIR_PROMPT,
+           "decode": SERVE_PAIR_DECODE}
+    S, n = SERVE_PAIR_PROMPT, SERVE_PAIR_DECODE
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        lg, cache = T.forward_prefill(params, {"tokens": tokens}, cfg)
+        torch.cuda.synchronize()
+        out["card_prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        hl, hcache = T.forward_prefill(host, {"tokens": tokens.cpu()}, cfg)
+        out["cpu_prefill_s"] = time.perf_counter() - t0
+        errs = [serve_close(torch, "pair prefill logits", lg, hl, tag)]
+        out["decode_vs_forward"] = decode_vs_forward(
+            torch, params, cfg, tokens, S // 2, n, lg[:, S // 2:S // 2 + n])
+        tok = serve.greedy(lg[:, -1:])
+        del lg, hl
+        cache = serve.grow_cache(cache, S, S + n)
+        hcache = serve.grow_cache(hcache, S, S + n)
+        for i in range(n):
+            lg, cache = T.forward_decode(
+                params, {"token": tok, "pos": S + i, "cache": cache}, cfg)
+            hl, hcache = T.forward_decode(
+                host, {"token": tok.cpu(), "pos": S + i, "cache": hcache},
+                cfg)
+            errs.append(serve_close(torch, f"pair decode step {i}", lg, hl,
+                                    tag))
+            tok = serve.greedy(lg)
+    out["max_err_over_scale"] = max(errs)
+    log(f"[serve] pair (gemma2_2b, 2 layers, float32): card prefill "
+        f"{out['card_prefill_ms']:.1f} ms, CPU prefill "
+        f"{out['cpu_prefill_s']:.1f} s; decode vs forward on the card (512-"
+        f"token prefill, {n} steps) max diff / max|logit| "
+        f"{out['decode_vs_forward']:.3e} (gate 0.1) {tag}")
+    if not out["decode_vs_forward"] < 0.1:
+        raise AssertionError("serve pair: decode differs from the forward")
+    return out
+
+
+def serve_reference_engine(torch, served, prompt, plane, device,
+                           window=0):
+    """One engine of the CLI's config on ``device`` and ``plane`` that saw
+    every step of ``served`` (the prompt unless a window, each step, each
+    retraction), flushed; with the (B, n) keys and values it ingested."""
+    import numpy as np
+
+    from repro_torch.engine import SketchEngine
+
+    eng = SketchEngine(served.engines[0].cfg, plane=plane, device=device)
+    ids = served.gen.ids
+    ones = np.ones((ids.shape[0], 1), np.float32)
+    keys, vals = ([], []) if window else ([prompt], [np.ones(prompt.shape,
+                                                             np.float32)])
+    for t in range(ids.shape[1]):
+        keys.append(ids[:, t:t + 1])
+        vals.append(ones)
+        if window and t >= window:
+            keys.append(ids[:, t - window:t - window + 1])
+            vals.append(-ones)
+    for k, v in zip(keys, vals):
+        eng.ingest(k, v)
+    eng.flush()
+    return eng, np.concatenate(keys, 1), np.concatenate(vals, 1)
+
+
+def serve_inputs(torch, argv):
+    """The CLI's configuration, weights and prompt for ``argv`` (its
+    generators, in its order)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    args = serve.build_parser().parse_args(argv)
+    cfg = get_config(args.arch)
+    cfg = cfg.reduced() if args.reduced else cfg
+    dev = torch.device(args.device)
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
+                           device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           dtype=torch.int32, device=dev,
+                           generator=torch.Generator(dev).manual_seed(
+                               args.seed + 1))
+    return cfg, params, prompt
+
+
+def phase_serve(torch, seed, tag):
+    """(a) ``serve_pair``; (b) ``repro_torch.launch.serve.main`` at
+    gemma2_2b's full published configuration (26 layers, d_model 2304,
+    vocabulary 256,000, bfloat16, 2.6 B parameters; random weights from
+    the seed) with ``SERVE_ARGV``, the launch counts from 0: scatter and
+    estimate launched, the row read not; the WORp state and sample against
+    a CPU ``dense``-plane engine of the same ids (tables within the summing
+    bounds, samples equal but for near ties); decode against one forward
+    over the prompt and the ids: from a ``SERVE_WINDOW_START``-token
+    prefill within the reference test's 0.1 in float32, and the CLI's own
+    (wrapped rings) recorded.  (c) the same with
+    ``--workers 2 --worp-window 16 --plane async``: the aggregated state
+    and sample against one card engine that saw every step and
+    retraction.  Prefill ms, decode ms a step, tokens/s, the analytics' ms
+    and peak memory recorded."""
+    from repro_torch.engine import derive_stream_seeds
+    from repro_torch.engine.engine import _map, onepass_sample_batched
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    out = {"pair": serve_pair(torch, seed, tag)}
+    torch.cuda.empty_cache()
+    B = int(SERVE_ARGV[SERVE_ARGV.index("--batch") + 1])
+    S = int(SERVE_ARGV[SERVE_ARGV.index("--prompt-len") + 1])
+    k = int(SERVE_ARGV[SERVE_ARGV.index("--worp-topk") + 1])
+    for label, argv, window, workers in (
+            ("full", SERVE_ARGV, 0, 1),
+            ("workers", SERVE_ARGV + SERVE_WORKERS_ARGV, 16, 2)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        argv = argv + ["--seed", str(seed), "--device", DEVICE]
+        t0 = time.perf_counter()
+        served = serve.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        n = served.gen.ids.shape[1] - 1
+        rec = {"prefill_ms": served.gen.prefill_s * 1e3,
+               "decode_ms_per_step": served.gen.decode_s * 1e3 / n,
+               "decode_tokens_per_s": B * n / served.gen.decode_s,
+               "prefill_tokens_per_s": B * S / served.gen.prefill_s,
+               "analytics_ingest_ms": served.gen.ingest_s * 1e3,
+               "analytics_sample_ms": served.sample_s * 1e3,
+               "peak_gb": peak, "wall_s": wall, "launches": launches}
+        if not (launches["scatter"] > 0 and launches["estimate"] > 0
+                and launches["row_read"] == 0):
+            raise AssertionError(f"serve {label}: launches {launches}")
+        cfg, params, prompt = serve_inputs(torch, argv)
+        if not (served.gen.ids.shape == (B, n + 1)
+                and 0 <= served.gen.ids.min()
+                and served.gen.ids.max() < cfg.padded_vocab()):
+            raise AssertionError(f"serve {label}: ids {served.gen.ids}")
+        rec["ids_past_vocab"] = int((served.gen.ids >= cfg.vocab_size).sum())
+        # the state and sample against one engine of every step: on the
+        # CPU's dense plane for (b), on the card's sparse plane for (c)
+        plane, dev = ("dense", "cpu") if workers == 1 else ("sparse", DEVICE)
+        single, keys, vals = serve_reference_engine(
+            torch, served, prompt.cpu().numpy(), plane, dev, window)
+        merged = serve.aggregate_worker_states(served.engines)
+        ecfg = single.cfg
+        seeds, tseeds = derive_stream_seeds(ecfg, device=DEVICE)
+        kt, vt = (torch.from_numpy(x).to(DEVICE) for x in (keys, vals))
+        tol = ref.scatter_tolerance(*ref.countsketch_scatter_mass_ref(
+            kt, vt, ecfg.rows, ecfg.width, seeds, p=ecfg.p,
+            transform_seeds=tseeds))
+        if not torch.equal(served.sample.keys,
+                           onepass_sample_batched(merged, k, ecfg.p).keys):
+            raise AssertionError(f"serve {label}: the printed sample is not "
+                                 f"the aggregated state's")
+        rec["history_streams"] = compare_histories(
+            torch, f"serve {label} ({workers} worker(s), window {window}) "
+            f"vs one {plane}-plane engine of every step", merged,
+            _map(lambda t: t.to(DEVICE), single.state), tol, seeds, k=k,
+            p=ecfg.p)
+        del single, merged, kt, vt, tol
+        log(f"[serve] {label} ({' '.join(argv)}): prefill "
+            f"{rec['prefill_ms']:.1f} ms ({rec['prefill_tokens_per_s']:.0f} "
+            f"tokens/s), decode {rec['decode_ms_per_step']:.2f} ms a step "
+            f"of {B} tokens ({rec['decode_tokens_per_s']:.1f} tokens/s), "
+            f"analytics ingest {rec['analytics_ingest_ms']:.1f} ms + sample "
+            f"{rec['analytics_sample_ms']:.1f} ms, peak {peak:.2f} GB, "
+            f"{rec['ids_past_vocab']} ids past the vocabulary, launches "
+            f"{launches}, {wall:.1f} s wall {tag}")
+        if label == "full":
+            # the CLI's decode (the prompt's prefill, its n steps teacher-
+            # forced on its ids) against one forward over the prompt, the
+            # ids and zeros up to whole attention blocks (a causal forward:
+            # the zeros after position S + n - 1 change nothing before it)
+            T_len = S + n if S + n <= 512 else -(-(S + n) // 1024) * 1024
+            ids = torch.from_numpy(served.gen.ids).to(DEVICE)
+            tokens = torch.cat([prompt, ids[:, :n], torch.zeros(
+                (B, T_len - S - n), dtype=torch.int32, device=DEVICE)], 1)
+            # in bfloat16, as the CLI runs, every request; then in float32
+            # on request 0, the reference test's condition (one sequence):
+            # from the prompt's prefill (the CLI's decode, whose rings wrap:
+            # recorded, the reference's ring fault, ROADMAP Queue 3) and
+            # from a prefill of SERVE_WINDOW_START tokens teacher-forced on
+            # the prompt (its rings consistent: gated in float32)
+            W0 = SERVE_WINDOW_START
+            for dtype in ("bfloat16", "float32"):
+                r = slice(0, B)
+                if dtype == "float32":
+                    params, r = tree_to(params, torch.float32), slice(0, 1)
+                with torch.no_grad():
+                    lg, _ = T.forward_prefill(params, {"tokens": tokens[r]},
+                                              cfg)
+                    fwd = {"ring": lg[:, S:S + n].clone(),
+                           "window": lg[:, W0:W0 + n].clone()}
+                    del lg
+                torch.cuda.empty_cache()
+                worst = {what: decode_vs_forward(torch, params, cfg,
+                                                 tokens[r], start, n,
+                                                 fwd[what])
+                         for what, start in (("ring", S), ("window", W0))}
+                del fwd
+                for what in worst:
+                    rec[f"decode_vs_forward_{what}_{dtype}"] = worst[what]
+                log(f"[serve] full in {dtype} (requests {r.start} to "
+                    f"{r.stop - 1}), decode vs a {T_len}-token "
+                    f"forward, max diff / max|logit|: the CLI's ({S}-token "
+                    f"prefill, {n} steps on its ids, the local rings of "
+                    f"{cfg.local_window} wrapping; the reference's ring "
+                    f"fault, recorded) {worst['ring']:.3e}; from a "
+                    f"{W0}-token prefill inside the window "
+                    f"{worst['window']:.3e}"
+                    + (" (gate 0.1)" if dtype == "float32" else
+                       " (recorded)") + f" {tag}")
+            if not rec["decode_vs_forward_window_float32"] < 0.1:
+                raise AssertionError("serve full: decode differs from the "
+                                     "forward")
+            del tokens, ids
+        out[label] = rec
+        del served, params, prompt
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[phase] serve: {out['wall_s']:.2f} s wall")
+    return out
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -4420,6 +4963,12 @@ def main() -> int:
     gc_launches, gradcomp = phase_gradcomp(torch, args.seed, tag)
     torch.cuda.empty_cache()
 
+    # -- the deterministic dense update; serving at gemma2_2b's full size --
+    det_update = phase_det_update(torch, args.seed, tag)
+    torch.cuda.empty_cache()
+    served = phase_serve(torch, args.seed, tag)
+    torch.cuda.empty_cache()
+
     # -- the conformance grid; the ingest pipeline -------------------------
     validate_launches, validate = phase_validate(torch, tag)
     torch.cuda.empty_cache()
@@ -4499,6 +5048,31 @@ def main() -> int:
     update["launches"] += gc_launches["update"]
     update["variants"]["smem"]["launches"] += gc_launches["update"]
     update["gradcomp_launches"] = gc_launches["update"]
+    det_paths = [det_update["launches"][k]["det"]
+                 for k in ("update_dense", "gradcomp")]
+    update["launches"] += sum(det_paths)
+    update["variants"]["det"] = {
+        "launches": sum(det_paths),
+        "launches_by_path": dict(zip(("update_dense", "gradcomp"),
+                                     det_paths)),
+        "parity": "bit for bit ref.countsketch_update_det_ref (its order "
+                  "model, at the plan's chunk) on the card; per-cell "
+                  "rounding bound of the plain version and of the atomics",
+        **{key: det_update[key] for key in (
+            "max_abs_err", "worst_err_over_bound", "vs_atomics_max_abs_err",
+            "vs_atomics_worst_err_over_bound", "ms", "plain_ms", "bound_ms",
+            "bound_by", "atomics_ms", "ratio_to_atomics", "plan",
+            "occupancy")},
+        "library_ms": update["library_ms"],
+        "plain": "ref.countsketch_update_det_ref on the card",
+        "library": "index_add_ of the transformed terms (memory half only)"}
+    for label in ("full", "workers"):
+        got = served[label]["launches"]
+        scatter["launches"] += got["scatter"]
+        scatter["variants"]["smem"]["launches"] += got["smem"]
+        est["launches"] += got["estimate"]
+        scatter.setdefault("serve_launches", {})[label] = got["scatter"]
+        est.setdefault("serve_launches", {})[label] = got["estimate"]
     est["validate_launches"] = validate_launches["estimate"]
     est["ingest_launches"] = (ingest_launches["estimate"]
                               + ingest_det["estimate"])
@@ -4539,6 +5113,8 @@ def main() -> int:
     log("[ingest] " + json.dumps(ingest))
     log("[fleet] " + json.dumps(fleet))
     log("[gradcomp] " + json.dumps(gradcomp))
+    log("[det update] " + json.dumps(det_update))
+    log("[serve] " + json.dumps(served))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))

@@ -10,7 +10,9 @@ agree.  uint32 leaves (seeds) travel as uint32 and live in the port as
 int64 tensors (``hashing.as_u32``).  A state continued in either package
 gives the same samples.  ``tree_to_numpy``/``tree_from_numpy`` carry dicts
 of states (``{"state": ..., "pass2": ...}``, a checkpoint's tree), with
-their keys in sorted order as JAX flattens them.
+their keys in sorted order as JAX flattens them.  ``params_from_numpy``/
+``params_to_numpy`` carry a model's parameter (or cache) tree, nested dicts
+of arrays in the reference's ``param_tree`` keys.
 """
 from __future__ import annotations
 
@@ -129,3 +131,31 @@ def onepass_state_to_numpy(st: worp.OnePassState) -> tuple:
     """(table float32, seed uint32, cand_keys int32, seed_transform uint32)
     numpy arrays, in the order of the JAX state's leaves."""
     return tuple(state_to_numpy(st))
+
+
+def params_from_numpy(tree, device, dtype=None):
+    """A model tree of tensors on ``device`` from nested dicts of arrays
+    (a JAX tree passes through ``np.asarray`` of its leaves): each leaf
+    copied (``torch.tensor``), cast to ``dtype`` when given.  bfloat16
+    arrays (``ml_dtypes``) cross as float32 first, which is exact."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device, dtype) for k, v in
+                tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        t = torch.tensor(a.astype(np.float32), device=device).to(
+            torch.bfloat16)
+    else:
+        t = torch.tensor(a, device=device)
+    return t if dtype is None else t.to(dtype)
+
+
+def params_to_numpy(tree):
+    """Nested dicts of numpy arrays from a model tree of tensors; bfloat16
+    leaves come back as float32 (numpy has no bfloat16), exactly."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.cpu().numpy()

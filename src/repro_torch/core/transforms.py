@@ -30,9 +30,17 @@ def randomizer(keys, seed, scheme: str = PPSWOR) -> torch.Tensor:
 
 def _pow32(r: torch.Tensor, exponent: float) -> torch.Tensor:
     """r ** exponent with the exponent rounded to float32 first, as the
-    reference's ``jnp.asarray(exponent, float32)`` does."""
-    return torch.pow(r, torch.tensor(exponent, dtype=torch.float32,
-                                     device=r.device))
+    reference's ``jnp.asarray(exponent, float32)`` does.
+
+    The power is taken in float64 and rounded back to r's type.  A float32
+    ``torch.pow`` on the CPU runs a vectorized loop in the body of each
+    intra-op thread's chunk and a scalar one in its tail, which differ by an
+    ulp on ~2 % of inputs, so its bits would depend on the thread count; the
+    float64 power rounded to float32 does not."""
+    e = torch.tensor(exponent, dtype=torch.float32).to(torch.float64)
+    # a tensor exponent: a Python -0.5 would take rsqrt, whose rsqrt(-0.0)
+    # is -inf where pow(-0.0, -0.5) is +inf
+    return torch.pow(r.to(torch.float64), e.to(r.device)).to(r.dtype)
 
 
 def transform_values(keys, values: torch.Tensor, p: float, seed,

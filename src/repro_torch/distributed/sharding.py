@@ -22,19 +22,131 @@ Seed guards: shards whose uint32 seed leaves (int64 tensors in the port)
 differ are not shards of one logical stream, and every form raises rather
 than merge them.
 
-The logical-axis sharding rules of the reference module (``DEFAULT_RULES``,
-``resolve_pspec``, ``shard``, ``set_mesh``, ``named_sharding``) serve only
-its model stack, and come with the port's models.
+The logical-axis half serves the model stack.  Model code annotates
+parameters and activations with LOGICAL axis names; ``DEFAULT_RULES`` maps
+them to mesh axes, and ``resolve_pspec`` keeps a mapping only where the
+mesh has the axis, no earlier dimension claimed it and the dimension
+divides, as the reference does.  A mesh here is anything whose ``.shape``
+maps axis names to sizes (a ``jax.sharding.Mesh`` or a dict stand-in), and
+a spec is a tuple of per-dimension tuples or ``None``, where the reference
+gives a ``PartitionSpec``.  ``shard`` is the identity: the port runs its
+models on one card.  The reference's ``named_sharding`` has no counterpart
+until the port shards a model (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
-from typing import Sequence
+import threading
+from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.core import hashing
 from repro_torch.distributed import codecs as _codecs
 from repro_torch.distributed import pytree
+
+
+# ---------------------------------------------------------------------------
+# logical-axis rules (the reference's rule set, copied)
+# ---------------------------------------------------------------------------
+
+# FSDP over (pod, data) for big parameter matrices, tensor parallelism over
+# 'model' for heads/mlp/vocab/experts, batch over (pod, data); decode KV
+# caches shard their sequence axis over 'model'.
+DEFAULT_RULES = {
+    # params
+    "embed": ("pod", "data"),
+    "vocab": ("model",),
+    "heads": ("model",),
+    "kv_heads": ("model",),
+    "head_dim": None,
+    "mlp": ("model",),
+    "experts": ("model",),
+    "expert_mlp": ("model",),
+    "layers": None,
+    "conv": None,
+    "state": None,
+    "lru": ("model",),
+    # activations
+    "act_batch": ("pod", "data"),
+    "act_seq": None,
+    "act_embed": None,
+    "act_heads": ("model",),
+    "act_q_blocks": None,
+    "act_kv_heads": ("model",),
+    "act_mlp": ("model",),
+    "act_vocab": ("model",),
+    "act_experts": ("model",),
+    "act_lru": ("model",),
+    "cache_batch": ("pod", "data"),
+    "cache_seq": ("model",),
+    "cache_kv": None,
+}
+
+
+class _Ctx(threading.local):
+    def __init__(self):
+        self.mesh = None
+        self.rules: dict = dict(DEFAULT_RULES)
+
+
+_CTX = _Ctx()
+
+
+def set_mesh(mesh, rules: Optional[dict] = None) -> None:
+    """Install the active mesh (+ optional rule overrides) for this
+    thread."""
+    _CTX.mesh = mesh
+    _CTX.rules = dict(DEFAULT_RULES)
+    if rules:
+        _CTX.rules.update(rules)
+
+
+def get_mesh():
+    return _CTX.mesh
+
+
+def get_rules() -> dict:
+    return _CTX.rules
+
+
+def resolve_pspec(shape: Sequence[int], axes: Sequence[Optional[str]],
+                  mesh, rules: Optional[dict] = None) -> tuple:
+    """Logical axes -> a spec: per dimension the tuple of mesh axes kept,
+    or None.  For each dim, the rule's mesh axes are kept only while (a)
+    present in ``mesh.shape``, (b) unclaimed by an earlier dim of this
+    tensor, and (c) the dim divides by the product of kept axis sizes."""
+    rules = rules or _CTX.rules
+    if len(shape) != len(axes):
+        raise ValueError(f"resolve_pspec: shape {tuple(shape)} and axes "
+                         f"{tuple(axes)} differ in length")
+    sizes = mesh.shape
+    used: set = set()
+    out = []
+    for dim, name in zip(shape, axes):
+        want = None if name is None else rules.get(name)
+        if want is None:
+            out.append(None)
+            continue
+        if isinstance(want, str):
+            want = (want,)
+        kept, size = [], 1
+        for ax in want:
+            if ax not in sizes or ax in used:
+                continue
+            nxt = size * sizes[ax]
+            if dim % nxt != 0:
+                continue
+            kept.append(ax)
+            size = nxt
+        used.update(kept)
+        out.append(tuple(kept) if kept else None)
+    return tuple(out)
+
+
+def shard(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """The reference's activation sharding constraint by logical axis
+    names: the identity, since the port runs a model on one card."""
+    return x
 
 
 def _resolve_merge(merge_fn):

@@ -5,9 +5,13 @@ values of keys ``base_keys[b] + i``, ``i < lengths[b]``) and returns their
 (B, rows, width) CountSketch delta; ``countsketch_update`` is one segment, a
 B = 1 launch of the same kernel.  A CUDA tensor launches the hand-written
 kernel (or raises); a CPU tensor takes the plain version in ``ref``.  The
-kernel's variant follows from the shape before the launch
-(``tiling.table_plan``): the shared-memory table where rows x width fits a
-block, else global atomics.  ``launches`` (batched) and ``single_launches``
+kernel's variant follows from the mode and the shape before the launch
+(``tiling.table_plan``): under ``torch.use_deterministic_algorithms(True)``
+the deterministic variant ("det": each chunk of a segment summed in an
+order fixed by slot index, the chunks then in chunk order, the same bits
+on every run, ``ref.countsketch_update_det_ref``'s; a table too large for
+it raises), else the shared-memory table where rows x width fits a block,
+else global atomics.  ``launches`` (batched) and ``single_launches``
 (one segment) count kernel launches, and nothing else;
 ``variant_launches`` splits all of them by variant.
 """
@@ -23,7 +27,7 @@ from . import build, ref, tiling
 
 launches = 0
 single_launches = 0
-variant_launches = {"smem": 0, "global": 0}
+variant_launches = {"smem": 0, "global": 0, "det": 0}
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -31,6 +35,9 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
 _SMEM_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                   + [ctypes.c_float] + [ctypes.c_int] * 4
                   + [ctypes.c_void_p])
+_DET_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                 + [ctypes.c_float] + [ctypes.c_int] * 4
+                 + [ctypes.c_void_p])
 SCHEMES = {transforms.PPSWOR: 0, transforms.PRIORITY: 1}
 _VALUE_DTYPES = (torch.float32, torch.bfloat16)
 _INT_MAX = 2**31 - 1
@@ -66,13 +73,30 @@ def _launch(values, rows, width, seeds, p, scheme, transform_seeds,
         0 if transform_seeds is None else transform_seeds, B, dev)
     base32 = hashing.int32_arg(0 if base_keys is None else base_keys, B, dev)
     lens32 = tiling.lengths_arg(lengths, B, n, dev)
-    plan, delta = tiling.table_launch(B, n, lengths, rows, width, dev,
-                                      variant)
+    plan, delta = tiling.table_launch(
+        B, n, lengths, rows, width, dev, variant,
+        deterministic=torch.are_deterministic_algorithms_enabled(),
+        det_chunks=True)
     transform = (int(p is not None), -1.0 / p if p is not None else 0.0,
                  SCHEMES.get(scheme, 0))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        if plan.variant == "smem":
+        if plan.variant == "det":
+            ends = work = None
+            if not plan.one_per_stream:  # chunk tables, summed in order
+                ends = tiling.block_ends(lens32, plan.chunk)
+                work = torch.empty((plan.blocks, rows, width),
+                                   dtype=torch.float32, device=dev)
+            fn = build.function("countsketch_update",
+                                "worp_countsketch_update_det", _DET_ARGTYPES)
+            err = fn(vals.data_ptr(), seeds32.data_ptr(), tseeds32.data_ptr(),
+                     base32.data_ptr(), lens32.data_ptr(),
+                     None if ends is None else ends.data_ptr(),
+                     None if work is None else work.data_ptr(),
+                     delta.data_ptr(), B, n, rows, width, plan.chunk,
+                     *transform, plan.blocks, plan.threads, plan.smem_bytes,
+                     stream)
+        elif plan.variant == "smem":
             ends = None if plan.one_per_stream \
                 else tiling.block_ends(lens32, plan.chunk)
             fn = build.function("countsketch_update",
@@ -111,8 +135,9 @@ def countsketch_update_batched(values: torch.Tensor, rows: int, width: int,
     frequencies of keys ``base_keys[b] + i`` (mod 2**32) for ``i <
     lengths[b]``, and later columns are ignored, so ragged streams batch
     together.  With ``p`` set the bottom-k transform of ``scheme`` is fused.
-    Seeds and base keys are uint32 values.  ``_variant`` ("smem" or
-    "global") forces a kernel variant, for tests and measurements."""
+    Seeds and base keys are uint32 values.  ``_variant`` ("smem",
+    "global" or "det") forces a kernel variant, for tests and
+    measurements."""
     if values.device.type == "cpu":
         return ref.countsketch_update_batched_ref(
             values, rows, width, seeds, p=p, transform_seeds=transform_seeds,

@@ -112,7 +112,8 @@ __global__ void __launch_bounds__(worp::kTableThreads, 3)
                             const float* __restrict__ values,
                             worp::TableArgs args) {
   extern __shared__ float table[];
-  worp::det_table_block<Entry>(worp::SparseSlots{keys, values}, args, table);
+  worp::det_table_block<worp::SparseSlots, Entry>(
+      worp::SparseSlots{keys, values}, args, table);
 }
 
 // The det kernel's instantiation for a table `width` buckets wide.

@@ -29,6 +29,29 @@
 //     slot, rows global atomicAdds into a zeroed delta.
 // Both sum in an order that changes from run to run, so the result matches
 // the plain version within float tolerance, not bit for bit.
+//   * worp_countsketch_update_det, under
+//     torch.use_deterministic_algorithms(True) where the table and two
+//     stages fit a block (tiling.det_fits): every cell summed in an order
+//     fixed by the slot indices and the plan's chunk, the same bits on
+//     every run.  A larger table has no deterministic variant: the wrapper
+//     raises.
+//
+// The det variant.  The block body is the det scatter's (smem_table.cuh
+// det_table_block: producer warps hash a stage of 256 slots, a walker warp
+// a row adds it in slot order), with dense slots: key base_keys[b] + i,
+// live below the length, and no key matching, since the keys of a segment
+// are distinct.  One block a stream would run the gemma2_2b layer's 21.2 M
+// slot wg leaf on one SM, so each block takes one chunk of a stream, as the
+// shared-memory variant's plan cuts them (tiling.table_plan, a multiple of
+// 512 slots), and writes its table whole to its row of a (blocks, rows,
+// width) workspace.  A second kernel then sums each stream's chunk tables
+// in chunk order, each cell from 0.0f, into the delta.  Where one chunk
+// holds the longest stream, each stream is one block that writes its delta
+// row itself and the second pass is skipped.  kernels/ref.py
+// countsketch_update_det_ref is this order in plain PyTorch, and the card
+// checks hold the kernel to it bit for bit.  The workspace is 57,344 B a
+// block at the defaults (60.6 MB at the gemma2_2b layer's 1,057 blocks),
+// read once by the second pass.
 //
 // Budget: 57,344 B of shared memory a block at the defaults and 31
 // registers a thread, so 4 blocks of 512 threads an SM (chip_smoke.py
@@ -93,7 +116,86 @@ __global__ void __launch_bounds__(worp::kTableThreads, 3)
   worp::table_block(worp::DenseSlots{values, base_keys}, args, table);
 }
 
+// Entry: a row's staged bucket and sign, 16 bits where width <= 2**15.
+template <class Entry>
+__global__ void __launch_bounds__(worp::kTableThreads, 3)
+    countsketch_update_det(const float* __restrict__ values,
+                           const int32_t* __restrict__ base_keys,
+                           worp::TableArgs args) {
+  extern __shared__ float table[];
+  worp::det_table_block<worp::DenseSlots, Entry>(
+      worp::DenseSlots{values, base_keys}, args, table);
+}
+
+// The det kernel's instantiation for a table `width` buckets wide.
+void (*det_kernel(int width))(const float*, const int32_t*, worp::TableArgs) {
+  if (width <= (1 << 15)) return countsketch_update_det<uint16_t>;
+  return countsketch_update_det<uint32_t>;
+}
+
+// The det variant's second pass: delta[b, c] = ((0 + ws[g0, c]) + ws[g0 +
+// 1, c]) + ... over stream b's chunk tables g0 .. block_ends[b] - 1, in
+// chunk order; one thread a (stream, cell), coalesced over the cells.
+constexpr int kChunkSumThreads = 256;
+
+__global__ void countsketch_chunk_sum(const float* __restrict__ ws,
+                                      const int32_t* __restrict__ block_ends,
+                                      float* __restrict__ delta, int B,
+                                      int cells) {
+  const int64_t idx =
+      static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= static_cast<int64_t>(B) * cells) return;
+  const int b = static_cast<int>(idx / cells);
+  const int c = static_cast<int>(idx - static_cast<int64_t>(b) * cells);
+  float acc = 0.0f;
+  for (int g = b == 0 ? 0 : block_ends[b - 1]; g < block_ends[b]; ++g) {
+    acc = __fadd_rn(acc, ws[static_cast<int64_t>(g) * cells + c]);
+  }
+  delta[idx] = acc;
+}
+
 }  // namespace
+
+// The deterministic variant: `blocks` blocks of `threads` (32 x (8
+// producer warps + min(rows, 8) walkers)) and `smem_bytes`
+// (tiling.det_smem_bytes) of dynamic shared memory.  With block_ends null
+// each stream is one block and writes its delta row; else block g takes
+// the chunk that block_ends (the (B,) inclusive prefix sum of chunk counts)
+// gives it, writes its table to workspace row g, and the second pass sums
+// them into the delta.  Launches on `stream`; returns a CUDA error code (0
+// on success).
+extern "C" int worp_countsketch_update_det(
+    const void* values, const void* seeds, const void* tseeds,
+    const void* base_keys, const void* lengths, const void* block_ends,
+    void* workspace, void* delta, int B, int n, int rows, int width,
+    int chunk, int has_p, float neg_inv_p, int scheme, int blocks,
+    int threads, int smem_bytes, void* stream) {
+  const auto kernel = det_kernel(width);
+  int err = worp::prepare_table_kernel(kernel, smem_bytes);
+  if (err) return err;
+  const auto ends = static_cast<const int32_t*>(block_ends);
+  const worp::TableArgs args{
+      static_cast<const int32_t*>(seeds),
+      static_cast<const int32_t*>(tseeds),
+      static_cast<const int32_t*>(lengths),
+      ends,
+      static_cast<float*>(ends == nullptr ? delta : workspace), B, n, rows,
+      width, chunk, has_p, scheme, neg_inv_p};
+  const auto s = static_cast<cudaStream_t>(stream);
+  kernel<<<blocks, threads, smem_bytes, s>>>(
+      static_cast<const float*>(values),
+      static_cast<const int32_t*>(base_keys), args);
+  err = static_cast<int>(cudaGetLastError());
+  if (err || ends == nullptr) return err;
+  const int cells = rows * width;
+  const int64_t total = static_cast<int64_t>(B) * cells;
+  const int sum_blocks =
+      static_cast<int>((total + kChunkSumThreads - 1) / kChunkSumThreads);
+  countsketch_chunk_sum<<<sum_blocks, kChunkSumThreads, 0, s>>>(
+      static_cast<const float*>(workspace), ends, static_cast<float*>(delta),
+      B, cells);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // The shared-memory variant: `blocks` blocks of `threads` threads and
 // `smem_bytes` (rows x width x 4) of dynamic shared memory; block_ends is
@@ -124,9 +226,16 @@ extern "C" int worp_countsketch_update_smem(
 }
 
 // Registers, static shared memory, blocks per SM and dynamic shared memory
-// (worp::kernel_info) of variant 0 (global atomics) or 1 (shared memory).
+// (worp::kernel_info) of variant 0 (global atomics), 1 (shared memory), 2
+// (deterministic, width <= 2**15) or 3 (deterministic, 32-bit entries).
 extern "C" int worp_countsketch_update_info(int variant, int threads,
                                             int smem_bytes, int* out) {
+  if (variant >= 2) {
+    const auto kernel = det_kernel(variant == 2 ? 1 : (1 << 15) + 1);
+    const int err = worp::prepare_table_kernel(kernel, smem_bytes);
+    if (err) return err;
+    return worp::kernel_info(kernel, threads, smem_bytes, out);
+  }
   if (variant == 1) {
     const int err = worp::prepare_table_kernel(countsketch_update_smem,
                                                smem_bytes);

@@ -1,8 +1,9 @@
-// The block body shared by the WORp summing kernels for Hopper (sm_90a):
+// The block bodies shared by the WORp summing kernels for Hopper (sm_90a):
 // the batched scatter (countsketch_scatter.cu) and the dense segment update
-// (countsketch_update.cu).  The two differ only in how a slot gets its key:
-// the scatter loads it and skips padding (-1), the dense update computes
-// base_keys[b] + i and skips nothing.
+// (countsketch_update.cu), both the shared-memory atomics body and the
+// deterministic one.  The two kernels differ only in how a slot gets its
+// key: the scatter loads it and skips padding (-1), the dense update
+// computes base_keys[b] + i and skips nothing.
 //
 // Design: one block per (stream, chunk of slots), as kernels/tiling.py's
 // table_plan cuts them.  The block zeroes a rows x width float32 table in
@@ -154,13 +155,14 @@ __device__ __forceinline__ bool combine_lanes(uint32_t key, bool live,
   return ordered_combine(peers, live, v);
 }
 
-template <class Slots>
-__device__ __forceinline__ void table_block(const Slots& slots,
-                                            const TableArgs& a,
-                                            float* table) {
-  // the stream and slot range of this block (kernels/tiling.py plan_blocks)
-  int b = blockIdx.x;
-  int64_t begin = 0;
+// The stream b and slot range [begin, end) of this block (kernels/tiling.py
+// plan_blocks): with block_ends, the chunk of `chunk` slots that the binary
+// search over the chunk counts finds; without, the whole stream blockIdx.x
+// (cut at `chunk` where it is positive).
+__device__ __forceinline__ void block_range(const TableArgs& a, int& b,
+                                            int64_t& begin, int64_t& end) {
+  b = blockIdx.x;
+  begin = 0;
   if (a.block_ends != nullptr) {
     int lo = 0, hi = a.B - 1;  // the first stream with block_ends[b] > blk
     while (lo < hi) {
@@ -176,7 +178,16 @@ __device__ __forceinline__ void table_block(const Slots& slots,
     begin = static_cast<int64_t>(blockIdx.x - first) * a.chunk;
   }
   const int64_t len = a.lengths[b];
-  const int64_t end = begin + a.chunk < len ? begin + a.chunk : len;
+  end = a.chunk > 0 && begin + a.chunk < len ? begin + a.chunk : len;
+}
+
+template <class Slots>
+__device__ __forceinline__ void table_block(const Slots& slots,
+                                            const TableArgs& a,
+                                            float* table) {
+  int b;
+  int64_t begin, end;
+  block_range(a, b, begin, end);
 
   const int cells = a.rows * a.width;
   for (int c = threadIdx.x; c < cells; c += blockDim.x) table[c] = 0.0f;
@@ -241,7 +252,9 @@ __device__ __forceinline__ void table_block(const Slots& slots,
 // countsketch_scatter_det_ref is this order in plain PyTorch, and the card
 // tests hold the kernel to it bit for bit.
 //
-// The design.  One block per stream, warp-specialised: 8 producer warps and
+// The design.  One block per stream (the dense update's det variant: one
+// block per chunk of a stream, det_table_block), warp-specialised: 8
+// producer warps and
 // one row-walker warp a row (at most 8; walker w takes rows w, w + 8, ...),
 // over a double-buffered stage of kDetStage = 256 slots in shared memory
 // beside the table:
@@ -328,10 +341,11 @@ struct DetStage {
   }
 };
 
-template <class Entry>
-__device__ __forceinline__ void det_produce(const SparseSlots& slots,
+template <class Slots, class Entry>
+__device__ __forceinline__ void det_produce(const Slots& slots,
                                             const TableArgs& a, float* stages,
-                                            int b, int64_t len, int tiles) {
+                                            int b, int64_t begin, int64_t end,
+                                            int tiles) {
   constexpr unsigned kAll = 0xFFFFFFFFu;
   constexpr int kShift = 8 * static_cast<int>(sizeof(Entry)) - 1;
   const int g = static_cast<int>(threadIdx.x >> 5);
@@ -346,23 +360,31 @@ __device__ __forceinline__ void det_produce(const SparseSlots& slots,
   // kDeadKey too)
   uint32_t key1 = kDeadKey, key2 = kDeadKey;
   float v1 = 0.0f, v2 = 0.0f;
-  if (j < len) slots(b, j, row0 + j, key1, v1);
-  if (j + kDetStage < len) {
-    slots(b, j + kDetStage, row0 + j + kDetStage, key2, v2);
+  int64_t i = begin + j;  // this lane's slot of stage t
+  if (i < end) slots(b, i, row0 + i, key1, v1);
+  if (i + kDetStage < end) {
+    slots(b, i + kDetStage, row0 + i + kDetStage, key2, v2);
   }
-  int64_t i = j + 2 * kDetStage;
   for (int t = 0; t < tiles; ++t, i += kDetStage) {
     const uint32_t key = key1;
     float v = v1;
     key1 = key2;
     v1 = v2;
     key2 = kDeadKey;
-    if (i < len) slots(b, i, row0 + i, key2, v2);
-    const bool live = key != kDeadKey;
+    const int64_t ahead = i + 2 * kDetStage;
+    if (ahead < end) slots(b, ahead, row0 + ahead, key2, v2);
+    // a sparse slot is dead past the end or at key -1 (both kDeadKey here),
+    // a dense one past the end only: its key 0xFFFFFFFF is live
+    const bool live = Slots::kCombine ? key != kDeadKey : i < end;
     if (live && a.has_p) {
       v = transform_value(v, key, tseed, a.scheme, a.neg_inv_p);
     }
-    const bool lead = ordered_combine(__match_any_sync(kAll, key), live, v);
+    // a group's slots of one key sum to their lead; dense keys are
+    // distinct, so each live dense slot is its own lead
+    const bool lead = Slots::kCombine
+                          ? ordered_combine(__match_any_sync(kAll, key), live,
+                                            v)
+                          : live;
     const unsigned leads = __ballot_sync(kAll, lead);
     const int s = t & 1;
     if (t >= 2) named_sync(kBarFree + s, threads);  // stage t - 2 walked
@@ -437,27 +459,37 @@ __device__ __forceinline__ void det_walk(const TableArgs& a, float* table,
   }
 }
 
-template <class Entry>
-__device__ __forceinline__ void det_table_block(const SparseSlots& slots,
+// The block takes its range as table_block does: the scatter's det launch
+// gives each stream one block (block_ends null, chunk 0) and the delta row
+// b; the dense update's gives each chunk of a stream one block (chunk a
+// multiple of kDetStage, so the groups still count from slot 0), whose
+// table goes whole to row blockIdx.x of a workspace that a second pass
+// sums in chunk order (countsketch_update.cu).
+template <class Slots, class Entry>
+__device__ __forceinline__ void det_table_block(const Slots& slots,
                                                 const TableArgs& a,
                                                 float* table) {
-  const int b = blockIdx.x;
-  const int64_t len = a.lengths[b];
+  int b;
+  int64_t begin, end;
+  block_range(a, b, begin, end);
   const int cells = a.rows * a.width;
   float* stages = table + cells;
   for (int c = threadIdx.x; c < cells; c += blockDim.x) table[c] = 0.0f;
   __syncthreads();
-  const int tiles = static_cast<int>((len + kDetStage - 1) / kDetStage);
+  const int tiles =
+      end > begin ? static_cast<int>((end - begin + kDetStage - 1) / kDetStage)
+                  : 0;
   const int warp = static_cast<int>(threadIdx.x >> 5);
   if (warp < kDetProducers) {
-    det_produce<Entry>(slots, a, stages, b, len, tiles);
+    det_produce<Slots, Entry>(slots, a, stages, b, begin, end, tiles);
   } else {
     det_walk<Entry>(a, table, stages, warp - kDetProducers,
                     a.rows < kDetMaxWalkers ? a.rows : kDetMaxWalkers, tiles);
   }
   __syncthreads();
 
-  float* dst = a.delta + static_cast<int64_t>(b) * cells;
+  const int64_t out = a.block_ends == nullptr ? b : blockIdx.x;
+  float* dst = a.delta + out * cells;
   for (int c = threadIdx.x; c < cells; c += blockDim.x) dst[c] = table[c];
 }
 

@@ -205,6 +205,71 @@ def countsketch_update_batched_ref(values, rows: int, width: int, seeds,
     return _scatter_rows(keys, vals, rows, width, seeds)
 
 
+def countsketch_update_det_ref(values, rows: int, width: int, seeds,
+                               p: float | None = None, transform_seeds=None,
+                               base_keys=None, lengths=None,
+                               scheme: str = transforms.PPSWOR,
+                               chunk: int | None = None) -> torch.Tensor:
+    """The deterministic dense update's summation order (csrc/
+    countsketch_update.cu, the det variant), in float32: (B, rows, width).
+
+    Stream b's slots fall in chunks of ``chunk`` (a multiple of 32; the
+    plan's, ``tiling.table_plan(..., det_chunks=True).chunk``; None: one
+    chunk a stream) and in groups of 32 counted from slot 0.  In each
+    chunk's table, the live slots of a group that fall in one cell of a row
+    sum their signed terms in slot order, d = (t1 + t2) + ..., and the cell,
+    from 0.0, takes cell + d, group by group in slot order (the det
+    scatter's order: dense keys are distinct, so each slot is its own
+    lead).  The delta then sums the chunk tables in chunk order from 0.0.
+    With ``p`` set the transform is the plain version's, so only with
+    ``p=None`` (or values transformed by the card) does the kernel give
+    these bits.  Each cell's terms are folded step by step in a sorted
+    order (as many steps as the fullest cell has terms), so the card runs
+    it at a layer's size in seconds."""
+    keys, seeds, valid, vals = _update_terms(values, seeds, p,
+                                             transform_seeds, base_keys,
+                                             lengths, scheme)
+    B, n = values.shape
+    dev = values.device
+    chunk = -(-max(n, 1) // 32) * 32 if chunk is None else int(chunk)
+    if chunk <= 0 or chunk % 32:
+        raise ValueError(f"chunk {chunk}: a positive multiple of 32")
+    nch = -(-max(n, 1) // chunk)
+    # the live slots alone, stream by stream in slot order
+    b_of, slot = valid.nonzero(as_tuple=True)
+    keys, vals = keys[valid], vals[valid]
+    del valid
+    group = slot // 32
+    base = (b_of * nch + slot // chunk) * width  # (stream, chunk) table
+    ncell = B * nch * width
+    table = torch.zeros((B, nch, rows, width), dtype=torch.float32,
+                        device=dev)
+    for r in range(rows):
+        salt = hashing.row_salt(seeds, r)[b_of]
+        bucket = hashing.bucket_hash(keys, salt, width)
+        term = hashing.sign_hash(keys, salt) * vals
+        order = torch.sort(base + bucket, stable=True).indices  # slot order
+        cell, term, grp = (base + bucket)[order], term[order], group[order]
+        counts = torch.bincount(cell, minlength=ncell)
+        starts = torch.cumsum(counts, 0) - counts
+        acc = torch.zeros(ncell, dtype=torch.float32, device=dev)
+        d = torch.zeros_like(acc)
+        last = torch.full((ncell,), -1, dtype=torch.int64, device=dev)
+        for k in range(int(counts.max()) if cell.numel() else 0):
+            have = counts > k
+            at = torch.where(have, starts + k, 0)
+            t, g = term[at], grp[at]
+            new = have & (g != last)  # the cell's next group: add its d
+            acc = torch.where(new, acc + d, acc)
+            d = torch.where(new, t, torch.where(have, d + t, d))
+            last = torch.where(have, g, last)
+        table[:, :, r, :] = (acc + d).view(B, nch, width)
+    out = torch.zeros((B, rows, width), dtype=torch.float32, device=dev)
+    for c in range(nch):  # chunk order
+        out = out + table[:, c]
+    return out
+
+
 def countsketch_update_mass_ref(values, rows: int, width: int, seeds,
                                 p: float | None = None, transform_seeds=None,
                                 base_keys=None, lengths=None,

@@ -96,10 +96,13 @@ class TablePlan(NamedTuple):
     the chunks that hold live slots get a block, and each adds its table
     into a zeroed delta.  "global": one thread per slot with global atomics
     into a zeroed delta, for tables too large for shared memory.  "det"
-    (the scatter under ``torch.use_deterministic_algorithms(True)``): one
-    block per stream, producer warps hashing its stream in stages of
-    ``chunk`` slots and a warp a row adding them, every cell summed in an
-    order fixed by the slot indices."""
+    (under ``torch.use_deterministic_algorithms(True)``): producer warps
+    hashing stages of ``DET_STAGE`` slots and a warp a row adding them,
+    every cell summed in an order fixed by the slot indices; the scatter's
+    is one block per stream (``chunk`` is then the stage), the dense
+    update's is cut into chunks as "smem" is, each chunk's table summed
+    into the delta in chunk order by a second pass unless
+    ``one_per_stream``."""
     variant: str
     blocks: int
     threads: int
@@ -177,20 +180,41 @@ def plan_blocks(plan: TablePlan, lengths: np.ndarray) -> np.ndarray:
     return np.stack([b, start, np.minimum(start + plan.chunk, lens[b])], 1)
 
 
+def _chunked_plan(variant: str, B: int, lengths, rows: int, width: int,
+                  sm_count: int, threads: int, smem: int) -> TablePlan:
+    """A plan of one block per (stream, chunk) holding live slots (see
+    ``table_plan``)."""
+    lens = np.asarray(lengths, np.int64)
+    live = int(lens.sum())
+    want = -(-live // (TABLE_BLOCKS_PER_SM * sm_count))
+    least = min(4 * rows * width, -(-live // sm_count))
+    chunk = pad_to(max(want, least, 1), TABLE_THREADS)
+    if chunk >= int(lens.max(initial=0)):
+        return TablePlan(variant, B, threads, chunk, True, smem)
+    blocks = int(block_ends(lens, chunk)[-1])
+    if blocks > MAX_GRID_X:
+        raise ValueError(f"{blocks} blocks exceed the grid limit "
+                         f"{MAX_GRID_X}")
+    return TablePlan(variant, blocks, threads, chunk, False, smem)
+
+
 def table_plan(B: int, n: int, lengths, rows: int, width: int,
                sm_count: int, variant: str | None = None,
-               deterministic: bool = False) -> TablePlan:
+               deterministic: bool = False,
+               det_chunks: bool = False) -> TablePlan:
     """The launch of a summing kernel over B streams of n slots, stream b
     live in ``[0, lengths[b])`` (host (B,) ints, already clamped to
     [0, n]), for a ``sm_count``-SM card.
 
     The variant follows from the mode and the shape: "det" when
-    ``deterministic`` (the scatter under PyTorch's deterministic mode; a
-    table too large for it raises, naming the shape: there is no
+    ``deterministic`` (a summing kernel under PyTorch's deterministic mode;
+    a table too large for it raises, naming the shape: there is no
     deterministic fallback), else "smem" exactly when the rows x width
     float32 table fits a block's shared memory, else "global"; ``variant``
     forces one (forcing "smem" or "det" on a table that does not fit
-    raises).  The chunk is the live slots over ``TABLE_BLOCKS_PER_SM`` x
+    raises).  "det" is one block a stream, or with ``det_chunks`` (the
+    dense update) cut into chunks as "smem" is, and then ``lengths`` is
+    read.  The chunk is the live slots over ``TABLE_BLOCKS_PER_SM`` x
     ``sm_count`` blocks, and a multiple of the block's threads.  It is at
     least four tables' cells (so a block's flush, one add a cell, is under
     4 % of its rows adds a slot), unless that would leave SMs without a
@@ -201,16 +225,20 @@ def table_plan(B: int, n: int, lengths, rows: int, width: int,
         variant = "det" if deterministic else "smem" if fits else "global"
     if variant == "global":  # ``lengths`` is not read (it may be None)
         return TablePlan("global", grid_1d(B * n), THREADS_PER_BLOCK)
-    if variant == "det":  # nor here: each stream is one block
+    if variant == "det":
         if not det_fits(rows, width):
             raise ValueError(
-                f"deterministic mode: the scatter's {rows} x {width} float32 "
-                f"table and its two {DET_STAGE}-slot stages "
+                f"deterministic mode: the {rows} x {width} float32 table and "
+                f"its two {DET_STAGE}-slot stages "
                 f"({det_smem_bytes(rows, width)} B) do not fit the "
                 f"{SMEM_PER_BLOCK_OPTIN} B of shared memory of a block, and "
-                f"the deterministic scatter has no variant for a larger "
+                f"the deterministic kernels have no variant for a larger "
                 f"table")
-        if B > MAX_GRID_X:
+        if det_chunks:
+            return _chunked_plan("det", B, lengths, rows, width, sm_count,
+                                 det_threads(rows),
+                                 det_smem_bytes(rows, width))
+        if B > MAX_GRID_X:  # ``lengths`` is not read: each stream is a block
             raise ValueError(f"{B} blocks exceed the grid limit {MAX_GRID_X}")
         return TablePlan("det", B, det_threads(rows), DET_STAGE, True,
                          det_smem_bytes(rows, width))
@@ -221,19 +249,8 @@ def table_plan(B: int, n: int, lengths, rows: int, width: int,
                          f"({rows * width * 4} B) does not fit the "
                          f"{SMEM_PER_BLOCK_OPTIN} B of shared memory of a "
                          f"block")
-    lens = np.asarray(lengths, np.int64)
-    live = int(lens.sum())
-    want = -(-live // (TABLE_BLOCKS_PER_SM * sm_count))
-    least = min(4 * rows * width, -(-live // sm_count))
-    chunk = pad_to(max(want, least, 1), TABLE_THREADS)
-    smem = rows * width * 4
-    if chunk >= int(lens.max(initial=0)):
-        return TablePlan("smem", B, TABLE_THREADS, chunk, True, smem)
-    blocks = int(block_ends(lens, chunk)[-1])
-    if blocks > MAX_GRID_X:
-        raise ValueError(f"{blocks} blocks exceed the grid limit "
-                         f"{MAX_GRID_X}")
-    return TablePlan("smem", blocks, TABLE_THREADS, chunk, False, smem)
+    return _chunked_plan("smem", B, lengths, rows, width, sm_count,
+                         TABLE_THREADS, rows * width * 4)
 
 
 def sm_count(device) -> int:
@@ -242,20 +259,25 @@ def sm_count(device) -> int:
 
 
 def table_launch(B: int, n: int, lengths, rows: int, width: int, device,
-                 variant: str | None = None, deterministic: bool = False):
+                 variant: str | None = None, deterministic: bool = False,
+                 det_chunks: bool = False):
     """The plan of a summing kernel's launch on the card ``device`` and its
-    (B, rows, width) float32 delta: ``torch.empty`` where each stream's one
-    block writes its delta whole, else zeroed.  Host lengths are read only
-    for the shared-memory variant (a CUDA tensor of lengths waits for the
-    card).  Under PyTorch's deterministic mode ``torch.empty`` fills the
-    delta with NaN first (``torch.utils.deterministic.
-    fill_uninitialized_memory``), which the kernel then overwrites."""
+    (B, rows, width) float32 delta: ``torch.empty`` where the launch writes
+    every cell (each stream's one block, or the det variant's second pass),
+    else zeroed.  Host lengths are read only for a chunked plan (a CUDA
+    tensor of lengths waits for the card).  Under PyTorch's deterministic
+    mode ``torch.empty`` fills the delta with NaN first
+    (``torch.utils.deterministic.fill_uninitialized_memory``), which the
+    kernel then overwrites."""
     if variant is None:
         variant = "det" if deterministic \
             else "smem" if table_fits(rows, width) else "global"
-    lens = host_lengths(lengths, B, n) if variant == "smem" else None
-    plan = table_plan(B, n, lens, rows, width, sm_count(device), variant)
-    alloc = torch.empty if plan.one_per_stream else torch.zeros
+    chunked = variant == "smem" or (variant == "det" and det_chunks)
+    lens = host_lengths(lengths, B, n) if chunked else None
+    plan = table_plan(B, n, lens, rows, width, sm_count(device), variant,
+                      det_chunks=det_chunks)
+    alloc = torch.empty if plan.one_per_stream or plan.variant == "det" \
+        else torch.zeros
     return plan, alloc((B, rows, width), dtype=torch.float32, device=device)
 
 

@@ -50,6 +50,28 @@ def test_transform_and_invert_match_reference(scheme, p):
     np.testing.assert_allclose(back, vals, rtol=1e-4)
 
 
+@pytest.mark.parametrize("p", [0.7, 1.0, 1.5])
+def test_transform_bits_do_not_depend_on_thread_count(p):
+    """The CPU transform gives the same bits under 1 and 3 torch threads:
+    the intra-op split must not move an ulp (a float32 ``torch.pow`` did,
+    in 1-3 of these 2.1 M elements)."""
+    rng = np.random.default_rng(0)
+    B, n = 8, 262_147
+    keys = _t(rng.integers(-2**31, 2**31 - 1, (B, n)).astype(np.int32))
+    vals = _t(rng.normal(size=(B, n)).astype(np.float32))
+    seeds = torch.arange(B, dtype=torch.int64)[:, None] * 7919 + 12345
+    threads = torch.get_num_threads()
+    try:
+        bits = []
+        for t in (1, 3):
+            torch.set_num_threads(t)
+            bits.append(ttr.transform_values(keys, vals, p, seeds).view(
+                torch.int32))
+    finally:
+        torch.set_num_threads(threads)
+    assert int((bits[0] != bits[1]).sum()) == 0
+
+
 def test_randomizer_rejects_unknown_scheme():
     with pytest.raises(ValueError, match="unknown bottom-k scheme"):
         ttr.randomizer(torch.tensor([1]), 0, "bogus")

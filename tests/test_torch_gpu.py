@@ -35,7 +35,13 @@ Under ``torch.use_deterministic_algorithms(True)`` the scatter takes its
 launches must give the same bits, and its cells stay within the plain
 version's bound.  PyTorch's ``scatter_add_`` and ``index_add_`` on the
 flush's shapes, and the async plane against the sparse plane, must then
-give the same bits too.
+give the same bits too.  So must the dense update's "det" variant (each
+chunk of a segment summed in slot order, the chunks in chunk order),
+whose bits are its order model's, ``ref.countsketch_update_det_ref``.
+
+The dense model family runs reduced on the card in float32 with TF32
+off: decode against the teacher-forced forward (the reference test's 0.1
+of max|logit|), and the card's forward against the CPU's.
 """
 import contextlib
 import os
@@ -920,6 +926,123 @@ def _same_bits(a, b):
                        b.contiguous().view(torch.int32))
 
 
+# the dense update's "det" variant: chunks of a segment summed in slot
+# order, then in chunk order (B, n, lengths, base keys)
+DET_UPDATE_CASES = {
+    "one_block_a_stream": (4, 500, [500, 0, 137, 1], [0, 2**32 - 5, 7,
+                                                      2**31 - 100]),
+    "chunks": (3, 200_000, [200_000, 123_457, 4097], [5, 2**32 - 77_000,
+                                                      2**31]),
+}
+
+
+def _det_update(vals, seeds, tseeds, lengths, base, p, forced=None):
+    """One update launch in the deterministic mode (on the card), checked
+    to run the det variant; the (B, 7, 2048) table on the host."""
+    with _deterministic():
+        before = dict(tu.variant_launches)
+        got = tu.countsketch_update_batched(
+            vals.cuda(), 7, 2048, seeds.cuda(), p=p,
+            transform_seeds=tseeds.cuda(), base_keys=base.cuda(),
+            lengths=lengths.cuda(), _variant=forced).cpu()
+        assert {v: tu.variant_launches[v] - before[v] for v in before} == {
+            "smem": 0, "global": 0, "det": 1}
+    return got
+
+
+@pytest.mark.parametrize("case", sorted(DET_UPDATE_CASES))
+def test_cuda_det_update_same_bits_and_order_model(case):
+    """Under the deterministic mode the dense update takes its "det"
+    variant by itself: three launches give the same bits; without the
+    transform they are the order model's (``ref.countsketch_update_det_
+    ref`` at the plan's chunk) bit for bit, with it the order model's fed
+    the values the ppswor_transform kernel gives; each cell is within its
+    rounding bound of the plain version, and a zero-length segment is
+    zero."""
+    _need_card()
+    B, n, lengths, base = DET_UPDATE_CASES[case]
+    rng = np.random.default_rng(n)
+    vals = torch.from_numpy(rng.normal(size=(B, n)).astype(np.float32))
+    seeds = torch.from_numpy(rng.integers(0, 2**32, B, dtype=np.int64))
+    tseeds = torch.from_numpy(rng.integers(0, 2**32, B, dtype=np.int64))
+    lengths, base = torch.tensor(lengths), torch.tensor(base)
+    plan = tiling.table_plan(B, n, lengths.numpy(), 7, 2048,
+                             tiling.sm_count(torch.device("cuda")), "det",
+                             det_chunks=True)
+    assert plan.one_per_stream is (case == "one_block_a_stream")
+    kw = dict(transform_seeds=tseeds, base_keys=base, lengths=lengths)
+    for p in (None, 1.0):
+        outs = [_det_update(vals, seeds, tseeds, lengths, base, p)
+                for _ in range(3)]
+        assert all(_same_bits(o, outs[0]) for o in outs[1:])
+        tvals = vals
+        if p is not None:
+            keys = ((base[:, None] + torch.arange(n)) % 2**32).to(
+                torch.int64)
+            keys = torch.where(keys >= 2**31, keys - 2**32, keys).to(
+                torch.int32)
+            tvals = torch.stack([tt.ppswor_transform(
+                keys[b].cuda(), vals[b].cuda(), p, int(tseeds[b])).cpu()
+                for b in range(B)])
+        want = ref.countsketch_update_det_ref(tvals, 7, 2048, seeds,
+                                              base_keys=base,
+                                              lengths=lengths,
+                                              chunk=plan.chunk)
+        assert _same_bits(outs[0], want)
+        plain = ref.countsketch_update_batched_ref(vals, 7, 2048, seeds,
+                                                   p=p, **kw)
+        _check_sum(outs[0], plain, ref.countsketch_update_mass_ref(
+            vals, 7, 2048, seeds, p=p, **kw))
+        for b, length in enumerate(lengths.tolist()):
+            assert length or not outs[0][b].any()
+
+
+def test_cuda_det_update_single_segment_and_dense_entry_points():
+    """``countsketch_update`` (one segment, 21 chunks here) and
+    ``ops.sketch_dense_vector`` launch the det variant in the mode, with
+    the same bits every time; ``update_dense`` twice from one state gives
+    the same state bit for bit."""
+    _need_card()
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(5)
+    v = torch.from_numpy(rng.normal(size=300_000).astype(np.float32)).cuda()
+    with _deterministic():
+        before = (tu.single_launches, tu.variant_launches["det"])
+        outs = [tu.countsketch_update(v, 7, 2048, 99, p=1.0,
+                                      transform_seed=3, base_key=11)
+                for _ in range(2)]
+        outs.append(ops.sketch_dense_vector(v, 7, 2048, 99, p=1.0,
+                                            transform_seed=3, base_key=11))
+        assert (tu.single_launches - before[0],
+                tu.variant_launches["det"] - before[1]) == (3, 3)
+        assert all(_same_bits(o, outs[0]) for o in outs[1:])
+        cfg = EngineConfig(num_streams=3, rows=7, width=2048, candidates=64)
+        grads = torch.from_numpy(rng.normal(size=(3, 70_000)).astype(
+            np.float32)).cuda()
+        states = []
+        for _ in range(2):
+            eng = SketchEngine(cfg, plane="sparse", device="cuda")
+            eng.update_dense(grads, lengths=torch.tensor([70_000, 5, 1000]))
+            states.append(eng.state)
+        assert all(_same_bits(a, b) if a.is_floating_point()
+                   else torch.equal(a, b)
+                   for a, b in zip(_leaves(states[0]), _leaves(states[1])))
+
+
+def test_cuda_det_update_table_too_large_raises():
+    """No deterministic dense update for a table past a block's shared
+    memory: the mode raises, naming the shape, and launches nothing."""
+    _need_card()
+    before = tu.launches
+    with _deterministic(), pytest.raises(ValueError,
+                                         match="deterministic mode.*7 x "
+                                               "16384"):
+        tu.countsketch_update_batched(torch.ones((2, 300), device="cuda"),
+                                      7, 16384, 5, p=1.0)
+    assert tu.launches == before
+
+
 def test_scatter_add_and_index_add_deterministic_at_flush_shapes():
     """The flush's PyTorch sums under the mode, twice each on the same
     inputs, at the sparse plane's shapes (B = 4096, n = 5120, 512
@@ -1332,3 +1455,49 @@ def test_tree_compress_step_engine_on_card():
         assert torch.equal(torch.nonzero(sparse[k].cpu()),
                            torch.nonzero(want[k]))
     assert stats["tau"].shape == (3,)
+
+
+# ---------------------------------------------------------------------------
+# the dense model family on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["gemma2_2b", "phi4_mini_38b"])
+def test_dense_model_decode_matches_forward_on_card(name):
+    """Reduced, float32, TF32 off: prefill 32 tokens and decode token 32 on
+    the card against the teacher-forced forward at position 32 (the
+    reference test's 0.1 of max|logit|), and the card's forward against
+    the CPU's (rtol 1e-4, atol 1e-3 x max(1, max|logit|))."""
+    _need_card()
+    from repro_torch import convert
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_config(name).reduced()
+        host = M.init_params(cfg, torch.Generator().manual_seed(2),
+                             dtype=torch.float32)
+        params = convert.params_from_numpy(convert.params_to_numpy(host),
+                                           "cuda")
+        toks = torch.randint(0, cfg.vocab_size, (1, 33), dtype=torch.int32,
+                             generator=torch.Generator().manual_seed(3))
+        with torch.no_grad():
+            full = T.forward_train(params, {"tokens": toks.cuda()}, cfg)
+            want = T.forward_train(host, {"tokens": toks}, cfg)
+            _, cache = T.forward_prefill(params, {"tokens": toks[:, :32]
+                                                  .cuda()}, cfg)
+            cache = serve.grow_cache(cache, 32, 33)
+            lg, _ = T.forward_decode(params, {"token": toks[:, 32:].cuda(),
+                                              "pos": 32, "cache": cache},
+                                     cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    full, lg = full.cpu(), lg.cpu()
+    scale = max(1.0, float(want.abs().max()))
+    assert torch.allclose(full, want, rtol=1e-4, atol=1e-3 * scale)
+    got, ref_row = lg[:, 0], full[:, 32]
+    assert float((got - ref_row).abs().max()) / (
+        float(ref_row.abs().max()) + 1e-6) < 0.1

@@ -7,14 +7,30 @@ against the JAX package's (``repro.launch.serve``), on the CPU.
 * Fed the same round-robin decode stream, ``sample_aggregated`` gives the
   reference's sample keys and those of one engine that saw every step.
 * A worker of another config (another seed) raises; so do no workers.
+* ``generate`` with the reference's float32 weights (reduced gemma2_2b and
+  qwen25_32b) against the reference's serving loop, driven step by step
+  through ``forward_prefill``/``forward_decode`` and teacher-forced on the
+  reference's ids: prefill and every step's logits allclose (rtol 1e-4,
+  atol 5e-4 x max(1, max|want|), as tests/test_torch_models.py), the same
+  greedy ids (the smallest gap between a step's two largest reference
+  logits is asserted above that tolerance, so no near tie decides), and at
+  ``--worp-topk 5`` the reference's aggregated sample keys, unbounded and
+  with ``--worp-window 3``, on 1 and 2 workers.
+* ``main([... --device cpu --reduced ...])`` runs end to end.
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
+from repro.configs.base import get_config
 from repro.engine import EngineConfig as JConfig
 from repro.launch import serve as jserve
+from repro.models import model as JM
+from repro.models import transformer as JT
 from repro_torch import convert
+from repro_torch.configs import base as tbase
 from repro_torch.engine import EngineConfig, SketchEngine
 from repro_torch.launch import serve
 
@@ -103,3 +119,149 @@ def test_mismatched_workers_and_none_raise():
     workers[1].state = rogue.state
     with pytest.raises(ValueError, match="seeds"):
         serve.aggregate_worker_states(workers, codec="q8")
+
+
+PROMPT, DECODE = 16, 6
+
+
+@pytest.fixture
+def one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _engine_cfg(cfg, k):
+    """The serving CLI's analytics engine at ``--worp-topk k``."""
+    return dict(num_streams=2, rows=5, width=max(256, 31 * k),
+                candidates=4 * k, p=1.0, seed=0x5EED, sampler="onepass",
+                domain=cfg.vocab_size, num_samplers=max(4, k))
+
+
+def _reference_loop(jp, cfg, toks, k=0, window=0, workers=1):
+    """The reference's serving loop (repro.launch.serve.main) with given
+    weights: the (B, DECODE + 1) ids, the prefill's last logits and each
+    step's, and the aggregated sample (None without k)."""
+    S = toks.shape[1]
+    logits, cache = JT.forward_prefill(jp, {"tokens": jnp.asarray(toks)}, cfg)
+
+    def grow(x):
+        if x.ndim >= 4 and x.shape[2] == S:
+            pad = [(0, 0)] * x.ndim
+            pad[2] = (0, DECODE)
+            return jnp.pad(x, pad)
+        return x
+    cache = jax.tree_util.tree_map(grow, cache)
+    tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+    steps = [np.asarray(logits[:, -1:])]
+    engines = jserve.make_worker_engines(JConfig(**_engine_cfg(cfg, k)),
+                                         workers) if k else []
+    held, nstep = [], 0
+
+    def ingest_step(t):
+        widx = nstep % len(engines)
+        engines[widx].ingest(t, np.ones(t.shape, np.float32))
+        if window:
+            held.append((widx, np.asarray(t)))
+            if len(held) > window:
+                oidx, old = held.pop(0)
+                engines[oidx].ingest(old, -np.ones(old.shape, np.float32))
+
+    if engines:
+        if not window:
+            engines[0].ingest(toks, np.ones(toks.shape, np.float32))
+        ingest_step(tok)
+        nstep += 1
+    outs = [np.asarray(tok)]
+    for i in range(DECODE):
+        lg, cache = JT.forward_decode(jp, {"token": tok,
+                                           "pos": jnp.int32(S + i),
+                                           "cache": cache}, cfg)
+        steps.append(np.asarray(lg))
+        tok = jnp.argmax(lg, axis=-1).astype(jnp.int32)
+        outs.append(np.asarray(tok))
+        if engines:
+            ingest_step(tok)
+            nstep += 1
+    sample = jserve.sample_aggregated(engines, k) if engines else None
+    return np.concatenate(outs, axis=1), steps, sample
+
+
+def _close(got, want):
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=5e-4 * max(1.0, float(np.abs(want).max())))
+
+
+def _model(name, seed=0):
+    cfg = get_config(name).reduced()
+    jp = JM.init_params(cfg, jax.random.PRNGKey(seed), dtype=jnp.float32)
+    tp = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                                   "cpu")
+    toks = np.random.default_rng(seed + 1).integers(
+        0, cfg.vocab_size, (2, PROMPT)).astype(np.int32)
+    return cfg, tbase.get_config(name).reduced(), jp, tp, toks
+
+
+@pytest.mark.parametrize("name", ["gemma2_2b", "qwen25_32b"])
+def test_generate_equals_the_reference_loop(name, one_thread):
+    from repro_torch.models import transformer as T
+
+    cfg, tcfg, jp, tp, toks = _model(name)
+    want_ids, want_steps, _ = _reference_loop(jp, cfg, toks)
+    gaps = [np.diff(np.sort(st, axis=-1)[..., -2:], axis=-1).min()
+            for st in want_steps]
+    assert min(gaps) > 5e-4 * max(1.0, max(np.abs(st).max()
+                                           for st in want_steps))
+    with torch.no_grad():  # teacher-forced on the reference's ids
+        lg, cache = T.forward_prefill(tp, {"tokens": torch.from_numpy(toks)},
+                                      tcfg)
+        _close(lg[:, -1:].numpy(), want_steps[0])
+        cache = serve.grow_cache(cache, PROMPT, PROMPT + DECODE)
+        for i in range(DECODE):
+            lg, cache = T.forward_decode(tp, {
+                "token": torch.from_numpy(want_ids[:, i:i + 1]),
+                "pos": PROMPT + i, "cache": cache}, tcfg)
+            _close(lg.numpy(), want_steps[i + 1])
+    gen = serve.generate(tp, torch.from_numpy(toks), tcfg, DECODE)
+    assert gen.ids.dtype == np.int32
+    assert np.array_equal(gen.ids, want_ids)
+
+
+@pytest.mark.parametrize("window,workers", [(0, 1), (3, 1), (0, 2), (3, 2)])
+def test_generate_analytics_equal_the_reference_loop(window, workers,
+                                                     one_thread):
+    """--worp-topk 5: the aggregated per-request sample of the port's
+    serving loop has the reference's keys, unbounded (prompt included) and
+    over a window of 3 steps with retractions, on 1 and 2 workers."""
+    cfg, tcfg, jp, tp, toks = _model("gemma2_2b", seed=4)
+    want_ids, _, want = _reference_loop(jp, cfg, toks, k=5, window=window,
+                                        workers=workers)
+    engines = serve.make_worker_engines(
+        EngineConfig(**_engine_cfg(tcfg, 5)), workers, device="cpu")
+    gen = serve.generate(tp, torch.from_numpy(toks), tcfg, DECODE, engines,
+                         window)
+    assert np.array_equal(gen.ids, want_ids)
+    got = serve.sample_aggregated(engines, 5)
+    assert np.array_equal(got.keys.numpy(), np.asarray(want.keys))
+    np.testing.assert_allclose(got.freqs.numpy(), np.asarray(want.freqs),
+                               rtol=1e-5)
+
+
+def test_main_runs_end_to_end_on_the_cpu(capsys, one_thread):
+    out = serve.main(["--arch", "gemma2_2b", "--reduced", "--device", "cpu",
+                      "--tokens", "4", "--batch", "2", "--prompt-len", "16",
+                      "--worp-topk", "5", "--workers", "2",
+                      "--worp-window", "3", "--plane", "async"])
+    assert out.gen.ids.shape == (2, 5)
+    assert out.gen.ids.max() < tbase.get_config("gemma2_2b").reduced(
+    ).padded_vocab()
+    assert tuple(out.sample.keys.shape) == (2, 5)
+    text = capsys.readouterr().out
+    assert "generated ids:" in text and "2 workers" in text
+    assert "last 3 decode steps" in text
+
+
+def test_main_refuses_families_not_ported():
+    with pytest.raises(SystemExit):
+        serve.main(["--arch", "mamba2_13b", "--reduced", "--device", "cpu"])

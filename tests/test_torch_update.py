@@ -101,6 +101,90 @@ def test_plain_update_matches_pallas_interpret(case, rows, width):
         assert not got[lengths.index(0)].any()
 
 
+@pytest.mark.parametrize("chunk", [None, 64])
+@pytest.mark.parametrize("case", ["ppswor_p1", "no_transform", "ragged",
+                                  "base_key_wrap"])
+def test_det_order_model_matches_pallas_interpret(case, chunk):
+    """The deterministic dense update's order (``countsketch_update_det_
+    ref``, the bits the card's det variant gives) is one more summation
+    order of the same terms: within the kernel tolerance of the JAX kernel
+    in interpret mode, and within each cell's rounding bound."""
+    opts = dict(UPDATE_CASES[case])
+    rows, width = 7, 512
+    vals, seeds, tseeds = _segments(4, 300, seed=11 + len(case))
+    lengths = opts.pop("lengths", None)
+    base = opts.pop("base", None)
+    want = np.asarray(jupdate(
+        jnp.asarray(vals), rows, width, jnp.asarray(seeds),
+        transform_seeds=jnp.asarray(tseeds),
+        base_keys=None if base is None else jnp.asarray(base, jnp.uint32),
+        lengths=None if lengths is None else jnp.asarray(lengths, jnp.int32),
+        interpret=True, **opts))
+    kw = dict(transform_seeds=_t(tseeds),
+              base_keys=None if base is None else torch.tensor(base),
+              lengths=None if lengths is None else torch.tensor(lengths),
+              **opts)
+    got = ref.countsketch_update_det_ref(_t(vals), rows, width, _t(seeds),
+                                         chunk=chunk, **kw).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=_atol(want))
+    tol = ref.scatter_tolerance(*ref.countsketch_update_mass_ref(
+        _t(vals), rows, width, _t(seeds), **kw)).numpy()
+    assert (np.abs(got - want) <= tol).all()
+
+
+@pytest.mark.parametrize("chunk", [32, 96, 256])
+def test_det_order_model_is_the_det_scatters_chunk_by_chunk(chunk):
+    """The dense order model is the det scatter's order model
+    (``countsketch_scatter_det_ref``) on each chunk's dense keys, the chunk
+    tables then summed in chunk order from 0.0: bit for bit.  Narrow rows
+    make many cells collide within a 32-slot group."""
+    rows, width, n = 3, 16, 300
+    vals, seeds, _ = _segments(3, n, seed=chunk)
+    base = np.array([5, 2**31 - 40, 1000], np.int64)
+    lengths = np.array([300, 77, 0])
+    got = ref.countsketch_update_det_ref(
+        _t(vals), rows, width, _t(seeds), base_keys=torch.tensor(base),
+        lengths=torch.tensor(lengths), chunk=chunk)
+    keys = torch.from_numpy(((base[:, None] + np.arange(n)) % 2**32).astype(
+        np.uint32).view(np.int32))
+    want = torch.zeros((3, rows, width))
+    for c0 in range(0, n, chunk):
+        part = ref.countsketch_scatter_det_ref(
+            keys[:, c0:c0 + chunk].contiguous(), _t(vals[:, c0:c0 + chunk]),
+            rows, width, _t(seeds),
+            lengths=torch.from_numpy(np.clip(lengths - c0, 0, chunk)))
+        want = want + part
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not got[2].any()
+
+
+def test_det_plan_cuts_the_dense_update_into_chunks():
+    """Under the deterministic mode the dense update's plan is the det
+    block (8 producer warps, a walker a row, the table and two stages)
+    over the shared-memory variant's chunks; at the gemma2_2b layer's 11
+    leaves (77.9 M live slots) that is 1,057 blocks of 74,240 slots, and a
+    segment that one chunk holds is one block that writes its delta row."""
+    from repro_torch.kernels import tiling
+
+    d, ff = 2304, 9216
+    lens = np.array([d] * 4 + [d * ff] * 2 + [d * 4 * 256, 8 * 256 * d,
+                                              ff * d, d * 8 * 256,
+                                              d * 4 * 256])
+    plan = tiling.table_plan(11, int(lens.max()), lens, 7, 2048, 132,
+                             deterministic=True, det_chunks=True)
+    assert plan == tiling.TablePlan("det", 1057, 32 * (8 + 7), 74_240,
+                                    False, 66_624)
+    assert plan.chunk % tiling.DET_STAGE == 0
+    assert plan.blocks == int(tiling.block_ends(lens, plan.chunk)[-1])
+    small = tiling.table_plan(3, 600, np.array([500, 5, 0]), 7, 2048, 132,
+                              deterministic=True, det_chunks=True)
+    assert (small.variant, small.blocks, small.one_per_stream) == (
+        "det", 3, True)
+    with pytest.raises(ValueError, match="deterministic mode.*7 x 16384"):
+        tiling.table_plan(2, 300, np.array([300, 3]), 7, 16384, 132,
+                          deterministic=True, det_chunks=True)
+
+
 def test_plain_update_sketches_key_0xffffffff():
     """Dense keys are masked by length only: the live key 0xFFFFFFFF (int32
     -1, the scatter's padding key) is sketched, in the port as in JAX."""
@@ -333,5 +417,8 @@ def test_c_signatures_pass_pointers_as_void_p():
     assert tu._ARGTYPES[-1] is ctypes.c_void_p
     assert tu._SMEM_ARGTYPES[:7] == [ctypes.c_void_p] * 7
     assert tu._SMEM_ARGTYPES[-1] is ctypes.c_void_p
+    assert tu._DET_ARGTYPES[:8] == [ctypes.c_void_p] * 8
+    assert tu._DET_ARGTYPES[-1] is ctypes.c_void_p
+    assert len(tu._DET_ARGTYPES) == 20
     assert tt._ARGTYPES[:3] == [ctypes.c_void_p] * 3
     assert tt._ARGTYPES[-1] is ctypes.c_void_p
