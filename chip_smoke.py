@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Twelve paths, each driven with the kernels' launch counts set to 0 just
+Thirteen paths, each driven with the kernels' launch counts set to 0 just
 before it and read just after:
 
 * Sparse plane.  Per-key analytics over B = 4096 independent turnstile
@@ -141,6 +141,36 @@ before it and read just after:
   state and sample against one engine that saw every step and retraction.
   Prefill ms, decode ms a step, tokens/s, the analytics' ms and peak memory
   recorded.
+* Model families.  (a) olmoe_1b_7b, grok1_314b, mamba2_13b,
+  recurrentgemma_9b, seamless_m4t_large_v2 and phi3_vision_42b reduced,
+  float32 with TF32 off: a 64-token prompt (the vlm's after its patches,
+  the enc-dec's with its frames) and 4 greedy decode steps on the card
+  against the port's CPU path, logits allclose (rtol 1e-4, atol 1e-3 x
+  max(1, max|logit|); seamless 1e-2 x).  (b) ``serve.main`` at the full
+  published configurations in bfloat16 (random weights from the seed),
+  ``--batch 4 --tokens 32 --worp-topk 8``: olmoe_1b_7b, mamba2_13b and
+  recurrentgemma_9b with 4096-token prompts (past recurrentgemma's
+  2048 window), phi3_vision_42b with 3520 after its 576 patch
+  embeddings; each launching the scatter and the estimate, its analytics
+  held to a CPU ``dense``-plane engine of the same ids, olmoe's dropped
+  MoE choices counted; mamba2_13b once more at the CLI's default 64-token
+  prompt, which the reference's cache growth crashes (ROADMAP Queue 3).
+  (c) seamless_m4t_large_v2 at its published configuration, through
+  ``model.prefill`` (4 x 4096 frames, a 1024-token prompt) and 32
+  ``model.decode_step`` calls over the grown self cache (the CLI refuses
+  the enc-dec, as the reference's does).  (d) for each of (b) and (c), in
+  float32 (the CLI's weights) on request 0: one forward, a prefill of its
+  first part and 32 decode steps teacher-forced on the rest
+  (recurrentgemma's prefill and steps inside its window).  At full depth
+  recorded beside the prefill's last logits against the forward's: with
+  the reference's init the attention scores reach the hundreds and the
+  deep random models are chaotic, two forwards over other lengths
+  differing as much as decode does.  Gated at the reference test's 0.1
+  of max|logit| on the first layers (``FAMILY_DVF_LAYERS``: 4 of olmoe
+  at capacity E / K, where no choice drops, 12 of recurrentgemma, 3 of
+  phi3_vision, 2 + 2 of seamless; all 48 of mamba2).  Prefill ms, decode
+  ms a step, tokens/s, the analytics' ms, peak memory, the dropped MoE
+  choices and launches recorded.
 * Ingest pipeline.  ``PrefetchingFeeder`` at the sparse plane's
   deployment: one canonical ``TurnstileZipfStream(2**20, alpha=1.2,
   delete_fraction=0.25)`` over 4 producer shards, packed into (4096, 4096)
@@ -220,6 +250,10 @@ the script exits non-zero without the final ``ok`` line):
      at the full configuration and with 2 workers, a window and the async
      plane (above), with prefill and decode times, tokens/s, the
      analytics' ms, peak memory and launches;
+  families.  the six new architectures' reduced pairs, the serving CLI
+     of four at their full published configurations, the enc-dec's
+     prefill and decode, decode against the forward (above), with their
+     times, peak memory, dropped MoE choices and launches;
   validate.  the conformance grid, its codec axis and Table 3, one
      ``conformance_check`` line per check and the ``conformance_summary``
      line, times by path and by sampler, launches by path, live threads;
@@ -4572,42 +4606,46 @@ SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-3  # x max(1, max|want|): card vs CPU
 SERVE_WINDOW_START = 3072
 
 
-def serve_close(torch, what, got, want, tag) -> float:
+def serve_close(torch, what, got, want, tag, atol=SERVE_ATOL) -> float:
     """Logits of the card against the port's CPU path, both float32 with
-    TF32 off: allclose rtol SERVE_RTOL, atol SERVE_ATOL x max(1, max|want|)
+    TF32 off: allclose rtol SERVE_RTOL, atol ``atol`` x max(1, max|want|)
     (sums in other orders over d_model 2304 and 256,000 vocabulary rows).
     Returns max |got - want| / max(1, max|want|)."""
     got, want = got.float().cpu(), want.float().cpu()
     scale = max(1.0, float(want.abs().max()))
-    ok = bool(torch.allclose(got, want, rtol=SERVE_RTOL,
-                             atol=SERVE_ATOL * scale))
+    ok = bool(torch.allclose(got, want, rtol=SERVE_RTOL, atol=atol * scale))
     err = float((got - want).abs().max()) / scale
     log(f"[serve] {what}: shape {tuple(got.shape)}, max err / scale "
-        f"{err:.3e}, allclose rtol {SERVE_RTOL} atol {SERVE_ATOL} x "
+        f"{err:.3e}, allclose rtol {SERVE_RTOL} atol {atol} x "
         f"{scale:.2f}: {'ok' if ok else 'FAIL'} {tag}")
     if not ok:
         raise AssertionError(f"serve {what}: the card disagrees with the CPU")
     return err
 
 
-def decode_vs_forward(torch, params, cfg, tokens, start, steps, forward):
-    """Prefill ``tokens[:, :start]``, then decode ``steps`` tokens
-    teacher-forced on ``tokens[:, start:]``; each step's logits against
-    ``forward[:, i]`` (the forward's logits at position start + i): the
-    largest |diff| / max|forward| over the steps (the reference test's
-    measure, gated at 0.1)."""
+def decode_vs_forward(torch, params, cfg, tokens, start, steps, forward,
+                      extras=None):
+    """Prefill ``tokens[:, :start]`` (after the vlm's ``patch_embeds`` or
+    with the enc-dec's ``frames`` in ``extras``), then decode ``steps``
+    tokens teacher-forced on ``tokens[:, start:]``; each step's logits
+    against ``forward[:, i]`` (the forward's logits at the step's position,
+    start + i after any patches): the largest |diff| / max|forward| over
+    the steps (the reference test's measure, gated at 0.1)."""
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
 
+    extras = extras or {}
+    pe = extras.get("patch_embeds")
+    P = 0 if pe is None else pe.shape[1]
     with torch.no_grad():
-        _, cache = T.forward_prefill(params, {"tokens": tokens[:, :start]},
-                                     cfg)
-        cache = serve.grow_cache(cache, start, start + steps)
+        _, cache = T.forward_prefill(
+            params, {"tokens": tokens[:, :start], **extras}, cfg)
+        cache = serve.grow_cache(cache, start, start + P + steps, P)
         worst = 0.0
         for i in range(steps):
             lg, cache = T.forward_decode(params, {
                 "token": tokens[:, start + i:start + i + 1],
-                "pos": start + i, "cache": cache}, cfg)
+                "pos": start + P + i, "cache": cache}, cfg)
             want = forward[:, i].float()
             worst = max(worst, float((lg[:, 0].float() - want).abs().max())
                         / (float(want.abs().max()) + 1e-6))
@@ -4714,8 +4752,8 @@ def serve_reference_engine(torch, served, prompt, plane, device,
 
 
 def serve_inputs(torch, argv):
-    """The CLI's configuration, weights and prompt for ``argv`` (its
-    generators, in its order)."""
+    """The CLI's configuration, weights, prompt and patch embeddings (None
+    but for the vlm) for ``argv`` (its generators, in its order)."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import serve
     from repro_torch.models import model as M
@@ -4726,11 +4764,101 @@ def serve_inputs(torch, argv):
     dev = torch.device(args.device)
     params = M.init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
                            device=dev)
-    prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                           dtype=torch.int32, device=dev,
-                           generator=torch.Generator(dev).manual_seed(
-                               args.seed + 1))
-    return cfg, params, prompt
+    prompt, patch_embeds = serve.make_prompt(cfg, args, dev)
+    return cfg, params, prompt, patch_embeds
+
+
+def serve_cli(torch, label, argv):
+    """``serve.main(argv)`` with the launch counts from 0 and the peak
+    memory reset: (its result, its record: prefill ms, decode ms a step,
+    tokens/s, the analytics' ms, peak GB, wall s, launches and, for a MoE,
+    the dropped choices of every layer and step).  The analytics must have
+    launched the scatter and the estimate, and not the row read."""
+    from repro_torch.launch import serve
+    from repro_torch.models import moe
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with moe.count_drops() as drops:
+        served = serve.main(argv)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    B, n = served.gen.ids.shape[0], served.gen.ids.shape[1] - 1
+    S = serve.build_parser().parse_args(argv).prompt_len
+    gen = served.gen
+    rec = {"batch": B, "prefill_ms": gen.prefill_s * 1e3,
+           "decode_ms_per_step": gen.decode_s * 1e3 / n,
+           "decode_tokens_per_s": B * n / gen.decode_s,
+           "prefill_tokens_per_s": B * S / gen.prefill_s,
+           "analytics_ingest_ms": gen.ingest_s * 1e3,
+           "analytics_sample_ms": served.sample_s * 1e3,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "wall_s": wall, "launches": launches}
+    if drops:
+        rec["moe_dropped"] = int(sum(d for d, _ in drops))
+        rec["moe_choices"] = int(sum(c for _, c in drops))
+    if not (launches["scatter"] > 0 and launches["estimate"] > 0
+            and launches["row_read"] == 0):
+        raise AssertionError(f"serve {label}: launches {launches}")
+    return served, rec
+
+
+def log_cli(phase, label, argv, rec, tag):
+    drops = (f", {rec['moe_dropped']} of {rec['moe_choices']} MoE choices "
+             f"dropped" if "moe_dropped" in rec else "")
+    log(f"[{phase}] {label} ({' '.join(argv)}): prefill "
+        f"{rec['prefill_ms']:.1f} ms ({rec['prefill_tokens_per_s']:.0f} "
+        f"tokens/s), decode {rec['decode_ms_per_step']:.2f} ms a step "
+        f"of {rec['batch']} tokens ({rec['decode_tokens_per_s']:.1f} "
+        f"tokens/s), analytics ingest {rec['analytics_ingest_ms']:.1f} ms + "
+        f"sample {rec['analytics_sample_ms']:.1f} ms, peak "
+        f"{rec['peak_gb']:.2f} "
+        f"GB, {rec.get('ids_past_vocab', 0)} ids past the vocabulary, "
+        f"launches {rec['launches']}{drops}, {rec['wall_s']:.1f} s wall "
+        f"{tag}")
+
+
+def check_ids(label, served, cfg, B, n):
+    ids = served.gen.ids
+    if not (ids.shape == (B, n + 1) and 0 <= ids.min()
+            and ids.max() < cfg.padded_vocab()):
+        raise AssertionError(f"serve {label}: ids {ids}")
+
+
+def check_served_analytics(torch, label, served, prompt, k, window,
+                           workers):
+    """The served ids in range and the aggregated WORp state and sample
+    against one engine of every step: on the CPU's dense plane for one
+    worker, on the card's sparse plane for several; the printed sample is
+    the aggregated state's.  Returns (ids past the vocabulary, streams of
+    ``compare_histories``)."""
+    from repro_torch.engine import derive_stream_seeds
+    from repro_torch.engine.engine import _map, onepass_sample_batched
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve
+
+    plane, dev = ("dense", "cpu") if workers == 1 else ("sparse", DEVICE)
+    single, keys, vals = serve_reference_engine(
+        torch, served, prompt.cpu().numpy(), plane, dev, window)
+    merged = serve.aggregate_worker_states(served.engines)
+    ecfg = single.cfg
+    seeds, tseeds = derive_stream_seeds(ecfg, device=DEVICE)
+    kt, vt = (torch.from_numpy(x).to(DEVICE) for x in (keys, vals))
+    tol = ref.scatter_tolerance(*ref.countsketch_scatter_mass_ref(
+        kt, vt, ecfg.rows, ecfg.width, seeds, p=ecfg.p,
+        transform_seeds=tseeds))
+    if not torch.equal(served.sample.keys,
+                       onepass_sample_batched(merged, k, ecfg.p).keys):
+        raise AssertionError(f"serve {label}: the printed sample is not "
+                             f"the aggregated state's")
+    return compare_histories(
+        torch, f"serve {label} ({workers} worker(s), window {window}) vs "
+        f"one {plane}-plane engine of every step", merged,
+        _map(lambda t: t.to(DEVICE), single.state), tol, seeds, k=k,
+        p=ecfg.p)
 
 
 def phase_serve(torch, seed, tag):
@@ -4748,9 +4876,6 @@ def phase_serve(torch, seed, tag):
     and sample against one card engine that saw every step and
     retraction.  Prefill ms, decode ms a step, tokens/s, the analytics' ms
     and peak memory recorded."""
-    from repro_torch.engine import derive_stream_seeds
-    from repro_torch.engine.engine import _map, onepass_sample_batched
-    from repro_torch.kernels import ref
     from repro_torch.launch import serve
     from repro_torch.models import transformer as T
 
@@ -4763,63 +4888,15 @@ def phase_serve(torch, seed, tag):
     for label, argv, window, workers in (
             ("full", SERVE_ARGV, 0, 1),
             ("workers", SERVE_ARGV + SERVE_WORKERS_ARGV, 16, 2)):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
         argv = argv + ["--seed", str(seed), "--device", DEVICE]
-        t0 = time.perf_counter()
-        served = serve.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_counts()
-        peak = torch.cuda.max_memory_allocated() / 1e9
+        served, rec = serve_cli(torch, label, argv)
         n = served.gen.ids.shape[1] - 1
-        rec = {"prefill_ms": served.gen.prefill_s * 1e3,
-               "decode_ms_per_step": served.gen.decode_s * 1e3 / n,
-               "decode_tokens_per_s": B * n / served.gen.decode_s,
-               "prefill_tokens_per_s": B * S / served.gen.prefill_s,
-               "analytics_ingest_ms": served.gen.ingest_s * 1e3,
-               "analytics_sample_ms": served.sample_s * 1e3,
-               "peak_gb": peak, "wall_s": wall, "launches": launches}
-        if not (launches["scatter"] > 0 and launches["estimate"] > 0
-                and launches["row_read"] == 0):
-            raise AssertionError(f"serve {label}: launches {launches}")
-        cfg, params, prompt = serve_inputs(torch, argv)
-        if not (served.gen.ids.shape == (B, n + 1)
-                and 0 <= served.gen.ids.min()
-                and served.gen.ids.max() < cfg.padded_vocab()):
-            raise AssertionError(f"serve {label}: ids {served.gen.ids}")
+        cfg, params, prompt, _ = serve_inputs(torch, argv)
+        check_ids(label, served, cfg, B, n)
         rec["ids_past_vocab"] = int((served.gen.ids >= cfg.vocab_size).sum())
-        # the state and sample against one engine of every step: on the
-        # CPU's dense plane for (b), on the card's sparse plane for (c)
-        plane, dev = ("dense", "cpu") if workers == 1 else ("sparse", DEVICE)
-        single, keys, vals = serve_reference_engine(
-            torch, served, prompt.cpu().numpy(), plane, dev, window)
-        merged = serve.aggregate_worker_states(served.engines)
-        ecfg = single.cfg
-        seeds, tseeds = derive_stream_seeds(ecfg, device=DEVICE)
-        kt, vt = (torch.from_numpy(x).to(DEVICE) for x in (keys, vals))
-        tol = ref.scatter_tolerance(*ref.countsketch_scatter_mass_ref(
-            kt, vt, ecfg.rows, ecfg.width, seeds, p=ecfg.p,
-            transform_seeds=tseeds))
-        if not torch.equal(served.sample.keys,
-                           onepass_sample_batched(merged, k, ecfg.p).keys):
-            raise AssertionError(f"serve {label}: the printed sample is not "
-                                 f"the aggregated state's")
-        rec["history_streams"] = compare_histories(
-            torch, f"serve {label} ({workers} worker(s), window {window}) "
-            f"vs one {plane}-plane engine of every step", merged,
-            _map(lambda t: t.to(DEVICE), single.state), tol, seeds, k=k,
-            p=ecfg.p)
-        del single, merged, kt, vt, tol
-        log(f"[serve] {label} ({' '.join(argv)}): prefill "
-            f"{rec['prefill_ms']:.1f} ms ({rec['prefill_tokens_per_s']:.0f} "
-            f"tokens/s), decode {rec['decode_ms_per_step']:.2f} ms a step "
-            f"of {B} tokens ({rec['decode_tokens_per_s']:.1f} tokens/s), "
-            f"analytics ingest {rec['analytics_ingest_ms']:.1f} ms + sample "
-            f"{rec['analytics_sample_ms']:.1f} ms, peak {peak:.2f} GB, "
-            f"{rec['ids_past_vocab']} ids past the vocabulary, launches "
-            f"{launches}, {wall:.1f} s wall {tag}")
+        rec["history_streams"] = check_served_analytics(
+            torch, label, served, prompt, k, window, workers)
+        log_cli("serve", label, argv, rec, tag)
         if label == "full":
             # the CLI's decode (the prompt's prefill, its n steps teacher-
             # forced on its ids) against one forward over the prompt, the
@@ -4874,6 +4951,381 @@ def phase_serve(torch, seed, tag):
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"[phase] serve: {out['wall_s']:.2f} s wall")
     return out
+
+# the families phase: (a) the six new architectures reduced, float32, the
+# card against the port's CPU path; (b) the serving CLI at the full
+# published widths; (c) the enc-dec through prefill and decode_step; (d)
+# decode against the forward, float32, request 0
+FAMILY_PAIRS = ("olmoe_1b_7b", "grok1_314b", "mamba2_13b",
+                "recurrentgemma_9b", "seamless_m4t_large_v2",
+                "phi3_vision_42b")
+FAMILY_PAIR_PROMPT, FAMILY_PAIR_DECODE = 64, 4
+# the CLI's prompt per architecture: 4096 tokens (the vlm's 3520 after its
+# 576 patches), past recurrentgemma's 2048 window
+FAMILY_CLI = (("olmoe_1b_7b", 4096), ("mamba2_13b", 4096),
+              ("recurrentgemma_9b", 4096), ("phi3_vision_42b", 3520))
+FAMILY_ARGV = ["--batch", "4", "--tokens", "32", "--worp-topk", "8"]
+# (d): (the forward's tokens, the prefill's) per architecture, each a
+# length blockwise_attention takes (after the vlm's patches); the
+# hybrid's prefill and steps inside its 2048 window
+FAMILY_DVF = {"olmoe_1b_7b": (4096, 3072), "mamba2_13b": (4096, 3072),
+              "recurrentgemma_9b": (2048, 1024),
+              "phi3_vision_42b": (3520, 2496),
+              "seamless_m4t_large_v2": (1024, 512)}
+FAMILY_DVF_STEPS = 32
+# the depth at which (d) is gated (all layers where absent): random weights
+# make the deeper attention models chaotic (family_decode_vs_forward)
+FAMILY_DVF_LAYERS = {"olmoe_1b_7b": 4, "recurrentgemma_9b": 12,
+                     "phi3_vision_42b": 3, "seamless_m4t_large_v2": 2}
+# (c): seamless_m4t_large_v2 at its published widths
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_DECODE = 4, 1024, 32
+# the CLI's default prompt (64 tokens) on mamba2_13b, whose 64 heads meet
+# the reference's grow there (ROADMAP Queue 3)
+MAMBA_DEFAULT_ARGV = ["--arch", "mamba2_13b", "--worp-topk", "8"]
+
+
+def family_extras(torch, cfg, B, gen, dtype=None):
+    """The vlm's patch embeddings or the enc-dec's frames (N(0, 1) x 0.02,
+    from ``gen`` on the card; in ``dtype`` when given), else nothing."""
+    if cfg.family not in ("vlm", "encdec"):
+        return {}
+    name, n = (("patch_embeds", cfg.num_patches) if cfg.family == "vlm"
+               else ("frames", cfg.enc_context))
+    x = torch.randn((B, n, cfg.d_model), generator=gen, device=DEVICE,
+                    dtype=torch.float32)
+    x = x if dtype is None else x.to(dtype)
+    return {name: x * 0.02}
+
+
+def family_pair(torch, name, seed, tag) -> dict:
+    """(a) ``name`` reduced, float32, TF32 off: a 64-token prompt and 4
+    greedy decode steps on the card, the same weights and inputs through
+    the port's CPU path (decode teacher-forced on the card's ids), logits
+    allclose (rtol 1e-4, atol 1e-3 x max(1, max|logit|); seamless 1e-2 x,
+    whose random cross-attention amplifies float32 rounding 70-fold,
+    tests/test_torch_models.py)."""
+    from repro_torch import convert
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(name).reduced()
+    atol = 1e-2 if cfg.family == "encdec" else SERVE_ATOL
+    gen = torch.Generator(DEVICE).manual_seed(seed + 31)
+    params = M.init_params(cfg, gen, dtype=torch.float32, device=DEVICE)
+    host = convert.params_from_numpy(convert.params_to_numpy(params), "cpu")
+    S, n = FAMILY_PAIR_PROMPT, FAMILY_PAIR_DECODE
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, S),
+                                     generator=gen, device=DEVICE,
+                                     dtype=torch.int32),
+             **family_extras(torch, cfg, 2, gen)}
+    hbatch = {k: v.cpu() for k, v in batch.items()}
+    P = cfg.num_patches if cfg.family == "vlm" else 0
+    with torch.no_grad():
+        lg, cache = T.forward_prefill(params, batch, cfg)
+        hl, hcache = T.forward_prefill(host, hbatch, cfg)
+        errs = [serve_close(torch, f"{name} pair prefill logits", lg, hl,
+                            tag, atol)]
+        tok = serve.greedy(lg[:, -1:])
+        cache = serve.grow_cache(cache, S, S + P + n, P)
+        hcache = serve.grow_cache(hcache, S, S + P + n, P)
+        for i in range(n):
+            lg, cache = T.forward_decode(
+                params, {"token": tok, "pos": S + P + i, "cache": cache},
+                cfg)
+            hl, hcache = T.forward_decode(
+                host, {"token": tok.cpu(), "pos": S + P + i,
+                       "cache": hcache}, cfg)
+            errs.append(serve_close(torch, f"{name} pair decode step {i}",
+                                    lg, hl, tag, atol))
+            tok = serve.greedy(lg)
+    return {"max_err_over_scale": max(errs), "atol_scale": atol}
+
+
+def cli_weights_f32(torch, cfg, seed):
+    """The CLI's bfloat16 weights (``--seed``) in float32, with no
+    bfloat16 copy alive: the same float32 draws, each leaf rounded through
+    bfloat16 in place."""
+    from repro_torch.models import model as M
+    from repro_torch.models import params as P
+
+    params = M.init_params(cfg, torch.Generator(DEVICE).manual_seed(seed),
+                           dtype=torch.float32, device=DEVICE)
+    for leaf in P.leaves(params):
+        leaf.copy_(leaf.to(torch.bfloat16))
+    return params
+
+
+def cut_layers(params, cfg, L):
+    """The first ``L`` layers of ``cfg``'s stacks (views of ``params``,
+    the same weights) and the configuration of that depth: the hybrid
+    keeps L / 3 (R, R, L) groups and no tail, the enc-dec L encoder and L
+    decoder layers."""
+    import dataclasses
+
+    if cfg.family == "encdec":
+        keep = {"enc": L, "dec": L}
+        cut = dataclasses.replace(cfg, num_layers=L, enc_layers=L,
+                                  dec_layers=L)
+    elif cfg.family == "hybrid":
+        keep = {"rec1": L // 3, "rec2": L // 3, "attn": L // 3, "tail": 0}
+        cut = dataclasses.replace(cfg, num_layers=L)
+    else:
+        keep = {"layers": L}
+        cut = dataclasses.replace(cfg, num_layers=L)
+
+    def head(tree, n):
+        if isinstance(tree, dict):
+            return {k: head(v, n) for k, v in tree.items()}
+        return tree[:n]
+    return ({k: head(v, keep[k]) if k in keep else v
+             for k, v in params.items() if keep.get(k, 1)}, cut)
+
+
+def family_decode_vs_forward(torch, name, cfg, seed, tokens, extras,
+                             tag) -> dict:
+    """(d) float32, the CLI's weights, request 0 of ``tokens`` (with its
+    ``extras``): one forward over ``FAMILY_DVF[name][0]`` tokens, a
+    prefill of the first ``FAMILY_DVF[name][1]`` and ``FAMILY_DVF_STEPS``
+    decode steps teacher-forced on the rest, each against the forward's
+    logits at its position.  At full depth recorded, beside the prefill's
+    last logits against the forward's at the same position (two forwards
+    of one causal model over other lengths): with random weights the
+    attention scores reach the hundreds, so deep models are chaotic, and
+    where the two forwards part, decode parts as much.  Gated at the
+    reference test's 0.1 of max|logit| on the first
+    ``FAMILY_DVF_LAYERS[name]`` layers (all where absent), a MoE there at
+    capacity factor E / K, where no choice drops (a forward over more
+    tokens drops choices that decode, one token keeping every choice, does
+    not)."""
+    import dataclasses
+
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    t0 = time.perf_counter()
+    T_len, start = FAMILY_DVF[name]
+    n = FAMILY_DVF_STEPS
+    params = cli_weights_f32(torch, cfg, seed)
+    toks = tokens[:1, :T_len]
+    ex = {k: v[:1].float() for k, v in extras.items()}
+    P = ex["patch_embeds"].shape[1] if "patch_embeds" in ex else 0
+    out = {"forward_tokens": T_len + P, "prefill_tokens": start + P,
+           "steps": n}
+    L = FAMILY_DVF_LAYERS.get(name)
+    gate_p, gate_cfg = (params, cfg) if L is None else cut_layers(
+        params, cfg, L)
+    if cfg.num_experts:
+        gate_cfg = dataclasses.replace(
+            gate_cfg, capacity_factor=cfg.num_experts / cfg.moe_top_k)
+    runs = [("gated", gate_p, gate_cfg)]
+    if L is not None:
+        runs.insert(0, ("full", params, cfg))
+    for label, p, c in runs:
+        with torch.no_grad(), moe.count_drops() as drops:
+            lg = T.forward_train(p, {"tokens": toks, **ex}, c)
+            fwd = lg[:, start + P:start + P + n].clone()
+            last = lg[:, start + P - 1].clone()
+            del lg
+            pre, _ = T.forward_prefill(
+                p, {"tokens": toks[:, :start], **ex}, c)
+            base = float((pre[:, -1] - last).abs().max()
+                         / (last.abs().max() + 1e-6))
+            del pre, last
+        torch.cuda.empty_cache()
+        worst = decode_vs_forward(torch, p, c, toks, start, n, fwd, ex)
+        del fwd
+        rec = {"layers": c.num_layers, "decode_vs_forward_float32": worst,
+               "prefill_vs_forward_float32": base}
+        if drops:
+            rec["capacity_factor"] = c.capacity_factor
+            rec["forward_moe_dropped"] = int(sum(d for d, _ in drops))
+            rec["forward_moe_choices"] = int(sum(k for _, k in drops))
+        out[label] = rec
+        what = ("" if not drops else
+                f", capacity factor {c.capacity_factor:g}, the forwards "
+                f"dropped {rec['forward_moe_dropped']} of "
+                f"{rec['forward_moe_choices']} MoE choices, decode none")
+        log(f"[families] {name}, {c.num_layers} layers, float32 (request "
+            f"0){what}: decode vs a {T_len + P}-token forward from a "
+            f"{start + P}-token prefill, {n} steps, max diff / max|logit| "
+            f"{worst:.3e} "
+            + ("(gate 0.1)" if label == "gated" else "(recorded)")
+            + f"; the prefill's last logits vs the forward's {base:.3e} "
+            f"{tag}")
+    del params, gate_p
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    if not out["gated"]["decode_vs_forward_float32"] < 0.1:
+        raise AssertionError(f"families {name}: decode differs from the "
+                             f"forward")
+    return out
+
+
+def family_cli(torch, name, prompt, seed, tag) -> dict:
+    """(b) ``serve.main`` at ``name``'s published configuration in
+    bfloat16 (``FAMILY_ARGV``, a ``prompt``-token prompt, random weights
+    from the seed), its analytics held to one engine of every step; then
+    (d) on its weights and prompt."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = get_config(name)
+    argv = (["--arch", name, "--prompt-len", str(prompt)] + FAMILY_ARGV
+            + ["--seed", str(seed), "--device", DEVICE])
+    served, rec = serve_cli(torch, name, argv)
+    B, n = served.gen.ids.shape[0], served.gen.ids.shape[1] - 1
+    check_ids(name, served, cfg, B, n)
+    args = serve.build_parser().parse_args(argv)
+    tokens, patch_embeds = serve.make_prompt(cfg, args, torch.device(DEVICE))
+    rec["ids_past_vocab"] = int((served.gen.ids >= cfg.vocab_size).sum())
+    rec["history_streams"] = check_served_analytics(
+        torch, name, served, tokens, args.worp_topk, 0, 1)
+    rec["layers"] = cfg.num_layers
+    rec["params_b"] = M.param_count(cfg) / 1e9
+    log_cli("families", name, argv, rec, tag)
+    del served
+    torch.cuda.empty_cache()
+    extras = {} if patch_embeds is None else {"patch_embeds": patch_embeds}
+    rec["decode_vs_forward"] = family_decode_vs_forward(
+        torch, name, cfg, seed, tokens, extras, tag)
+    return rec
+
+
+def mamba_default_prompt(torch, seed, tag) -> dict:
+    """``serve.main`` on mamba2_13b at the CLI's defaults (batch 4, a
+    64-token prompt, 16 tokens), which crash the reference: its decode,
+    teacher-forced on the CLI's ids with the weights in float32, against
+    one forward over the prompt and the ids (gated at 0.1)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+
+    argv = MAMBA_DEFAULT_ARGV + ["--seed", str(seed), "--device", DEVICE]
+    served, rec = serve_cli(torch, "mamba2_13b default prompt", argv)
+    cfg = get_config("mamba2_13b")
+    args = serve.build_parser().parse_args(argv)
+    B, n, S = args.batch, args.tokens, args.prompt_len
+    check_ids("mamba2_13b default prompt", served, cfg, B, n)
+    prompt, _ = serve.make_prompt(cfg, args, torch.device(DEVICE))
+    ids = torch.from_numpy(served.gen.ids).to(DEVICE)
+    del served
+    tokens = torch.cat([prompt, ids[:, :n]], 1)[:1]
+    params = cli_weights_f32(torch, cfg, seed)
+    with torch.no_grad():
+        fwd = T.forward_train(params, {"tokens": tokens}, cfg)[:, S:]
+    rec["decode_vs_forward_float32"] = decode_vs_forward(
+        torch, params, cfg, tokens, S, n, fwd)
+    del params, fwd
+    torch.cuda.empty_cache()
+    log_cli("families", "mamba2_13b default prompt", argv, rec, tag)
+    heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim
+    log(f"[families] mamba2_13b at the CLI's default {S}-token prompt "
+        f"(the reference's grow pads its {heads}-head SSM state there and "
+        f"crashes): decode vs the "
+        f"forward in float32 (request 0, {n} steps on the CLI's ids), max "
+        f"diff / max|logit| {rec['decode_vs_forward_float32']:.3e} (gate "
+        f"0.1) {tag}")
+    if not rec["decode_vs_forward_float32"] < 0.1:
+        raise AssertionError("families mamba2_13b default prompt: decode "
+                             "differs from the forward")
+    return rec
+
+
+def encdec_full(torch, seed, tag) -> dict:
+    """(c) seamless_m4t_large_v2 at its published configuration in
+    bfloat16 (random weights and frames from the seed): ``M.prefill`` of
+    ``ENCDEC_BATCH`` requests of 4096 frames and an ``ENCDEC_PROMPT``-token
+    text prompt, then ``ENCDEC_DECODE`` greedy ``M.decode_step`` calls over
+    the grown self cache; finite logits and ids in range; then (d)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    name = "seamless_m4t_large_v2"
+    cfg = get_config(name)
+    B, S, n = ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_DECODE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_all = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(DEVICE).manual_seed(seed),
+                           device=DEVICE)
+    gen = torch.Generator(DEVICE).manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=DEVICE, dtype=torch.int32)
+    frames = family_extras(torch, cfg, B, gen, torch.bfloat16)["frames"]
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        lg, cache = M.prefill(params, {"tokens": tokens, "frames": frames},
+                              cfg)
+        tok = serve.greedy(lg[:, -1:])
+        outs = [tok.cpu()]
+        prefill_s = time.perf_counter() - t0
+        finite = bool(torch.isfinite(lg).all())
+        del lg
+        cache = serve.grow_cache(cache, S, S + n)
+        t0 = time.perf_counter()
+        for i in range(n):
+            lg, cache = M.decode_step(params, {"token": tok, "pos": S + i,
+                                               "cache": cache}, cfg)
+            finite &= bool(torch.isfinite(lg).all())
+            tok = serve.greedy(lg)
+            outs.append(tok.cpu())
+        decode_s = time.perf_counter() - t0
+    ids = torch.cat(outs, 1)
+    rec = {"prefill_ms": prefill_s * 1e3,
+           "decode_ms_per_step": decode_s * 1e3 / n,
+           "decode_tokens_per_s": B * n / decode_s,
+           "prefill_tokens_per_s": B * S / prefill_s,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "wall_s": time.perf_counter() - t_all, "layers": cfg.num_layers,
+           "params_b": M.param_count(cfg) / 1e9}
+    log(f"[families] {name} (M.prefill of {B} x {cfg.enc_context} frames "
+        f"and {S} tokens, {n} M.decode_step): prefill "
+        f"{rec['prefill_ms']:.1f} ms ({rec['prefill_tokens_per_s']:.0f} "
+        f"text tokens/s), decode {rec['decode_ms_per_step']:.2f} ms a step "
+        f"of {B} tokens ({rec['decode_tokens_per_s']:.1f} tokens/s), peak "
+        f"{rec['peak_gb']:.2f} GB, {rec['wall_s']:.1f} s wall {tag}")
+    if not (finite and ids.shape == (B, n + 1) and int(ids.min()) >= 0
+            and int(ids.max()) < cfg.padded_vocab()):
+        raise AssertionError(f"families {name}: logits or ids {ids}")
+    del params, cache
+    torch.cuda.empty_cache()
+    rec["decode_vs_forward"] = family_decode_vs_forward(
+        torch, name, cfg, seed, tokens, {"frames": frames}, tag)
+    return rec
+
+
+def phase_families(torch, seed, tag):
+    """The moe, ssm, hybrid, enc-dec and vlm families: (a)
+    ``family_pair`` for each of ``FAMILY_PAIRS``; (b) ``family_cli`` of
+    each of ``FAMILY_CLI``, each with (d); mamba2_13b at the CLI's
+    default prompt; (c) ``encdec_full``.  Each model is freed before the
+    next."""
+    t_phase = time.perf_counter()
+    out = {"pairs": {}}
+    t0 = time.perf_counter()
+    for name in FAMILY_PAIRS:
+        out["pairs"][name] = family_pair(torch, name, seed, tag)
+        torch.cuda.empty_cache()
+    out["pairs_wall_s"] = time.perf_counter() - t0
+    log(f"[families] (a) the six pairs: {out['pairs_wall_s']:.1f} s wall "
+        f"{tag}")
+    for name, prompt in FAMILY_CLI:
+        out[name] = family_cli(torch, name, prompt, seed, tag)
+        torch.cuda.empty_cache()
+    out["mamba2_13b_default_prompt"] = mamba_default_prompt(torch, seed,
+                                                            tag)
+    torch.cuda.empty_cache()
+    out["seamless_m4t_large_v2"] = encdec_full(torch, seed, tag)
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[phase] families: {out['wall_s']:.2f} s wall")
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4967,6 +5419,8 @@ def main() -> int:
     det_update = phase_det_update(torch, args.seed, tag)
     torch.cuda.empty_cache()
     served = phase_serve(torch, args.seed, tag)
+    torch.cuda.empty_cache()
+    families = phase_families(torch, args.seed, tag)
     torch.cuda.empty_cache()
 
     # -- the conformance grid; the ingest pipeline -------------------------
@@ -5073,6 +5527,16 @@ def main() -> int:
         est["launches"] += got["estimate"]
         scatter.setdefault("serve_launches", {})[label] = got["scatter"]
         est.setdefault("serve_launches", {})[label] = got["estimate"]
+    family_runs = {name: families[name]["launches"]
+                   for name, _ in FAMILY_CLI}
+    family_runs["mamba2_13b default prompt"] = families[
+        "mamba2_13b_default_prompt"]["launches"]
+    for label, got in family_runs.items():
+        scatter["launches"] += got["scatter"]
+        scatter["variants"]["smem"]["launches"] += got["smem"]
+        est["launches"] += got["estimate"]
+        scatter.setdefault("families_launches", {})[label] = got["scatter"]
+        est.setdefault("families_launches", {})[label] = got["estimate"]
     est["validate_launches"] = validate_launches["estimate"]
     est["ingest_launches"] = (ingest_launches["estimate"]
                               + ingest_det["estimate"])
@@ -5115,6 +5579,7 @@ def main() -> int:
     log("[gradcomp] " + json.dumps(gradcomp))
     log("[det update] " + json.dumps(det_update))
     log("[serve] " + json.dumps(served))
+    log("[families] " + json.dumps(families))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))

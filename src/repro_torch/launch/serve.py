@@ -27,8 +27,15 @@ the state crossings.  On the card a flush of token ids goes through the
 scatter and estimate kernels of the ``sparse``, ``async`` and ``pipeline``
 planes.
 
-Only the dense family's forwards are ported (ROADMAP Queue 1 item 2 brings
-the others); another family exits with that message.
+Every decoder family serves: dense, moe, ssm, hybrid and vlm (whose
+random patch embeddings, from ``--seed``, come before the prompt, so
+decoding starts at position prompt + ``num_patches``).  The enc-dec family
+exits with the reference's message; drive it through ``models.model``'s
+``prefill`` and ``decode_step``.  The caches grow by the decode budget as
+the reference's do, but only the attention ``k``/``v`` leaves: the
+reference pads any leaf whose axis 2 equals the prompt length, an SSM
+state's head count or a recurrent conv state's width included (ROADMAP
+Queue 3), so it crashes or misreads where the port serves.
 """
 from __future__ import annotations
 
@@ -106,30 +113,45 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return worp.top_k(logits, 1)[1][..., 0].to(torch.int32)
 
 
-def grow_cache(cache, S: int, full: int):
-    """Pad every (L, B, S, ...) kv cache to ``full`` slots on axis 2 (the
-    reference's ``grow``: a cache whose axis 2 is the prompt length; a local
-    layer's ring of ``local_window`` < S slots stays as it is)."""
-    if isinstance(cache, dict):
-        return {k: grow_cache(v, S, full) for k, v in cache.items()}
-    if cache.ndim >= 4 and cache.shape[2] == S:
-        shape = list(cache.shape)
-        shape[2] = full - S
-        return torch.cat([cache, cache.new_zeros(shape)], dim=2)
-    return cache
+def grow_cache(cache, S: int, full: int, patches: int = 0):
+    """Pad every attention cache (a ``k``/``v`` leaf (L, B, S or S +
+    ``patches``, ...)) to ``full`` slots on axis 2, as the reference's
+    ``grow`` pads a cache of the prompt's length: a local ring of
+    ``local_window`` < S slots stays as it is, and one of S slots grows
+    (the reference's ring, reproduced).  Recurrent and SSM state leaves
+    are never padded (the reference's ``grow`` pads any leaf whose axis 2
+    matches: ROADMAP Queue 3).  A leaf not padded is the input's own
+    tensor, which decode then updates in place."""
+    out = {}
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            out[k] = grow_cache(v, S, full, patches)
+        elif k in ("k", "v") and v.shape[2] in (S, S + patches):
+            shape = list(v.shape)
+            shape[2] = full - v.shape[2]
+            out[k] = torch.cat([v, v.new_zeros(shape)], dim=2)
+        else:
+            out[k] = v
+    return out
 
 
 def generate(params, tokens: torch.Tensor, cfg, n_tokens: int, engines=(),
-             window: int = 0) -> Generation:
-    """Prefill ``tokens`` (B, S) and decode ``n_tokens`` greedy steps, as
-    the reference's serving loop: with ``engines`` (one or more workers),
-    the prompt is ingested into worker 0 unless ``window`` is set, and the
-    first id and every decoded id, one step a call, into worker ``t % N``;
-    with a window, step t - window is retracted (-1) through the worker
-    that ingested it once step t is in.  The caches grow by the decode
-    budget after the prefill.  Each step's ids come to the host, which
-    waits for the card, so the times need no other synchronisation."""
+             window: int = 0, patch_embeds=None) -> Generation:
+    """Prefill ``tokens`` (B, S) (after ``patch_embeds`` (B, P, D) for the
+    vlm) and decode ``n_tokens`` greedy steps, as the reference's serving
+    loop: with ``engines`` (one or more workers), the prompt is ingested
+    into worker 0 unless ``window`` is set, and the first id and every
+    decoded id, one step a call, into worker ``t % N``; with a window,
+    step t - window is retracted (-1) through the worker that ingested it
+    once step t is in.  The caches grow by the decode budget after the
+    prefill.  Each step's ids come to the host, which waits for the card,
+    so the times need no other synchronisation."""
     B, S = tokens.shape
+    batch = {"tokens": tokens}
+    P = 0
+    if patch_embeds is not None:
+        batch["patch_embeds"] = patch_embeds
+        P = patch_embeds.shape[1]
     nstep = 0
     held: list = []  # (worker, ids) still inside the window
     ingest_s = 0.0
@@ -148,10 +170,10 @@ def generate(params, tokens: torch.Tensor, cfg, n_tokens: int, engines=(),
 
     with torch.no_grad():
         t0 = time.perf_counter()
-        logits, cache = T.forward_prefill(params, {"tokens": tokens}, cfg)
+        logits, cache = T.forward_prefill(params, batch, cfg)
         tok = greedy(logits[:, -1:])
         del logits
-        cache = grow_cache(cache, S, S + n_tokens)
+        cache = grow_cache(cache, S, S + P + n_tokens, P)
         ids = tok.cpu().numpy()
         prefill_s = time.perf_counter() - t0
         if engines:
@@ -167,7 +189,8 @@ def generate(params, tokens: torch.Tensor, cfg, n_tokens: int, engines=(),
         t0 = time.perf_counter()
         for i in range(n_tokens):
             lg, cache = T.forward_decode(
-                params, {"token": tok, "pos": S + i, "cache": cache}, cfg)
+                params, {"token": tok, "pos": S + P + i, "cache": cache},
+                cfg)
             tok = greedy(lg)
             ids = tok.cpu().numpy()
             outs.append(ids)
@@ -228,6 +251,22 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def make_prompt(cfg, args, dev):
+    """The CLI's random prompt (``--seed`` + 1) and, for the vlm, patch
+    embeddings (N(0, 1) in bfloat16 x 0.02, ``--seed`` + 2; else None), on
+    ``dev``."""
+    tokens = torch.randint(
+        0, cfg.vocab_size, (args.batch, args.prompt_len), dtype=torch.int32,
+        device=dev, generator=torch.Generator(dev).manual_seed(args.seed + 1))
+    patch_embeds = None
+    if cfg.family == "vlm":
+        patch_embeds = torch.randn(
+            (args.batch, cfg.num_patches, cfg.d_model), dtype=torch.float32,
+            device=dev, generator=torch.Generator(dev).manual_seed(
+                args.seed + 2)).to(torch.bfloat16) * 0.02
+    return tokens, patch_embeds
+
+
 def main(argv=None) -> Served:
     ap = build_parser()
     args = ap.parse_args(argv)
@@ -247,15 +286,13 @@ def main(argv=None) -> Served:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    if cfg.family != "dense":
-        ap.error(T.NOT_PORTED.format(fam=cfg.family))
+    if cfg.family == "encdec":
+        raise SystemExit("use the enc-dec driver in examples/ for seamless")
     dev = resolve_device(args.device)
     params = M.init_params(cfg, torch.Generator(dev).manual_seed(args.seed),
                            device=dev)
-    B, S = args.batch, args.prompt_len
-    tokens = torch.randint(
-        0, cfg.vocab_size, (B, S), dtype=torch.int32, device=dev,
-        generator=torch.Generator(dev).manual_seed(args.seed + 1))
+    tokens, patch_embeds = make_prompt(cfg, args, dev)
+    B = args.batch
     engines: list = []
     if args.worp_topk:
         ecfg = EngineConfig(
@@ -272,7 +309,7 @@ def main(argv=None) -> Served:
                                       plane_opts=plane_opts, device=dev)
     try:
         gen = generate(params, tokens, cfg, args.tokens, engines,
-                       args.worp_window)
+                       args.worp_window, patch_embeds)
         print("generated ids:")
         for row in gen.ids:
             print(" ", row.tolist())

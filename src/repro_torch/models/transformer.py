@@ -1,5 +1,4 @@
-"""Model assembly: parameter and cache trees for all 10 architectures, and
-the dense family's forwards (PyTorch).
+"""Model assembly for all 10 architectures (PyTorch).
 
 The port's counterpart of ``repro.models.transformer``:
   * ``param_tree(cfg)``          -- PD tree (shapes + sharding axes + init)
@@ -8,19 +7,23 @@ The port's counterpart of ``repro.models.transformer``:
   * ``forward_prefill(params, batch, cfg)`` -> (logits, cache)
   * ``forward_decode(params, batch, cfg)``  -> (logits, cache)
 
-The trees hold every family, so ``param_count`` and ``pspecs`` cover all
-ten architectures.  The forwards run the dense family (deepseek, qwen,
-phi4 with global layers; gemma2 with local/global pairs, post-norms and
-softcaps); the moe, ssm, hybrid, encdec and vlm forwards raise until ROADMAP
-Queue 1 item 2 ports them.  Parameters keep the reference's stacked (L,
-...) layout, so its arrays cross as a numpy copy (``convert.
-params_from_numpy``), and a Python loop over the layers takes the place of
-``lax.scan``.  Training does not rematerialise the layers as the
-reference's ``jax.checkpoint`` does; the gradients are the same.
+Families: dense (deepseek, qwen, phi4 with global layers; gemma2 with
+local/global pairs, post-norms and softcaps), moe (olmoe, grok-1:
+``models/moe.py``), vlm (phi-3-vision: patch embeddings prepended to the
+text), ssm (mamba2: ``models/ssm.py``), hybrid (recurrentgemma's (R, R, L)
+groups and recurrent tail: ``models/rglru.py``), encdec (seamless: an
+encoder over frame embeddings, a text decoder with cross attention).
+Parameters keep the reference's stacked (L, ...) layout, so its arrays
+cross as a numpy copy (``convert.params_from_numpy``), and a Python loop
+over the layers takes the place of ``lax.scan``.  Training does not
+rematerialise the layers as the reference's ``jax.checkpoint`` does; the
+gradients are the same.  Decode updates the cache it is given in place
+and returns it: the kv rings through ``cache_insert``, the recurrent and
+SSM states by a copy into each layer's slice.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
@@ -28,39 +31,11 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import shard
 
+from . import moe as moe_lib
+from . import rglru, ssm
 from .layers import (attn_out, attn_qkv, blockwise_attention, cache_insert,
                      decode_attention, rmsnorm, rope, softcap, swiglu)
 from .params import PD
-
-NOT_PORTED = ("the {fam} family's forward is not ported yet (ROADMAP Queue "
-              "1 item 2); the dense family runs")
-
-
-class SSMDims(NamedTuple):
-    """The mamba2 block's widths (``repro.models.ssm.SSMDims``), for the
-    parameter and cache shapes."""
-    d_inner: int
-    nheads: int
-    headdim: int
-    d_state: int
-    ngroups: int
-    d_conv: int
-
-    @property
-    def conv_dim(self):
-        return self.d_inner + 2 * self.ngroups * self.d_state
-
-    @property
-    def in_proj_dim(self):
-        # [z (gate), x, B, C, dt]
-        return 2 * self.d_inner + 2 * self.ngroups * self.d_state + self.nheads
-
-
-def dims_from_config(cfg) -> SSMDims:
-    d_inner = cfg.ssm_expand * cfg.d_model
-    return SSMDims(d_inner=d_inner, nheads=d_inner // cfg.ssm_headdim,
-                   headdim=cfg.ssm_headdim, d_state=cfg.ssm_state,
-                   ngroups=cfg.ssm_groups, d_conv=cfg.ssm_conv)
 
 
 # ---------------------------------------------------------------------------
@@ -123,7 +98,7 @@ def _dense_stack_pd(L, cfg: ArchConfig, post_norms=False):
 
 
 def _ssm_stack_pd(L, cfg: ArchConfig):
-    dims = dims_from_config(cfg)
+    dims = ssm.dims_from_config(cfg)
     D = cfg.d_model
     return {
         "ln1": PD((L, D), ("layers", None), "zeros"),
@@ -227,7 +202,7 @@ def _kv_pd(L, B, S, cfg: ArchConfig):
 
 
 def _ssm_state_pd(L, B, cfg: ArchConfig):
-    dims = dims_from_config(cfg)
+    dims = ssm.dims_from_config(cfg)
     return {
         "conv": PD((L, B, dims.d_conv - 1, dims.conv_dim),
                    ("layers", "cache_batch", None, None), "zeros"),
@@ -337,6 +312,29 @@ def _mlp_apply(x, lp, cfg: ArchConfig, post_norms: bool = False):
     return x + out
 
 
+def _moe_apply(x, lp, cfg: ArchConfig):
+    xn = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    mp = {"router": lp["router"], "wg": lp["moe_wg"], "wi": lp["moe_wi"],
+          "wo": lp["moe_wo"]}
+    return x + moe_lib.moe_ffn(xn, mp, cfg.num_experts, cfg.moe_top_k,
+                               cfg.capacity_factor)
+
+
+def _rec_apply(x, lp, cfg: ArchConfig, mode: str, state):
+    xn = rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    out, new_state = rglru.recurrent_block(xn, lp, mode, state)
+    out = rmsnorm(out, lp["ln1p"], cfg.norm_eps)
+    x = x + out
+    x = _mlp_apply(x, lp, cfg, post_norms=True)
+    return x, new_state
+
+
+def _ssm_apply(x, lp, cfg: ArchConfig, mode: str, state):
+    xn = rmsnorm(x, lp["ln1"], cfg.norm_eps, zero_centered=False)
+    out, new_state = ssm.mamba2_block(xn, lp, cfg, mode, state)
+    return x + out, new_state
+
+
 # ---------------------------------------------------------------------------
 # stacks (a loop over the stacked layers)
 # ---------------------------------------------------------------------------
@@ -360,15 +358,27 @@ def _num_layers(tree) -> int:
     return tree.shape[0]
 
 
+def _assign(dst, src):
+    """Copy every leaf of ``src`` that is not already ``dst``'s into it."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _assign(dst[k], src[k])
+    elif src is not dst:
+        dst.copy_(src)
+
+
 def _scan_stack(body, x, stack, cache, mode: str):
     """The layers in order.  train: no cache; prefill: the per-layer caches
     stacked; decode: ``cache`` itself, each layer's slice updated in place
-    through its view."""
+    through its view (a kv ring by ``cache_insert``, a state by a copy)."""
     new = []
     for i in range(_num_layers(stack)):
-        x, nc = body(x, _index(stack, i),
-                     None if cache is None else _index(cache, i))
-        new.append(nc)
+        cl = None if cache is None else _index(cache, i)
+        x, nc = body(x, _index(stack, i), cl)
+        if mode == "decode":
+            _assign(cl, nc)
+        else:
+            new.append(nc)
     if mode == "train":
         return x, None
     if mode == "prefill":
@@ -381,35 +391,74 @@ def _dense_body(cfg, mode, pos, window=0, post_norms=False, wedge=False):
         x, nc = _attn_apply(x, lp, cfg, mode, cl, pos, window=window,
                             post_norms=post_norms, wedge=wedge)
         if "router" in lp:
-            raise NotImplementedError(NOT_PORTED.format(fam="moe"))
-        x = _mlp_apply(x, lp, cfg, post_norms=post_norms)
+            x = _moe_apply(x, lp, cfg)
+        else:
+            x = _mlp_apply(x, lp, cfg, post_norms=post_norms)
         return x, nc
     return body
 
 
 def _apply_backbone(params, x, cfg: ArchConfig, mode: str, cache, pos,
                     wedge: bool = False):
-    """Run the dense layer stack.  Returns (x, new_cache)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(NOT_PORTED.format(fam=cfg.family))
-    if cfg.layer_pattern == "local_global":
-        bl = _dense_body(cfg, mode, pos, window=cfg.local_window,
+    """Run the layer stack for any decoder family.  Returns (x, new_cache)."""
+    fam = cfg.family
+
+    if fam in ("dense", "vlm", "moe"):
+        if cfg.layer_pattern == "local_global":
+            bl = _dense_body(cfg, mode, pos, window=cfg.local_window,
+                             post_norms=True)
+            bg = _dense_body(cfg, mode, pos, post_norms=True, wedge=wedge)
+
+            def body(x, lp, cl):
+                x, ncl = bl(x, lp["local"],
+                            None if cl is None else cl["local"])
+                x, ncg = bg(x, lp["global"],
+                            None if cl is None else cl["global"])
+                return x, {"local": ncl, "global": ncg}
+
+            stack = {"local": params["local"], "global": params["global"]}
+            return _scan_stack(body, x, stack, cache, mode)
+
+        body = _dense_body(cfg, mode, pos, wedge=wedge)
+        x, nc = _scan_stack(body, x, params["layers"],
+                            None if cache is None else cache["layers"], mode)
+        return x, (None if nc is None else {"layers": nc})
+
+    if fam == "ssm":
+        def body(x, lp, st):
+            return _ssm_apply(x, lp, cfg, mode, st)
+        x, nst = _scan_stack(body, x, params["layers"],
+                             None if cache is None else cache["layers"],
+                             mode)
+        return x, (None if nst is None else {"layers": nst})
+
+    if fam == "hybrid":
+        ba = _dense_body(cfg, mode, pos, window=cfg.local_window,
                          post_norms=True)
-        bg = _dense_body(cfg, mode, pos, post_norms=True, wedge=wedge)
 
         def body(x, lp, cl):
-            x, ncl = bl(x, lp["local"], None if cl is None else cl["local"])
-            x, ncg = bg(x, lp["global"],
-                        None if cl is None else cl["global"])
-            return x, {"local": ncl, "global": ncg}
+            x, ns1 = _rec_apply(x, lp["rec1"], cfg, mode,
+                                None if cl is None else cl["rec1"])
+            x, ns2 = _rec_apply(x, lp["rec2"], cfg, mode,
+                                None if cl is None else cl["rec2"])
+            x, nat = ba(x, lp["attn"], None if cl is None else cl["attn"])
+            return x, {"rec1": ns1, "rec2": ns2, "attn": nat}
 
-        stack = {"local": params["local"], "global": params["global"]}
-        return _scan_stack(body, x, stack, cache, mode)
+        stack = {k: params[k] for k in ("rec1", "rec2", "attn")}
+        cc = None if cache is None else {k: cache[k]
+                                         for k in ("rec1", "rec2", "attn")}
+        x, ncache = _scan_stack(body, x, stack, cc, mode)
 
-    body = _dense_body(cfg, mode, pos, wedge=wedge)
-    x, nc = _scan_stack(body, x, params["layers"],
-                        None if cache is None else cache["layers"], mode)
-    return x, (None if nc is None else {"layers": nc})
+        if "tail" in params:
+            def tbody(x, lp, st):
+                return _rec_apply(x, lp, cfg, mode, st)
+            tc = None if cache is None else cache["tail"]
+            x, ntail = _scan_stack(tbody, x, params["tail"], tc, mode)
+            if ncache is not None:
+                ncache = dict(ncache, tail=ntail)
+        return x, ncache
+
+    raise ValueError(fam)
 
 
 # ---------------------------------------------------------------------------
@@ -438,23 +487,29 @@ def _logits(params, x, cfg: ArchConfig):
     return shard(out, "act_batch", "act_seq", "act_vocab")
 
 
-def _require_dense(cfg: ArchConfig):
-    if cfg.family != "dense":
-        raise NotImplementedError(NOT_PORTED.format(fam=cfg.family))
+def _prefix_patches(x_text, patch_embeds, cfg: ArchConfig):
+    """VLM: prepend the (stubbed) patch embeddings to the token stream."""
+    return torch.cat([patch_embeds.to(x_text.dtype), x_text], dim=1)
 
 
 def forward_train(params, batch, cfg: ArchConfig, wedge: bool = False):
-    """Teacher-forced logits.  batch['tokens'] (B, S)."""
-    _require_dense(cfg)
+    """Teacher-forced logits for the LM families.  batch['tokens'] (B, S)."""
+    if cfg.family == "encdec":
+        return _encdec_forward(params, batch, cfg, mode="train")[0]
     x = _embed(params, batch["tokens"], cfg)
+    if cfg.family == "vlm":
+        x = _prefix_patches(x, batch["patch_embeds"], cfg)
     x, _ = _apply_backbone(params, x, cfg, "train", None, None, wedge=wedge)
     return _logits(params, x, cfg)
 
 
 def forward_prefill(params, batch, cfg: ArchConfig, wedge: bool = False):
     """Prefill: logits over the prompt + freshly built decode cache."""
-    _require_dense(cfg)
+    if cfg.family == "encdec":
+        return _encdec_forward(params, batch, cfg, mode="prefill")
     x = _embed(params, batch["tokens"], cfg)
+    if cfg.family == "vlm":
+        x = _prefix_patches(x, batch["patch_embeds"], cfg)
     x, cache = _apply_backbone(params, x, cfg, "prefill", None, None,
                                wedge=wedge)
     return _logits(params, x, cfg), cache
@@ -463,9 +518,77 @@ def forward_prefill(params, batch, cfg: ArchConfig, wedge: bool = False):
 def forward_decode(params, batch, cfg: ArchConfig):
     """One decode step.  batch: token (B, 1), pos (an int, the new token's
     index), cache tree.  The cache is updated in place and returned."""
-    _require_dense(cfg)
     pos = int(batch["pos"])
+    if cfg.family == "encdec":
+        return _encdec_forward(params, dict(batch, pos=pos), cfg,
+                               mode="decode")
     x = _embed(params, batch["token"], cfg)
     x, new_cache = _apply_backbone(params, x, cfg, "decode", batch["cache"],
                                    pos)
     return _logits(params, x, cfg), new_cache
+
+
+# ---------------------------------------------------------------------------
+# encoder-decoder (seamless-m4t backbone; audio frontend stubbed)
+# ---------------------------------------------------------------------------
+
+def _cross_apply(x, lp, cfg: ArchConfig, mode: str, cross_cache):
+    """Decoder cross-attention over (cached) encoder keys/values."""
+    xn = rmsnorm(x, lp["lnx"], cfg.norm_eps)
+    q = attn_qkv(xn, lp["xq"])
+    q = shard(q, "act_batch", "act_seq", "act_heads", None)
+    o = blockwise_attention(q, cross_cache["k"], cross_cache["v"],
+                            causal=False)
+    return x + attn_out(o, lp["xo"])
+
+
+def _enc_body(cfg):
+    def body(x, lp, _):
+        x, _ = _attn_apply(x, lp, cfg, "train", None, None, causal=False)
+        x = _mlp_apply(x, lp, cfg)
+        return x, None
+    return body
+
+
+def _encdec_forward(params, batch, cfg: ArchConfig, mode: str):
+    """The encoder over the frames (train and prefill), then the decoder:
+    train returns (logits,), prefill (logits, cache), decode (logits,
+    cache) from the cached self and cross keys.  The frames are rounded to
+    bfloat16, as the reference rounds them, then cast to the weights'
+    dtype (the reference's layer scan refuses float32 weights there: its
+    bfloat16 carry meets float32 outputs)."""
+    if mode == "decode":
+        x = _embed(params, batch["token"], cfg)
+
+        def body(x, lp, cl):
+            x, nself = _attn_apply(x, lp, cfg, mode, cl["self"],
+                                   batch["pos"])
+            x = _cross_apply(x, lp, cfg, mode, cl["cross"])
+            x = _mlp_apply(x, lp, cfg)
+            return x, {"self": nself, "cross": cl["cross"]}
+
+        cache = batch["cache"]
+        x, cache = _scan_stack(body, x, params["dec"], cache, mode)
+        return _logits(params, x, cfg), cache
+
+    e = batch["frames"].to(torch.bfloat16).to(params["embed"].dtype)
+    e = shard(e, "act_batch", "act_seq", "act_embed")
+    e, _ = _scan_stack(_enc_body(cfg), e, params["enc"], None, "train")
+    enc_out = rmsnorm(e, params["enc_final_norm"], cfg.norm_eps)
+
+    # train / prefill: build cross K/V from encoder output per layer
+    x = _embed(params, batch["tokens"], cfg)
+
+    def body(x, lp, _):
+        x, nself = _attn_apply(x, lp, cfg, mode, None, None)
+        xk = attn_qkv(enc_out, lp["xk"])
+        xv = attn_qkv(enc_out, lp["xv"])
+        x = _cross_apply(x, lp, cfg, mode, {"k": xk, "v": xv})
+        x = _mlp_apply(x, lp, cfg)
+        return x, (None if mode == "train"
+                   else {"self": nself, "cross": {"k": xk, "v": xv}})
+
+    x, cache = _scan_stack(body, x, params["dec"], None, mode)
+    if mode == "train":
+        return (_logits(params, x, cfg),)
+    return _logits(params, x, cfg), cache

@@ -39,9 +39,11 @@ give the same bits too.  So must the dense update's "det" variant (each
 chunk of a segment summed in slot order, the chunks in chunk order),
 whose bits are its order model's, ``ref.countsketch_update_det_ref``.
 
-The dense model family runs reduced on the card in float32 with TF32
-off: decode against the teacher-forced forward (the reference test's 0.1
-of max|logit|), and the card's forward against the CPU's.
+The model families run reduced on the card in float32 with TF32 off:
+decode against the teacher-forced forward (the reference test's 0.1 of
+max|logit|), and the card's forward, prefill and decode steps against the
+CPU's; the reduced mamba2's prefill in the deterministic mode; the serving
+CLI of each decoder family with its analytics' kernel launches.
 """
 import contextlib
 import os
@@ -1501,3 +1503,150 @@ def test_dense_model_decode_matches_forward_on_card(name):
     got, ref_row = lg[:, 0], full[:, 32]
     assert float((got - ref_row).abs().max()) / (
         float(ref_row.abs().max()) + 1e-6) < 0.1
+
+
+# ---------------------------------------------------------------------------
+# the moe, ssm, hybrid, enc-dec and vlm families on the card
+# ---------------------------------------------------------------------------
+
+NEW_FAMILIES = ("olmoe_1b_7b", "grok1_314b", "mamba2_13b",
+                "recurrentgemma_9b", "seamless_m4t_large_v2",
+                "phi3_vision_42b")
+
+
+def _family_batch(cfg, toks, gen):
+    """``toks`` and the vlm's patch embeddings or the enc-dec's frames
+    (N(0, 1) x 0.02, from ``gen``), on the CPU."""
+    batch = {"tokens": toks}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.randn(
+            (toks.shape[0], cfg.num_patches, cfg.d_model),
+            generator=gen) * 0.02
+    elif cfg.family == "encdec":
+        batch["frames"] = torch.randn(
+            (toks.shape[0], cfg.enc_context, cfg.d_model),
+            generator=gen) * 0.02
+    return batch
+
+
+def _to(batch, device):
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("name", NEW_FAMILIES)
+def test_new_family_on_card_matches_cpu(name):
+    """Reduced, float32, TF32 off: the forward, the prefill and 4 greedy
+    decode steps on the card against the port's CPU path with the same
+    weights (rtol 1e-4, atol 1e-3 x max(1, max|logit|); seamless 1e-2 x:
+    its random cross-attention amplifies float32 rounding 70-fold,
+    tests/test_torch_models.py), and decode from a 32-token prefill
+    against the card's forward at position 32 (the reference test's 0.1 of
+    max|logit|; the vlm's position after its patches)."""
+    _need_card()
+    from repro_torch import convert
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(name).reduced()
+    scale_f = 1e-2 if cfg.family == "encdec" else 1e-3
+    P = cfg.num_patches if cfg.family == "vlm" else 0
+    gen = torch.Generator().manual_seed(5)
+    host = M.init_params(cfg, gen, dtype=torch.float32)
+    params = convert.params_from_numpy(convert.params_to_numpy(host), "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), dtype=torch.int32,
+                         generator=gen)
+    full_b = _family_batch(cfg, toks, torch.Generator().manual_seed(6))
+    pre_b = dict(full_b, tokens=toks[:, :32])
+
+    def close(got, want):
+        got, want = got.cpu(), want.cpu()
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=scale_f * scale)
+
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            full = T.forward_train(params, _to(full_b, "cuda"), cfg)
+            close(full, T.forward_train(host, full_b, cfg))
+            lg, cache = T.forward_prefill(params, _to(pre_b, "cuda"), cfg)
+            hl, hcache = T.forward_prefill(host, pre_b, cfg)
+            close(lg, hl)
+            # a cache of its own: decode updates the states in place
+            _, first = T.forward_prefill(params, _to(pre_b, "cuda"), cfg)
+            first = serve.grow_cache(first, 32, 33 + P, P)
+            dl, _ = T.forward_decode(params, {"token": toks[:, 32:].cuda(),
+                                              "pos": 32 + P,
+                                              "cache": first}, cfg)
+            want = full[:, 32 + P]
+            assert float((dl[:, 0] - want).abs().max()) / (
+                float(want.abs().max()) + 1e-6) < 0.1
+            cache = serve.grow_cache(cache, 32, 36 + P, P)
+            hcache = serve.grow_cache(hcache, 32, 36 + P, P)
+            tok = serve.greedy(lg[:, -1:])
+            for i in range(4):
+                lg, cache = T.forward_decode(params, {
+                    "token": tok, "pos": 32 + P + i, "cache": cache}, cfg)
+                hl, hcache = T.forward_decode(host, {
+                    "token": tok.cpu(), "pos": 32 + P + i, "cache": hcache},
+                    cfg)
+                close(lg, hl)
+                tok = serve.greedy(lg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def test_mamba2_prefill_in_the_deterministic_mode():
+    """The reduced mamba2's prefill in the deterministic mode: SSD's float
+    ``cumsum`` and its products run there without raising, two runs give
+    the same bits, within the CPU's tolerance of the default mode's logits
+    and caches."""
+    _need_card()
+    from repro_torch import convert
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("mamba2_13b").reduced()
+    host = M.init_params(cfg, torch.Generator().manual_seed(7),
+                         dtype=torch.float32)
+    params = convert.params_from_numpy(convert.params_to_numpy(host), "cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 256), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(8)).cuda()
+    with torch.no_grad():
+        want, wcache = T.forward_prefill(params, {"tokens": toks}, cfg)
+        with _deterministic():
+            runs = [T.forward_prefill(params, {"tokens": toks}, cfg)
+                    for _ in range(2)]
+    (a, ca), (b, cb) = runs
+    assert torch.equal(a, b)
+    assert all(torch.equal(x, y) for x, y in zip(
+        (ca["layers"]["ssm"], ca["layers"]["conv"]),
+        (cb["layers"]["ssm"], cb["layers"]["conv"])))
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(a, want, rtol=1e-4, atol=1e-3 * scale)
+    torch.testing.assert_close(ca["layers"]["ssm"], wcache["layers"]["ssm"],
+                               rtol=1e-4, atol=1e-3 * max(
+                                   1.0, float(wcache["layers"]["ssm"].abs()
+                                              .max())))
+
+
+@pytest.mark.parametrize("name", ["olmoe_1b_7b", "mamba2_13b",
+                                  "recurrentgemma_9b", "phi3_vision_42b"])
+def test_serve_main_of_each_family_launches_the_analytics_kernels(name):
+    """``serve.main`` reduced on the card (its defaults: batch 4, a
+    64-token prompt, 16 tokens) with --worp-topk 5: the analytics' flushes
+    launch the scatter and the estimate kernels."""
+    _need_card()
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import serve
+
+    before = (ts.launches, tq.estimate_launches)
+    out = serve.main(["--arch", name, "--reduced", "--worp-topk", "5"])
+    assert ts.launches > before[0] and tq.estimate_launches > before[1]
+    assert out.gen.ids.shape == (4, 17)
+    assert out.gen.ids.max() < get_config(name).reduced().padded_vocab()
+    assert out.sample.keys.device.type == "cuda"

@@ -1,19 +1,35 @@
-"""Port parity: the dense model family (``repro_torch.models``) against the
-JAX package's (``repro.models``), on the CPU.
+"""Port parity: the model families (``repro_torch.models``) against the JAX
+package's (``repro.models``), on the CPU.
 
 Parameters are the reference's own, initialized in float32 by
 ``M.init_params(cfg, PRNGKey(0), dtype=float32)`` and carried across as
 numpy (``convert.params_from_numpy``): ``jax.random`` cannot be reproduced
-in torch.  Inputs are made with numpy.  The four dense architectures run
-reduced (2 layers, d_model 128, vocab 512).
+in torch.  Inputs are made with numpy (patch embeddings and frames
+N(0, 1) x 0.02, as ``concrete_inputs`` draws them).  The ten architectures
+run reduced (2 layers, 3 for the hybrid's (R, R, L) group, d_model 128,
+vocab 512).
+
+The reference's enc-dec refuses float32 weights (its encoder scan carries
+the bfloat16 frames and meets float32 outputs), so seamless's float32
+oracle is the reference's own layer functions (``_attn_apply``,
+``_mlp_apply``, ``_cross_apply``, ``_embed``, ``_logits``) composed in
+``_encdec_forward``'s order, the frames rounded to bfloat16 and cast to
+float32; its decode step is the reference's ``forward_decode`` itself.
 
 Tolerances (float32 throughout; both packages sum matrix products and
 softmaxes in their own orders):
   * logits and caches: rtol 1e-4, atol 5e-4 x max(1, max|want|); measured
     up to 2.0e-4 at |want| <= 4.8;
+  * seamless's logits and caches: atol 1e-2 x max(1, max|want|) (rtol as
+    above): the reference's init gives its cross-attention keys and
+    queries elements up to ~20, so the encoder's float32 rounding (3e-5
+    of scale) grows about 70-fold through the cross-attention softmax
+    (measured 7.1e-4 to 2.1e-3 over three seeds; the other new families
+    2e-7 to 6e-5);
   * the loss: rtol 1e-5;
   * gradients: each leaf within 1e-3 x its max|want| (the backward sums
-    over batch and sequence; measured up to 1.3e-4 x);
+    over batch and sequence; measured up to 2.5e-4 x); seamless's within
+    5e-2 x (measured 6.3e-3 to 2.2e-2 x over three seeds, as above);
   * attention variants: the reference's own 2e-4 between variants, and
     1e-5 between a variant and its JAX counterpart (one dataflow);
   * decode against the forward within the port: the reference's 0.1 of
@@ -36,13 +52,16 @@ from repro.models import transformer as JT
 from repro_torch import convert
 from repro_torch.configs import base as tbase
 from repro_torch.distributed import sharding as tshd
-from repro_torch.models import layers, params as P
+from repro_torch.models import layers, moe, params as P
 from repro_torch.models import model as M
 from repro_torch.models import transformer as T
 
 jax.config.update("jax_platform_name", "cpu")
 
 DENSE = ("deepseek_67b", "gemma2_2b", "qwen25_32b", "phi4_mini_38b")
+NEW = ("olmoe_1b_7b", "grok1_314b", "mamba2_13b", "recurrentgemma_9b",
+       "seamless_m4t_large_v2", "phi3_vision_42b")
+ENCDEC = "seamless_m4t_large_v2"
 S = 32
 
 
@@ -69,6 +88,77 @@ def _tokens(cfg, shape, seed):
         0, cfg.vocab_size, shape).astype(np.int32)
 
 
+def _batches(cfg, toks, seed, **more):
+    """The reference's and the port's batch: ``toks``, the vlm's patch
+    embeddings or the enc-dec's frames (numpy, N(0, 1) x 0.02), and
+    ``more`` arrays."""
+    rng = np.random.default_rng(seed + 100)
+    arrays = {"tokens": toks, **more}
+    if cfg.family == "vlm":
+        arrays["patch_embeds"] = (rng.standard_normal(
+            (toks.shape[0], cfg.num_patches, cfg.d_model)) * 0.02
+        ).astype(np.float32)
+    elif cfg.family == "encdec":
+        arrays["frames"] = (rng.standard_normal(
+            (toks.shape[0], cfg.enc_context, cfg.d_model)) * 0.02
+        ).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in arrays.items()},
+            {k: torch.from_numpy(v) for k, v in arrays.items()})
+
+
+def _patches(cfg):
+    return cfg.num_patches if cfg.family == "vlm" else 0
+
+
+def _ref_encdec(jp, batch, cfg, mode):
+    """The reference's ``_encdec_forward`` (train or prefill) from its own
+    layer functions, a loop over the layers in place of its scan, the
+    frames rounded to bfloat16 and cast to the weights' float32."""
+    layer = lambda tree, i: jax.tree_util.tree_map(  # noqa: E731
+        lambda a: a[i], tree)
+    e = batch["frames"].astype(jnp.bfloat16).astype(jp["embed"].dtype)
+    for i in range(cfg.enc_layers):
+        lp = layer(jp["enc"], i)
+        e, _ = JT._attn_apply(e, lp, cfg, "train", None, None, causal=False)
+        e = JT._mlp_apply(e, lp, cfg)
+    enc_out = jlayers.rmsnorm(e, jp["enc_final_norm"], cfg.norm_eps)
+    x = JT._embed(jp, batch["tokens"], cfg)
+    caches = []
+    for i in range(cfg.dec_layers):
+        lp = layer(jp["dec"], i)
+        x, nself = JT._attn_apply(x, lp, cfg, mode, None, None)
+        cross = {"k": jlayers.attn_qkv(enc_out, lp["xk"]),
+                 "v": jlayers.attn_qkv(enc_out, lp["xv"])}
+        x = JT._cross_apply(x, lp, cfg, mode, cross)
+        x = JT._mlp_apply(x, lp, cfg)
+        caches.append({"self": nself, "cross": cross})
+    cache = jax.tree_util.tree_map(lambda *a: jnp.stack(a), *caches)
+    return JT._logits(jp, x, cfg), cache
+
+
+def _ref_train(jp, jb, cfg):
+    if cfg.family == "encdec":
+        return _ref_encdec(jp, jb, cfg, "train")[0]
+    return JT.forward_train(jp, jb, cfg)
+
+
+def _ref_prefill(jp, jb, cfg):
+    if cfg.family == "encdec":
+        return _ref_encdec(jp, jb, cfg, "prefill")
+    return JT.forward_prefill(jp, jb, cfg)
+
+
+def _ref_loss(jp, jb, cfg):
+    if cfg.family == "encdec":  # JM.train_loss over the composed forward
+        return JM.cross_entropy(_ref_train(jp, jb, cfg), jb["labels"])
+    return JM.train_loss(jp, jb, cfg)
+
+
+def _scale(name):
+    """The atol scale of logits and caches (the module docstring)."""
+    return 1e-2 if name == ENCDEC else 5e-4
+
+
 def _close(got, want, rtol=1e-4, scale=5e-4):
     got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
     want = np.asarray(want)
@@ -76,29 +166,27 @@ def _close(got, want, rtol=1e-4, scale=5e-4):
                                atol=scale * max(1.0, float(np.abs(want).max())))
 
 
-def _close_tree(got, want):
+def _close_tree(got, want, scale=5e-4):
     assert sorted(got) == sorted(want)
     for k in want:
         if isinstance(want[k], dict):
-            _close_tree(got[k], want[k])
+            _close_tree(got[k], want[k], scale)
         else:
             assert tuple(got[k].shape) == tuple(want[k].shape), k
-            _close(got[k], want[k])
+            _close(got[k], want[k], scale=scale)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + NEW)
 def test_train_logits_loss_and_gradients_match_reference(name):
     cfg, tcfg = _configs(name)
     jp, tp = _params(cfg)
     toks, labels = _tokens(cfg, (2, 64), 1), _tokens(cfg, (2, 64), 2)
-    jb = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)}
-    tb = {"tokens": torch.from_numpy(toks),
-          "labels": torch.from_numpy(labels)}
+    jb, tb = _batches(cfg, toks, 1, labels=labels)
     with torch.no_grad():
         logits = T.forward_train(tp, tb, tcfg)
-    assert logits.shape == (2, 64, tcfg.padded_vocab())
-    _close(logits, JT.forward_train(jp, jb, cfg))
-    jloss, jgrad = jax.value_and_grad(lambda p: JM.train_loss(p, jb, cfg))(jp)
+    assert logits.shape == (2, 64 + _patches(cfg), tcfg.padded_vocab())
+    _close(logits, _ref_train(jp, jb, cfg), scale=_scale(name))
+    jloss, jgrad = jax.value_and_grad(lambda p: _ref_loss(p, jb, cfg))(jp)
     leaves = P.leaves(tp)
     for leaf in leaves:
         leaf.requires_grad_(True)
@@ -107,50 +195,58 @@ def test_train_logits_loss_and_gradients_match_reference(name):
     np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
     want = jax.tree_util.tree_leaves(jgrad)
     assert len(want) == len(leaves)
+    gscale = 5e-2 if name == ENCDEC else 1e-3
     for leaf, w in zip(leaves, want):
         w = np.asarray(w)
         assert tuple(leaf.shape) == w.shape
         np.testing.assert_allclose(leaf.grad.numpy(), w, rtol=0,
-                                   atol=1e-3 * float(np.abs(w).max()))
+                                   atol=gscale * float(np.abs(w).max()))
 
 
-def _pad_seq(tree, n):
-    """Grow every (L, B, S, ...) kv cache by n slots on axis 2 (the
-    reference test's pad of a cache of length S)."""
-    if isinstance(tree, dict):
-        return {k: _pad_seq(v, n) for k, v in tree.items()}
-    if tree.ndim >= 4 and tree.shape[2] == S:
-        pad = [(0, 0)] * tree.ndim
-        pad[2] = (0, n)
-        return np.pad(np.asarray(tree), pad)
-    return np.asarray(tree)
+def _pad_seq(tree, n, seq=S):
+    """Grow every kv cache (a ``k``/``v`` leaf (L, B, seq, ...)) by n slots
+    on axis 2 (the reference test's pad of a cache of the prompt's
+    length); recurrent and SSM states stay as they are."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _pad_seq(v, n, seq)
+        elif k in ("k", "v") and v.shape[2] == seq:
+            pad = [(0, 0)] * v.ndim
+            pad[2] = (0, n)
+            out[k] = np.pad(np.asarray(v), pad)
+        else:
+            out[k] = np.asarray(v)
+    return out
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + NEW)
 def test_prefill_cache_and_decode_step_match_reference(name):
-    """Prefill logits and the freshly built cache (gemma2's local layers
-    keep the last ``local_window`` keys), then one decode step from that
-    cache (ring slot pos % W on the local layers), against the reference's."""
+    """Prefill logits and the freshly built cache (gemma2's and the
+    hybrid's local layers keep the last ``local_window`` keys; the
+    recurrent and SSM states), then one decode step from that cache (ring
+    slot pos % W on the local layers), against the reference's."""
     cfg, tcfg = _configs(name)
     jp, tp = _params(cfg, seed=1)
     toks = _tokens(cfg, (2, S + 1), 3)
-    jl, jc = JT.forward_prefill(jp, {"tokens": jnp.asarray(toks[:, :S])}, cfg)
+    jb, tb = _batches(cfg, toks[:, :S], 3)
+    jl, jc = _ref_prefill(jp, jb, cfg)
     with torch.no_grad():
-        tl, tc = T.forward_prefill(
-            tp, {"tokens": torch.from_numpy(toks[:, :S])}, tcfg)
-    _close(tl, jl)
-    _close_tree(tc, jax.tree_util.tree_map(np.asarray, jc))
-    cache = _pad_seq(jax.tree_util.tree_map(np.asarray, jc), 1)
+        tl, tc = T.forward_prefill(tp, tb, tcfg)
+    _close(tl, jl, scale=_scale(name))
+    _close_tree(tc, jax.tree_util.tree_map(np.asarray, jc), _scale(name))
+    seq = S + _patches(cfg)
+    cache = _pad_seq(jax.tree_util.tree_map(np.asarray, jc), 1, seq)
     jd, jnc = JT.forward_decode(jp, {
-        "token": jnp.asarray(toks[:, S:]), "pos": jnp.int32(S),
+        "token": jnp.asarray(toks[:, S:]), "pos": jnp.int32(seq),
         "cache": jax.tree_util.tree_map(jnp.asarray, cache)}, cfg)
     with torch.no_grad():
         td, tnc = T.forward_decode(tp, {
-            "token": torch.from_numpy(toks[:, S:]), "pos": S,
+            "token": torch.from_numpy(toks[:, S:]), "pos": seq,
             "cache": convert.params_from_numpy(cache, "cpu")}, tcfg)
     assert td.shape == (2, 1, tcfg.padded_vocab())
-    _close(td, jd)
-    _close_tree(tnc, jax.tree_util.tree_map(np.asarray, jnc))
+    _close(td, jd, scale=_scale(name))
+    _close_tree(tnc, jax.tree_util.tree_map(np.asarray, jnc), _scale(name))
 
 
 def test_decode_reproduces_the_reference_ring_after_a_long_prompt():
@@ -186,23 +282,35 @@ def test_decode_reproduces_the_reference_ring_after_a_long_prompt():
     assert worst > 0.1
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + NEW)
 def test_decode_matches_forward_within_the_port(name):
     """Prefill S tokens, decode token S, compare with the teacher-forced
-    logits at position S (tests/test_models.py's check, in the port)."""
+    logits at position S (tests/test_models.py's checks, dense and
+    recurrent, in the port; the vlm's positions after its patches, the
+    enc-dec's decoder over the same frames).  Within the logits'
+    tolerance too where the forward drops no MoE choice: its capacity
+    over S + 1 tokens is not decode's (one token keeps every choice), and
+    grok's capacity factor 1.0 drops some."""
     cfg, tcfg = _configs(name)
     _, tp = _params(cfg, seed=2)
-    toks = torch.from_numpy(_tokens(cfg, (1, S + 1), 4))
+    toks = _tokens(cfg, (1, S + 1), 4)
+    _, full_b = _batches(cfg, toks, 4)
+    _, pre_b = _batches(cfg, toks[:, :S], 4)
+    seq = S + _patches(cfg)
     with torch.no_grad():
-        full = T.forward_train(tp, {"tokens": toks}, tcfg)
-        _, cache = T.forward_prefill(tp, {"tokens": toks[:, :S]}, tcfg)
+        with moe.count_drops() as drops:
+            full = T.forward_train(tp, full_b, tcfg)
+        _, cache = T.forward_prefill(tp, pre_b, tcfg)
         cache = convert.params_from_numpy(
-            _pad_seq(convert.params_to_numpy(cache), 1), "cpu")
-        lg, _ = T.forward_decode(tp, {"token": toks[:, S:], "pos": S,
-                                      "cache": cache}, tcfg)
-    want, got = full[:, S].numpy(), lg[:, 0].numpy()
+            _pad_seq(convert.params_to_numpy(cache), 1, seq), "cpu")
+        lg, _ = T.forward_decode(tp, {"token": torch.from_numpy(toks[:, S:]),
+                                      "pos": seq, "cache": cache}, tcfg)
+    want, got = full[:, seq].numpy(), lg[:, 0].numpy()
     assert np.abs(got - want).max() / (np.abs(want).max() + 1e-6) < 0.1
-    _close(got, want)
+    dropped = sum(int(d) for d, _ in drops)
+    assert (dropped > 0) == (name == "grok1_314b")
+    if not dropped:
+        _close(got, want, scale=_scale(name))
 
 
 def test_gemma2_tied_softcapped_logits_and_gelu():
@@ -365,20 +473,6 @@ def test_shard_is_the_identity_and_set_mesh_keeps_rules():
     finally:
         tshd.set_mesh(None)
     assert tshd.get_rules() == tshd.DEFAULT_RULES
-
-
-@pytest.mark.parametrize("name", ["olmoe_1b_7b", "mamba2_13b",
-                                  "recurrentgemma_9b",
-                                  "seamless_m4t_large_v2",
-                                  "phi3_vision_42b"])
-def test_other_families_raise_naming_the_queue_item(name):
-    tcfg = tbase.get_config(name).reduced()
-    tp = M.init_params(tcfg, torch.Generator().manual_seed(0),
-                       dtype=torch.float32)
-    batch = M.concrete_inputs(tcfg, tbase.ShapeCell("t", 32, 1, "train"),
-                              dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        T.forward_train(tp, batch, tcfg)
 
 
 def test_init_params_draws_the_reference_inits():

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs.base import get_config
+from repro.configs.base import ARCH_NAMES, get_config
 from repro.engine import EngineConfig as JConfig
 from repro.launch import serve as jserve
 from repro.models import model as JM
@@ -139,20 +139,35 @@ def _engine_cfg(cfg, k):
                 domain=cfg.vocab_size, num_samplers=max(4, k))
 
 
-def _reference_loop(jp, cfg, toks, k=0, window=0, workers=1):
-    """The reference's serving loop (repro.launch.serve.main) with given
-    weights: the (B, DECODE + 1) ids, the prefill's last logits and each
-    step's, and the aggregated sample (None without k)."""
-    S = toks.shape[1]
-    logits, cache = JT.forward_prefill(jp, {"tokens": jnp.asarray(toks)}, cfg)
+def _reference_grow(cfg, S, n):
+    """The reference's ``grow`` (``repro.launch.serve.main``, a closure
+    there): every leaf whose axis 2 is the prompt's length (or the vlm's
+    prompt + patches) padded by the decode budget ``n``."""
+    P = cfg.num_patches if cfg.family == "vlm" else 0
+    full = S + n + P
 
     def grow(x):
-        if x.ndim >= 4 and x.shape[2] == S:
+        if x.ndim >= 4 and x.shape[2] in (S, S + cfg.num_patches):
             pad = [(0, 0)] * x.ndim
-            pad[2] = (0, DECODE)
+            pad[2] = (0, full - x.shape[2])
             return jnp.pad(x, pad)
         return x
-    cache = jax.tree_util.tree_map(grow, cache)
+    return grow
+
+
+def _reference_loop(jp, cfg, toks, k=0, window=0, workers=1,
+                    patch_embeds=None):
+    """The reference's serving loop (repro.launch.serve.main) with given
+    weights (and the vlm's patch embeddings): the (B, DECODE + 1) ids, the
+    prefill's last logits and each step's, and the aggregated sample (None
+    without k)."""
+    S = toks.shape[1]
+    batch = {"tokens": jnp.asarray(toks)}
+    if patch_embeds is not None:
+        batch["patch_embeds"] = jnp.asarray(patch_embeds)
+    pos0 = S + (cfg.num_patches if cfg.family == "vlm" else 0)
+    logits, cache = JT.forward_prefill(jp, batch, cfg)
+    cache = jax.tree_util.tree_map(_reference_grow(cfg, S, DECODE), cache)
     tok = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
     steps = [np.asarray(logits[:, -1:])]
     engines = jserve.make_worker_engines(JConfig(**_engine_cfg(cfg, k)),
@@ -176,7 +191,7 @@ def _reference_loop(jp, cfg, toks, k=0, window=0, workers=1):
     outs = [np.asarray(tok)]
     for i in range(DECODE):
         lg, cache = JT.forward_decode(jp, {"token": tok,
-                                           "pos": jnp.int32(S + i),
+                                           "pos": jnp.int32(pos0 + i),
                                            "cache": cache}, cfg)
         steps.append(np.asarray(lg))
         tok = jnp.argmax(lg, axis=-1).astype(jnp.int32)
@@ -193,39 +208,163 @@ def _close(got, want):
                                atol=5e-4 * max(1.0, float(np.abs(want).max())))
 
 
-def _model(name, seed=0):
+def _model(name, seed=0, prompt=PROMPT):
+    """The reduced config of both packages, the reference's float32
+    weights in both, a (2, prompt) prompt and, for the vlm, (2, P, D)
+    patch embeddings (numpy, N(0, 1) x 0.02; else None)."""
     cfg = get_config(name).reduced()
     jp = JM.init_params(cfg, jax.random.PRNGKey(seed), dtype=jnp.float32)
     tp = convert.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
                                    "cpu")
-    toks = np.random.default_rng(seed + 1).integers(
-        0, cfg.vocab_size, (2, PROMPT)).astype(np.int32)
-    return cfg, tbase.get_config(name).reduced(), jp, tp, toks
+    rng = np.random.default_rng(seed + 1)
+    toks = rng.integers(0, cfg.vocab_size, (2, prompt)).astype(np.int32)
+    pe = None
+    if cfg.family == "vlm":
+        pe = (rng.standard_normal((2, cfg.num_patches, cfg.d_model))
+              * 0.02).astype(np.float32)
+    return cfg, tbase.get_config(name).reduced(), jp, tp, toks, pe
 
 
-@pytest.mark.parametrize("name", ["gemma2_2b", "qwen25_32b"])
-def test_generate_equals_the_reference_loop(name, one_thread):
+# (arch, prompt, weights' seed): a prompt where the reference runs (the
+# reduced mamba2's 16 heads would meet the reference's grow at a 16-token
+# prompt, ROADMAP Queue 3); recurrentgemma's seed-0 weights put two of a
+# step's reference logits 4.6e-4 apart, inside the logits' tolerance, so
+# greedy ids could part on rounding alone: seed 1
+GENERATE = [("gemma2_2b", PROMPT, 0), ("qwen25_32b", PROMPT, 0),
+            ("olmoe_1b_7b", PROMPT, 0), ("mamba2_13b", 32, 0),
+            ("recurrentgemma_9b", PROMPT, 1), ("phi3_vision_42b", PROMPT, 0)]
+
+
+@pytest.mark.parametrize("name,prompt,seed", GENERATE,
+                         ids=[g[0] for g in GENERATE])
+def test_generate_equals_the_reference_loop(name, prompt, seed, one_thread):
     from repro_torch.models import transformer as T
 
-    cfg, tcfg, jp, tp, toks = _model(name)
-    want_ids, want_steps, _ = _reference_loop(jp, cfg, toks)
+    cfg, tcfg, jp, tp, toks, pe = _model(name, seed, prompt)
+    want_ids, want_steps, _ = _reference_loop(jp, cfg, toks,
+                                              patch_embeds=pe)
     gaps = [np.diff(np.sort(st, axis=-1)[..., -2:], axis=-1).min()
             for st in want_steps]
     assert min(gaps) > 5e-4 * max(1.0, max(np.abs(st).max()
                                            for st in want_steps))
+    P = 0 if pe is None else pe.shape[1]
+    batch = {"tokens": torch.from_numpy(toks)}
+    if pe is not None:
+        batch["patch_embeds"] = torch.from_numpy(pe)
     with torch.no_grad():  # teacher-forced on the reference's ids
-        lg, cache = T.forward_prefill(tp, {"tokens": torch.from_numpy(toks)},
-                                      tcfg)
+        lg, cache = T.forward_prefill(tp, batch, tcfg)
         _close(lg[:, -1:].numpy(), want_steps[0])
-        cache = serve.grow_cache(cache, PROMPT, PROMPT + DECODE)
+        cache = serve.grow_cache(cache, prompt, prompt + P + DECODE, P)
         for i in range(DECODE):
             lg, cache = T.forward_decode(tp, {
                 "token": torch.from_numpy(want_ids[:, i:i + 1]),
-                "pos": PROMPT + i, "cache": cache}, tcfg)
+                "pos": prompt + P + i, "cache": cache}, tcfg)
             _close(lg.numpy(), want_steps[i + 1])
-    gen = serve.generate(tp, torch.from_numpy(toks), tcfg, DECODE)
+    gen = serve.generate(tp, torch.from_numpy(toks), tcfg, DECODE,
+                         patch_embeds=batch.get("patch_embeds"))
     assert gen.ids.dtype == np.int32
     assert np.array_equal(gen.ids, want_ids)
+
+
+@pytest.mark.parametrize("name,prompt", [g[:2] for g in GENERATE[2:]],
+                         ids=[g[0] for g in GENERATE[2:]])
+def test_generate_analytics_of_every_family_equal_the_reference(
+        name, prompt, one_thread):
+    """--worp-topk 5 over the moe, ssm, hybrid and vlm families: the ids
+    and the aggregated per-request sample of the reference's loop."""
+    cfg, tcfg, jp, tp, toks, pe = _model(name, seed=4, prompt=prompt)
+    want_ids, _, want = _reference_loop(jp, cfg, toks, k=5,
+                                        patch_embeds=pe)
+    engines = serve.make_worker_engines(
+        EngineConfig(**_engine_cfg(tcfg, 5)), 1, device="cpu")
+    gen = serve.generate(tp, torch.from_numpy(toks), tcfg, DECODE, engines,
+                         patch_embeds=None if pe is None
+                         else torch.from_numpy(pe))
+    assert np.array_equal(gen.ids, want_ids)
+    got = serve.sample_aggregated(engines, 5)
+    assert np.array_equal(got.keys.numpy(), np.asarray(want.keys))
+    np.testing.assert_allclose(got.freqs.numpy(), np.asarray(want.freqs),
+                               rtol=1e-5)
+
+
+def _tree_eq(got, want):
+    assert sorted(got) == sorted(want)
+    return all(_tree_eq(got[k], want[k]) if isinstance(got[k], dict)
+               else np.array_equal(got[k].numpy(), np.asarray(want[k]))
+               for k in want)
+
+
+@pytest.mark.parametrize("prompt", [16, 32])
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_grow_cache_equals_the_reference_grow(name, prompt, one_thread):
+    """Every family's prefill cache grown by the decode budget equals the
+    reference's ``grow`` where the reference runs, the rings of
+    ``local_window`` = 16 = prompt slots grown too; the reduced mamba2's
+    16-head SSM state at a 16-token prompt is where they part: the
+    reference pads the state's head axis, the port leaves it."""
+    from repro_torch.models import model as M
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(name).reduced()
+    tcfg = tbase.get_config(name).reduced()
+    tp = M.init_params(tcfg, torch.Generator().manual_seed(0),
+                       dtype=torch.float32)
+    batch = M.concrete_inputs(tcfg, tbase.ShapeCell("p", prompt, 2,
+                                                    "prefill"),
+                              dtype=torch.float32)
+    if tcfg.family == "vlm":  # the text after the patches
+        batch = M.concrete_inputs(tcfg, tbase.ShapeCell(
+            "p", prompt + tcfg.num_patches, 2, "prefill"),
+            dtype=torch.float32)
+    with torch.no_grad():
+        _, cache = T.forward_prefill(tp, batch, tcfg)
+    P = tcfg.num_patches if tcfg.family == "vlm" else 0
+    got = serve.grow_cache(cache, prompt, prompt + P + DECODE, P)
+    want = jax.tree_util.tree_map(_reference_grow(cfg, prompt, DECODE),
+                                  convert.params_to_numpy(cache))
+    fault = (name, prompt) == ("mamba2_13b", 16)
+    assert _tree_eq(got, want) != fault
+    if fault:
+        assert want["layers"]["ssm"].shape[2] == 16 + DECODE
+        assert tuple(got["layers"]["ssm"].shape) == tuple(
+            cache["layers"]["ssm"].shape)
+
+
+@pytest.mark.parametrize("name,prompt", [("mamba2_13b", 16),
+                                         ("recurrentgemma_9b", 3)])
+def test_reference_grow_fault_and_the_port_serving_there(name, prompt,
+                                                        one_thread):
+    """The reference's ``grow`` pads the reduced mamba2's SSM state (16
+    heads) at a 16-token prompt, and its decode raises; it pads
+    recurrentgemma's conv states (3 inputs) at a 3-token prompt, and its
+    decode reads zeros for the conv's inputs, leaving its own forward.
+    The port serves both: its decode, teacher-forced on its ids, equals
+    its forward over the prompt and the ids."""
+    from repro_torch.models import transformer as T
+
+    cfg, tcfg, jp, tp, toks, _ = _model(name, prompt=prompt)
+    if name == "mamba2_13b":
+        with pytest.raises(TypeError, match="incompatible shapes"):
+            _reference_loop(jp, cfg, toks)
+    else:
+        ids, steps, _ = _reference_loop(jp, cfg, toks)
+        full = np.asarray(JT.forward_train(jp, {"tokens": jnp.asarray(
+            np.concatenate([toks, ids[:, :DECODE]], 1))}, cfg))
+        worst = max(float(np.abs(steps[i + 1][:, 0] - full[:, prompt + i])
+                          .max() / np.abs(full[:, prompt + i]).max())
+                    for i in range(DECODE))
+        assert worst > 1e-2
+    gen = serve.generate(tp, torch.from_numpy(toks), tcfg, DECODE)
+    seq = torch.from_numpy(np.concatenate([toks, gen.ids[:, :DECODE]], 1))
+    with torch.no_grad():
+        full = T.forward_train(tp, {"tokens": seq}, tcfg)
+        _, cache = T.forward_prefill(tp, {"tokens": seq[:, :prompt]}, tcfg)
+        cache = serve.grow_cache(cache, prompt, prompt + DECODE)
+        for i in range(DECODE):
+            lg, cache = T.forward_decode(tp, {
+                "token": seq[:, prompt + i:prompt + i + 1],
+                "pos": prompt + i, "cache": cache}, tcfg)
+            _close(lg[:, 0].numpy(), full[:, prompt + i].numpy())
 
 
 @pytest.mark.parametrize("window,workers", [(0, 1), (3, 1), (0, 2), (3, 2)])
@@ -234,7 +373,7 @@ def test_generate_analytics_equal_the_reference_loop(window, workers,
     """--worp-topk 5: the aggregated per-request sample of the port's
     serving loop has the reference's keys, unbounded (prompt included) and
     over a window of 3 steps with retractions, on 1 and 2 workers."""
-    cfg, tcfg, jp, tp, toks = _model("gemma2_2b", seed=4)
+    cfg, tcfg, jp, tp, toks, _ = _model("gemma2_2b", seed=4)
     want_ids, _, want = _reference_loop(jp, cfg, toks, k=5, window=window,
                                         workers=workers)
     engines = serve.make_worker_engines(
@@ -262,6 +401,22 @@ def test_main_runs_end_to_end_on_the_cpu(capsys, one_thread):
     assert "last 3 decode steps" in text
 
 
+@pytest.mark.parametrize("name", ["olmoe_1b_7b", "mamba2_13b",
+                                  "recurrentgemma_9b", "phi3_vision_42b"])
+def test_main_serves_every_decoder_family(name, capsys, one_thread):
+    """The CLI at its defaults (batch 4, a 64-token prompt, 16 tokens),
+    reduced, on the CPU, with --worp-topk 5."""
+    out = serve.main(["--arch", name, "--reduced", "--device", "cpu",
+                      "--worp-topk", "5"])
+    assert out.gen.ids.shape == (4, 17)
+    assert 0 <= out.gen.ids.min() and out.gen.ids.max() < tbase.get_config(
+        name).reduced().padded_vocab()
+    assert tuple(out.sample.keys.shape) == (4, 5)
+    assert "per-request top-5 tokens" in capsys.readouterr().out
+
+
 def test_main_refuses_families_not_ported():
-    with pytest.raises(SystemExit):
-        serve.main(["--arch", "mamba2_13b", "--reduced", "--device", "cpu"])
+    """The enc-dec family exits with the reference's message."""
+    with pytest.raises(SystemExit, match="enc-dec driver"):
+        serve.main(["--arch", "seamless_m4t_large_v2", "--reduced",
+                    "--device", "cpu"])
