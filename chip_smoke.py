@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Thirteen paths, each driven with the kernels' launch counts set to 0 just
+Fourteen paths, each driven with the kernels' launch counts set to 0 just
 before it and read just after:
 
 * Sparse plane.  Per-key analytics over B = 4096 independent turnstile
@@ -171,6 +171,28 @@ before it and read just after:
   phi3_vision, 2 + 2 of seamless; all 48 of mamba2).  Prefill ms, decode
   ms a step, tokens/s, the analytics' ms, peak memory, the dropped MoE
   choices and launches recorded.
+* Training.  (a) phi4_mini_38b, mamba2_13b and olmoe_1b_7b reduced,
+  float32 with TF32 off: 3 ``train_step``s (batch 2, 64 tokens, lr 3e-4)
+  on the card and on the CPU from the same weights and batches, losses
+  and parameters within 1e-3 x max(1, max|want|) (AdamW moves an element
+  by at most ~lr a step), moments within 5e-2 x their leaf's max|want|.
+  (b) ``repro_torch.launch.train.main(["--arch", "mamba2_13b", "--steps",
+  "4"])`` at the published configuration (1.35 B parameters, bfloat16,
+  batch 8, seq 128): finite losses.  (c) ``train.loop.run_training`` at
+  gemma2_2b's published configuration (2.6 B, bfloat16), 6 steps of 8 x
+  128 tokens with one-pass token analytics (top 16) on the ``async``
+  plane: finite losses, the last below the first, the scatter and the
+  estimate launched, ``top_tokens`` equal to a CPU engine's of the same
+  ids.  (d) ``run_training(compressed=True)`` over a one-rank NCCL group
+  at mamba2_13b's widths **cut** to 2 of 48 layers (the flat path's plain
+  sketch holds ~200 B a coordinate): 3 steps, one step of
+  ``make_compressed_train_step_tp``, and the flat and sharded rounds held
+  to the two-pass invariants bit for bit.  (e) at the same cut, 8 steps
+  against 4 plus a resume of 4 from a checkpoint: the final loss within
+  rel 1e-4 in the default mode; in the deterministic mode a second
+  uninterrupted run, and every loss and the final weights bit for bit.
+  Step ms, tokens/s, peak memory, wire bytes, checkpoint MB/s and
+  launches recorded.
 * Ingest pipeline.  ``PrefetchingFeeder`` at the sparse plane's
   deployment: one canonical ``TurnstileZipfStream(2**20, alpha=1.2,
   delete_fraction=0.25)`` over 4 producer shards, packed into (4096, 4096)
@@ -254,6 +276,10 @@ the script exits non-zero without the final ``ok`` line):
      of four at their full published configurations, the enc-dec's
      prefill and decode, decode against the forward (above), with their
      times, peak memory, dropped MoE choices and launches;
+  train.  the reduced pairs, the training CLI at mamba2_13b's size,
+     gemma2_2b's training with token analytics, compressed data
+     parallelism and restart (above), with step times, tokens/s, peak
+     memory, checkpoint MB/s and launches;
   validate.  the conformance grid, its codec axis and Table 3, one
      ``conformance_check`` line per check and the ``conformance_summary``
      line, times by path and by sampler, launches by path, live threads;
@@ -271,6 +297,7 @@ toolkit, not a card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -5327,6 +5354,498 @@ def phase_families(torch, seed, tag):
     return out
 
 
+# the train phase: (a) reduced float32 pairs, the card against the CPU; (b)
+# the training CLI at mamba2_13b's published size; (c) dense training with
+# token analytics at gemma2_2b's; (d) compressed data parallelism and (e)
+# restart at mamba2_13b's widths cut to TRAIN_CUT_LAYERS layers
+TRAIN_PAIRS = ("phi4_mini_38b", "mamba2_13b", "olmoe_1b_7b")
+TRAIN_PAIR_STEPS, TRAIN_PAIR_BATCH, TRAIN_PAIR_SEQ = 3, 2, 64
+TRAIN_LR = 3e-4                  # the loop's default
+TRAIN_ATOL = 1e-3                # x max(1, max|want|): card vs CPU
+TRAIN_MOMENT_SCALE = 5e-2        # x max|want| a leaf (the card tests')
+TRAIN_CLI_ARGV = ["--arch", "mamba2_13b", "--steps", "4"]
+TRAIN_DENSE_ARCH, TRAIN_DENSE_STEPS, TRAIN_TOPK = "gemma2_2b", 6, 16
+TRAIN_BATCH, TRAIN_SEQ = 8, 128  # the loop's and the CLI's defaults
+TRAIN_CUT_ARCH, TRAIN_CUT_LAYERS = "mamba2_13b", 2
+TRAIN_GC_STEPS, TRAIN_RESTART_STEPS = 3, 8
+
+
+class timed_train_steps:
+    """Every step of the loop timed on the host clock between two
+    synchronises, with its metrics: ``steps.train_step`` and the steps the
+    compressed builders return, patched while the context is open.
+    ``records`` holds (ms, {metric: float}) a step."""
+
+    NAMES = ("train_step", "make_compressed_train_step",
+             "make_compressed_train_step_tp")
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.records: list = []
+
+    def _timed(self, fn):
+        def run(*args, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            self.records.append((ms, {k: float(v)
+                                      for k, v in out[1].items()}))
+            return out
+        return run
+
+    def __enter__(self):
+        from repro_torch.train import steps as S
+
+        self.saved = {n: getattr(S, n) for n in self.NAMES}
+        S.train_step = self._timed(self.saved["train_step"])
+        for n in self.NAMES[1:]:
+            build = self.saved[n]
+            setattr(S, n, lambda *a, _b=build, **k: self._timed(_b(*a, **k)))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.train import steps as S
+
+        for n, fn in self.saved.items():
+            setattr(S, n, fn)
+        return False
+
+    def summary(self, tokens_a_step: int) -> dict:
+        """First and steady (median of the rest) step ms, tokens/s."""
+        ms = [r[0] for r in self.records]
+        steady = sorted(ms[1:])[len(ms[1:]) // 2] if len(ms) > 1 else ms[0]
+        return {"steps": len(ms), "first_step_ms": ms[0],
+                "steady_step_ms": steady, "step_ms": ms,
+                "tokens_per_s": tokens_a_step / (steady / 1e3)}
+
+
+def tree_err(torch, got_tree, want_tree, scale=None) -> float:
+    """The worst leaf's max |got - want| over its bound: TRAIN_ATOL x
+    max(1, max|want|), or ``scale`` x max|want| where given."""
+    from repro_torch.distributed import pytree
+
+    worst = 0.0
+    for got, want in zip(pytree.leaves(got_tree), pytree.leaves(want_tree)):
+        want = want.float()
+        top = float(want.abs().max())
+        bound = TRAIN_ATOL * max(1.0, top) if scale is None \
+            else scale * max(top, 1e-30)
+        worst = max(worst, float((got.float().cpu() - want).abs().max())
+                    / bound)
+    return worst
+
+
+def train_pair(torch, name, seed, tag) -> dict:
+    """(a) ``name`` reduced, float32, TF32 off: TRAIN_PAIR_STEPS
+    ``train_step``s on the card and on the CPU from the same weights and
+    batches (the loop's Zipf stream): losses within TRAIN_ATOL x max(1,
+    |want|), each parameter leaf within TRAIN_ATOL x max(1, max|want|)
+    (AdamW moves an element by at most ~lr = 3e-4 a step, so a gradient of
+    rounding size whose sign flips moves it less than that), the moments
+    within TRAIN_MOMENT_SCALE x their leaf's max|want| (they hold the
+    gradients, which the reduced random attention models' near-tie
+    softmaxes make sensitive to the summation order)."""
+    from repro_torch import convert
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import ZipfStream
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as S
+
+    cfg = get_config(name).reduced()
+    params = M.init_params(cfg, torch.Generator(DEVICE).manual_seed(
+        seed + 41), dtype=torch.float32, device=DEVICE)
+    host = convert.params_from_numpy(convert.params_to_numpy(params), "cpu")
+    cs = S.TrainState(params, adamw.init(params))
+    hs = S.TrainState(host, adamw.init(host))
+    stream = ZipfStream(cfg.vocab_size, 1.2, seed)
+    loss_err = 0.0
+    for i in range(TRAIN_PAIR_STEPS):
+        hb = stream.lm_batch(i, 0, TRAIN_PAIR_BATCH, TRAIN_PAIR_SEQ,
+                             device="cpu")
+        cs, cm = S.train_step(cs, {k: v.to(DEVICE) for k, v in hb.items()},
+                              cfg, lr=TRAIN_LR)
+        hs, hm = S.train_step(hs, hb, cfg, lr=TRAIN_LR)
+        want = float(hm["loss"])
+        loss_err = max(loss_err, abs(float(cm["loss"]) - want)
+                       / (TRAIN_ATOL * max(1.0, abs(want))))
+    rec = {"loss_err_over_bound": loss_err,
+           "params_err_over_bound": tree_err(torch, cs.params, hs.params),
+           "mu_err_over_bound": tree_err(torch, cs.opt.mu, hs.opt.mu,
+                                         TRAIN_MOMENT_SCALE),
+           "nu_err_over_bound": tree_err(torch, cs.opt.nu, hs.opt.nu,
+                                         TRAIN_MOMENT_SCALE),
+           "final_loss": float(cm["loss"])}
+    worst = max(v for k, v in rec.items() if k.endswith("bound"))
+    log(f"[train] (a) {name} reduced, float32, {TRAIN_PAIR_STEPS} steps, "
+        f"card vs CPU, err / bound: loss {rec['loss_err_over_bound']:.3e}, "
+        f"params {rec['params_err_over_bound']:.3e}, mu "
+        f"{rec['mu_err_over_bound']:.3e}, nu {rec['nu_err_over_bound']:.3e}"
+        f": {'ok' if worst <= 1.0 else 'FAIL'} {tag}")
+    if worst > 1.0:
+        raise AssertionError(f"train pair {name}: the card disagrees with "
+                             f"the CPU")
+    return rec
+
+
+def train_run(torch, label, fn, tokens_a_step, tag) -> tuple:
+    """``fn()`` (a training run) with the launch counts from 0, the peak
+    memory reset and every step timed: (its result, its record)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with timed_train_steps(torch) as timer:
+        out = fn()
+        torch.cuda.synchronize()
+    rec = {"wall_s": time.perf_counter() - t0, "launches": read_counts(),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           **timer.summary(tokens_a_step)}
+    if isinstance(out, dict) and "losses" in out:
+        rec["losses"] = out["losses"]
+    rec["metrics"] = [m for _, m in timer.records]
+    log(f"[train] {label}: first step {rec['first_step_ms']:.1f} ms, "
+        f"steady {rec['steady_step_ms']:.1f} ms a step "
+        f"({rec['tokens_per_s']:.0f} tokens/s), peak {rec['peak_gb']:.2f} "
+        f"GB, launches {rec['launches']}, {rec['wall_s']:.1f} s wall "
+        + (f"losses {[round(x, 4) for x in rec['losses']]} "
+           if "losses" in rec else "") + tag)
+    return out, rec
+
+
+def finite_losses(label, losses, decreasing=False):
+    import math
+
+    if not (losses and all(math.isfinite(x) for x in losses)):
+        raise AssertionError(f"train {label}: losses {losses}")
+    if decreasing and not losses[-1] < losses[0]:
+        raise AssertionError(f"train {label}: the last loss is not below "
+                             f"the first: {losses}")
+
+
+def train_analytics_reference(torch, cfg, seed):
+    """The loop's token analytics on the CPU's sparse plane, fed the same
+    token ids (the loop's Zipf stream): its ``sample(TRAIN_TOPK)``."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import ZipfStream
+    from repro_torch.train import loop
+
+    eng = loop.analytics_engine(cfg, "onepass", TRAIN_TOPK, "sparse", 1,
+                                seed, "cpu")
+    stream = ZipfStream(cfg.vocab_size, 1.2, seed)
+    for step in range(TRAIN_DENSE_STEPS):
+        toks = stream.batch_at(step, 0, TRAIN_BATCH, TRAIN_SEQ + 1)[:, :-1]
+        toks = np.ascontiguousarray(toks, np.int32).reshape(1, -1)
+        eng.ingest(toks, np.ones_like(toks, np.float32))
+    return eng.sample(TRAIN_TOPK)
+
+
+def check_top_tokens(torch, got, want) -> float:
+    """The loop's ``top_tokens`` against the CPU engine's sample: the same
+    keys in the same order, frequencies within the summing tolerance
+    (rtol RTOL, atol 1e-5 x max(1, max|want|)).  Returns the worst
+    |diff| / max(1, max|want|)."""
+    keys = [int(k) for k in want.keys[0] if int(k) >= 0]
+    freqs = torch.tensor([float(f) for k, f in zip(want.keys[0],
+                                                   want.freqs[0])
+                          if int(k) >= 0])
+    gkeys = [k for k, _ in got]
+    gfreqs = torch.tensor([f for _, f in got])
+    if gkeys != keys:
+        raise AssertionError(f"train (c) top_tokens keys {gkeys} differ "
+                             f"from the CPU engine's {keys}")
+    scale = max(1.0, float(freqs.abs().max()))
+    if not torch.allclose(gfreqs, freqs, rtol=RTOL, atol=1e-5 * scale):
+        raise AssertionError(f"train (c) top_tokens frequencies {gfreqs} "
+                             f"differ from the CPU engine's {freqs}")
+    return float((gfreqs - freqs).abs().max()) / scale
+
+
+def cut_config(name, layers):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+
+    return dataclasses.replace(get_config(name), num_layers=layers)
+
+
+def compression_invariants(torch, what, grads, error, sparse, new_err, k):
+    """``test_compression_invariants_single_worker``'s checks, bit for
+    bit, on one rank's two-pass round: at most k nonzeros in the update,
+    each equal to the accumulated gradient a = g + e; the new error zero
+    there and equal to a elsewhere."""
+    from repro_torch.distributed import pytree
+
+    nnz = 0
+    for g, e, sp, ne in zip(*(pytree.leaves(t) for t in (grads, error,
+                                                          sparse, new_err))):
+        a = g.float() + e.reshape(g.shape)
+        sp, ne = sp.reshape(g.shape), ne.reshape(g.shape)
+        hit = sp != 0
+        nnz += int(hit.sum())
+        if not (torch.equal(sp[hit], a[hit]) and bool((ne[hit] == 0).all())
+                and torch.equal(ne[~hit], a[~hit])):
+            raise AssertionError(f"train (d) {what}: the two-pass "
+                                 f"invariants do not hold")
+    if not 0 < nnz <= k:
+        raise AssertionError(f"train (d) {what}: {nnz} nonzeros, k = {k}")
+    return nnz
+
+
+def train_compressed(torch, seed, tag) -> dict:
+    """(d) ``run_training(compressed=True)`` at mamba2_13b's widths cut to
+    TRAIN_CUT_LAYERS layers over a one-rank NCCL group, TRAIN_GC_STEPS
+    steps; then, from its state, one step of
+    ``make_compressed_train_step_tp``, and the flat and sharded rounds on
+    the next batch's gradients held to the two-pass invariants."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import ZipfStream
+    from repro_torch.distributed import pytree
+    from repro_torch.models import model as M
+    from repro_torch.optim import gradcomp as G
+    from repro_torch.train import loop
+    from repro_torch.train import steps as S
+
+    cfg = cut_config(TRAIN_CUT_ARCH, TRAIN_CUT_LAYERS)
+    cc = G.CompressorConfig()
+    store_dir = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    dist.init_process_group(
+        "nccl" if DEVICE == "cuda" else "gloo", store=dist.FileStore(
+            os.path.join(store_dir, "store"), 1), rank=0, world_size=1)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    try:
+        out, rec = train_run(torch, f"(d) compressed, {TRAIN_CUT_ARCH} cut "
+                             f"to {TRAIN_CUT_LAYERS} layers", lambda:
+                             loop.run_training(
+                                 cfg, TRAIN_GC_STEPS, batch=TRAIN_BATCH,
+                                 seq=TRAIN_SEQ, compressed=True, cc=cc,
+                                 seed=seed, log_every=100,
+                                 print_fn=lambda s: None, device=DEVICE),
+                             tokens, tag)
+        finite_losses("(d) compressed", rec["losses"])
+        rec["params_m"] = M.param_count(cfg) / 1e6
+        rec["comm_bytes"] = rec["metrics"][0]["comm_bytes"]
+        rec["dense_bytes"] = rec["metrics"][0]["dense_bytes"]
+        state = out["state"]
+        del out
+        b = ZipfStream(cfg.vocab_size, 1.2, seed).lm_batch(
+            TRAIN_GC_STEPS, 0, TRAIN_BATCH, TRAIN_SEQ, device=DEVICE)
+        tp_state = state._replace(error=pytree.tree_map(
+            lambda e: e[None], state.error))
+        tp_out, tp_rec = train_run(
+            torch, "(d) make_compressed_train_step_tp, one step",
+            lambda: S.make_compressed_train_step_tp(cfg, None, cc)(
+                tp_state, b), tokens, tag)
+        del tp_out, tp_state
+        rec["tp"] = {k: tp_rec[k] for k in ("first_step_ms", "peak_gb",
+                                            "launches", "metrics")}
+        _, grads = S.value_and_grad(state.params, b, cfg)
+        with torch.no_grad():
+            for what, fn in (("flat", G.tree_compress_step),
+                             ("sharded", G.tree_compress_step_sharded)):
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sparse, new_err, stats = fn(grads, state.error, cc)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                nnz = compression_invariants(torch, what, grads, state.error,
+                                             sparse, new_err, cc.k)
+                rec[f"{what}_round"] = {
+                    "ms": ms, "nonzeros": nnz,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "comm_bytes": float(stats["comm_bytes"]),
+                    "dense_bytes": float(stats["dense_bytes"])}
+                del sparse, new_err, stats
+        log(f"[train] (d) {rec['params_m']:.1f} M coordinates: comm "
+            f"{rec['comm_bytes']:.0f} B against dense "
+            f"{rec['dense_bytes']:.0f} B a step; flat round "
+            f"{rec['flat_round']['ms']:.1f} ms ({rec['flat_round']['nonzeros']}"
+            f" nonzeros, peak {rec['flat_round']['peak_gb']:.2f} GB), sharded "
+            f"round {rec['sharded_round']['ms']:.1f} ms "
+            f"({rec['sharded_round']['nonzeros']} nonzeros, peak "
+            f"{rec['sharded_round']['peak_gb']:.2f} GB); two-pass invariants "
+            f"bit for bit {tag}")
+        del grads, state
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    return rec
+
+
+class timed_checkpoints:
+    """``checkpoint.save`` and ``restore_latest`` timed while open, with
+    the bytes of each committed checkpoint."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.saves: list = []
+        self.restores: list = []
+
+    def __enter__(self):
+        from repro_torch.train import checkpoint as C
+
+        self.saved = (C.save, C.restore_latest)
+        save, restore = self.saved
+
+        def timed_save(*a, **k):
+            t0 = time.perf_counter()
+            path = save(*a, **k)
+            self.saves.append((C.payload_nbytes(path),
+                               time.perf_counter() - t0))
+            return path
+
+        def timed_restore(*a, **k):
+            t0 = time.perf_counter()
+            out = restore(*a, **k)
+            self.torch.cuda.synchronize()
+            if out[0] is not None:
+                self.restores.append(time.perf_counter() - t0)
+            return out
+        C.save, C.restore_latest = timed_save, timed_restore
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.train import checkpoint as C
+
+        C.save, C.restore_latest = self.saved
+        return False
+
+
+def train_restart(torch, seed, deterministic, tag) -> dict:
+    """(e) at mamba2_13b's widths cut to TRAIN_CUT_LAYERS layers:
+    TRAIN_RESTART_STEPS uninterrupted steps against half of them plus a
+    resume of the rest from the checkpoint.  Default mode: the final loss
+    within rel 1e-4; deterministic mode: a second uninterrupted run, and
+    every loss and the final weights bit for bit."""
+    import shutil
+    import tempfile
+
+    from repro_torch.distributed import pytree
+    from repro_torch.train import loop
+
+    cfg = cut_config(TRAIN_CUT_ARCH, TRAIN_CUT_LAYERS)
+    n, half = TRAIN_RESTART_STEPS, TRAIN_RESTART_STEPS // 2
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, seed=seed, log_every=100,
+              print_fn=lambda s: None, device=DEVICE)
+    d = tempfile.mkdtemp(prefix="chip-smoke-train-ckpt-")
+    mode = "deterministic" if deterministic else "default"
+    t0 = time.perf_counter()
+    try:
+        with (deterministic_mode(torch) if deterministic
+              else contextlib.nullcontext()), \
+                timed_checkpoints(torch) as ck:
+            runs = [loop.run_training(cfg, n, **kw)]
+            if deterministic:
+                runs.append(loop.run_training(cfg, n, **kw))
+            loop.run_training(cfg, half, ckpt_dir=d, ckpt_every=100, **kw)
+            resumed = loop.run_training(cfg, n, ckpt_dir=d, ckpt_every=100,
+                                        **kw)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    full = runs[0]
+    finite_losses(f"(e) {mode}", full["losses"])
+    rel = abs(resumed["final_loss"] - full["final_loss"]) / abs(
+        full["final_loss"])
+    rec = {"mode": mode, "losses": full["losses"],
+           "resumed_losses": resumed["losses"], "final_loss_rel": rel,
+           "checkpoint_mb": ck.saves[0][0] / 1e6,
+           "save_mb_per_s": [b / 1e6 / s for b, s in ck.saves],
+           "restore_mb_per_s": [ck.saves[0][0] / 1e6 / s
+                                for s in ck.restores],
+           "wall_s": time.perf_counter() - t0}
+    if deterministic:
+        same = (runs[1]["losses"] == full["losses"]
+                and resumed["losses"] == full["losses"][half:]
+                and all(torch.equal(x, y) and torch.equal(x, z)
+                        for x, y, z in zip(*(pytree.leaves(o["state"])
+                                             for o in (full, runs[1],
+                                                       resumed)))))
+        rec["bitwise"] = same
+    log(f"[train] (e) restart, {mode} mode, {TRAIN_CUT_ARCH} cut to "
+        f"{TRAIN_CUT_LAYERS} layers: {n} steps against {half} + a resume of "
+        f"{n - half}: final loss rel diff {rel:.3e} (gate 1e-4)"
+        + (f", every loss and the weights bit for bit: {rec['bitwise']}"
+           if deterministic else "")
+        + f"; checkpoint {rec['checkpoint_mb']:.1f} MB, save "
+        f"{min(rec['save_mb_per_s']):.0f}-{max(rec['save_mb_per_s']):.0f} "
+        f"MB/s, restore {rec['restore_mb_per_s'][0]:.0f} MB/s, "
+        f"{rec['wall_s']:.1f} s wall {tag}")
+    if not rel <= 1e-4 or (deterministic and not rec["bitwise"]):
+        raise AssertionError(f"train (e) restart in the {mode} mode: "
+                             f"{rec}")
+    return rec
+
+
+def phase_train(torch, seed, tag):
+    """Training: (a) ``train_pair`` for each of TRAIN_PAIRS; (b)
+    ``repro_torch.launch.train.main`` at mamba2_13b's published
+    configuration (1.35 B parameters, bfloat16, batch 8, seq 128, 4 steps);
+    (c) ``loop.run_training`` at TRAIN_DENSE_ARCH's published configuration
+    (bfloat16, batch 8, seq 128) with one-pass token analytics on the
+    ``async`` plane, scatter and estimate launched, ``top_tokens`` held to
+    a CPU engine of the same ids, the last loss below the first; (d)
+    ``train_compressed``; (e) ``train_restart`` in the default and the
+    deterministic mode.  Step ms, tokens/s, peak memory and launches
+    recorded."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model as M
+    from repro_torch.train import loop
+
+    t_phase = time.perf_counter()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"pairs": {name: train_pair(torch, name, seed, tag)
+                     for name in TRAIN_PAIRS}}
+    torch.cuda.empty_cache()
+    argv = TRAIN_CLI_ARGV + ["--device", DEVICE]
+    res, rec = train_run(torch, f"(b) launch.train {' '.join(argv)}",
+                         lambda: launch_train.main(argv), tokens, tag)
+    finite_losses("(b) CLI", rec["losses"])
+    rec["params_b"] = M.param_count(get_config("mamba2_13b")) / 1e9
+    out["cli"] = rec
+    del res
+    cfg = get_config(TRAIN_DENSE_ARCH)
+    res, rec = train_run(
+        torch, f"(c) run_training {TRAIN_DENSE_ARCH}, analytics onepass on "
+        f"async, top-{TRAIN_TOPK}",
+        lambda: loop.run_training(
+            cfg, TRAIN_DENSE_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+            seed=seed, analytics_sampler="onepass", analytics_plane="async",
+            analytics_topk=TRAIN_TOPK, log_every=100,
+            print_fn=lambda s: log(f"[train] (c) {s}"), device=DEVICE),
+        tokens, tag)
+    finite_losses("(c) dense", rec["losses"], decreasing=True)
+    got = rec["launches"]
+    if not (got["scatter"] > 0 and got["estimate"] > 0
+            and got["row_read"] == 0):
+        raise AssertionError(f"train (c): launches {got}")
+    top = res["top_tokens"]
+    del res
+    torch.cuda.empty_cache()
+    rec["top_tokens_err"] = check_top_tokens(
+        torch, top, train_analytics_reference(torch, cfg, seed))
+    rec["params_b"] = M.param_count(cfg) / 1e9
+    log(f"[train] (c) top-{TRAIN_TOPK} tokens {top[:4]}... equal to a CPU "
+        f"engine's of the same ids (worst freq diff / scale "
+        f"{rec['top_tokens_err']:.3e}) {tag}")
+    out["dense"] = rec
+    out["compressed"] = train_compressed(torch, seed, tag)
+    torch.cuda.empty_cache()
+    out["restart"] = {mode: train_restart(torch, seed, mode == "det", tag)
+                      for mode in ("default", "det")}
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[phase] train: {out['wall_s']:.2f} s wall")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -5421,6 +5940,8 @@ def main() -> int:
     served = phase_serve(torch, args.seed, tag)
     torch.cuda.empty_cache()
     families = phase_families(torch, args.seed, tag)
+    torch.cuda.empty_cache()
+    trained = phase_train(torch, args.seed, tag)
     torch.cuda.empty_cache()
 
     # -- the conformance grid; the ingest pipeline -------------------------
@@ -5537,6 +6058,14 @@ def main() -> int:
         est["launches"] += got["estimate"]
         scatter.setdefault("families_launches", {})[label] = got["scatter"]
         est.setdefault("families_launches", {})[label] = got["estimate"]
+    for label in ("cli", "dense", "compressed"):
+        got = trained[label]["launches"]
+        scatter["launches"] += got["scatter"]
+        scatter["variants"]["smem"]["launches"] += got["smem"]
+        scatter["variants"]["det"]["launches"] += got["det"]
+        est["launches"] += got["estimate"]
+        scatter.setdefault("train_launches", {})[label] = got["scatter"]
+        est.setdefault("train_launches", {})[label] = got["estimate"]
     est["validate_launches"] = validate_launches["estimate"]
     est["ingest_launches"] = (ingest_launches["estimate"]
                               + ingest_det["estimate"])
@@ -5580,6 +6109,7 @@ def main() -> int:
     log("[det update] " + json.dumps(det_update))
     log("[serve] " + json.dumps(served))
     log("[families] " + json.dumps(families))
+    log("[train] " + json.dumps(trained))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))

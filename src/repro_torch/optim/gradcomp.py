@@ -220,8 +220,11 @@ def compress_step(a_local: torch.Tensor, cc: CompressorConfig, group=None):
 
 def _ravel(tree):
     """``jax.flatten_util.ravel_pytree``: the leaves flattened in leaf
-    order into one vector of their promoted dtype, and the inverse (which
-    wants that dtype back and casts each leaf to its own)."""
+    order into one vector of their promoted dtype, and the inverse.  Where
+    every leaf has one dtype the inverse takes a vector of any dtype and
+    keeps it (a bfloat16 model's float32 update comes back float32);
+    otherwise it wants the promoted dtype back and casts each leaf to its
+    own."""
     leaves = pytree.leaves(tree)
     if not leaves:
         return torch.zeros((0,), dtype=torch.float32), \
@@ -231,6 +234,9 @@ def _ravel(tree):
     shapes = [x.shape for x in leaves]
     dtypes = [x.dtype for x in leaves]
     sizes = [x.numel() for x in leaves]
+    if all(d == dtype for d in dtypes):
+        return flat, lambda vec: pytree.unflatten(tree, [
+            c.reshape(s) for c, s in zip(torch.split(vec, sizes), shapes)])
 
     def unravel(flat):
         if flat.dtype != dtype:

@@ -1650,3 +1650,116 @@ def test_serve_main_of_each_family_launches_the_analytics_kernels(name):
     assert out.gen.ids.shape == (4, 17)
     assert out.gen.ids.max() < get_config(name).reduced().padded_vocab()
     assert out.sample.keys.device.type == "cuda"
+
+
+# the training cells: AdamW at the loop's default lr moves an element by at
+# most ~lr a step, so three steps from the same weights stay within
+# 1e-3 x max(1, max|want|) of the CPU's even where a gradient of rounding
+# size flips a step's sign (the serve pairs' scale-aware tolerance).  The
+# moments hold the gradients themselves, which the reduced random attention
+# models' near-tie softmaxes make sensitive to the summation order: a few
+# elements of phi4_mini's differed by 1.7e-2 of their leaf's max between
+# the card and the CPU (3 of 262,144), hence 5e-2
+TRAIN_LR, TRAIN_STEPS, TRAIN_ATOL, TRAIN_MOMENTS = 3e-4, 3, 1e-3, 5e-2
+
+
+@pytest.mark.parametrize("name", ["phi4_mini_38b", "mamba2_13b",
+                                  "olmoe_1b_7b"])
+def test_train_step_on_card_matches_cpu(name):
+    """Three ``train_step``s of a reduced float32 model, TF32 off, on the
+    card and on the CPU from the same weights and batches: losses within
+    1e-3 x max(1, |want|), every parameter leaf within 1e-3 x max(1,
+    max|want|), the moments within 5e-2 x their leaf's max|want|."""
+    _need_card()
+    from repro_torch import convert
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import ZipfStream
+    from repro_torch.distributed import pytree
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+
+    cfg = get_config(name).reduced()
+    host = M.init_params(cfg, torch.Generator().manual_seed(3),
+                         dtype=torch.float32)
+    card = convert.params_from_numpy(convert.params_to_numpy(host), "cuda")
+    hs = steps.TrainState(host, adamw.init(host))
+    cs = steps.TrainState(card, adamw.init(card))
+    stream = ZipfStream(cfg.vocab_size, 1.2, 0)
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for i in range(TRAIN_STEPS):
+            hb = stream.lm_batch(i, 0, 2, 32, device="cpu")
+            cs, cm = steps.train_step(cs, {k: v.cuda() for k, v in
+                                           hb.items()}, cfg, lr=TRAIN_LR)
+            hs, hm = steps.train_step(hs, hb, cfg, lr=TRAIN_LR)
+            want = float(hm["loss"])
+            assert abs(float(cm["loss"]) - want) <= TRAIN_ATOL * max(
+                1.0, abs(want))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    for got_tree, want_tree, scale in (
+            (cs.params, hs.params, None),
+            (cs.opt.mu, hs.opt.mu, TRAIN_MOMENTS),
+            (cs.opt.nu, hs.opt.nu, TRAIN_MOMENTS)):
+        for (path, got), want in zip(pytree.leaves_with_path(got_tree),
+                                     pytree.leaves(want_tree)):
+            top = float(want.abs().max())
+            atol = TRAIN_ATOL * max(1.0, top) if scale is None \
+                else scale * max(top, 1e-30)
+            torch.testing.assert_close(got.cpu(), want, rtol=0, atol=atol,
+                                       msg=lambda m, p=path: f"{p}: {m}")
+
+
+def test_training_restart_in_the_deterministic_mode_bitwise(tmp_path):
+    """The reduced mamba2's training loop on the card in the deterministic
+    mode: two uninterrupted 8-step runs give the same losses and weights
+    bit for bit, and 4 steps plus a resume of 4 from the checkpoint give
+    the uninterrupted run's."""
+    _need_card()
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import pytree
+    from repro_torch.train import loop
+
+    cfg = get_config("mamba2_13b").reduced()
+    kw = dict(batch=2, seq=32, lr=1e-3, log_every=100,
+              print_fn=lambda s: None)
+    d = str(tmp_path / "ck")
+    with _deterministic():
+        a = loop.run_training(cfg, num_steps=8, **kw)
+        b = loop.run_training(cfg, num_steps=8, **kw)
+        loop.run_training(cfg, num_steps=4, ckpt_dir=d, ckpt_every=100,
+                          **kw)
+        r = loop.run_training(cfg, num_steps=8, ckpt_dir=d, ckpt_every=100,
+                              **kw)
+    assert a["losses"] == b["losses"] and r["losses"] == a["losses"][4:]
+    for x, y, z in zip(*(pytree.leaves(o["state"]) for o in (a, b, r))):
+        assert x.device.type == "cuda"
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_train_cli_with_analytics_kernels_on_card():
+    """``launch.train.main`` reduced on the card, plain and compressed (a
+    one-rank NCCL group it builds and tears down), and the loop's token
+    analytics launching the scatter and estimate kernels."""
+    _need_card()
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import loop
+
+    for extra in ([], ["--compressed"]):
+        out = launch_train.main(["--arch", "mamba2_13b", "--reduced",
+                                 "--steps", "2", "--batch", "2", "--seq",
+                                 "32"] + extra)
+        assert np.isfinite(out["losses"]).all()
+        assert not dist.is_initialized()
+    before = (ts.launches, tq.estimate_launches)
+    out = loop.run_training(get_config("phi4_mini_38b").reduced(),
+                            num_steps=2, batch=2, seq=32, log_every=100,
+                            print_fn=lambda s: None,
+                            analytics_sampler="onepass", analytics_topk=8)
+    assert ts.launches > before[0] and tq.estimate_launches > before[1]
+    assert len(out["top_tokens"]) == 8
