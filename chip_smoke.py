@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-Fourteen paths, each driven with the kernels' launch counts set to 0 just
-before it and read just after:
+Seventeen paths, each driven with the kernels' launch counts set to 0
+just before it and read just after:
 
 * Sparse plane.  Per-key analytics over B = 4096 independent turnstile
   streams (one per tenant or request) at the engine's defaults -- rows 7,
@@ -89,8 +89,9 @@ before it and read just after:
   the probe, a corrupt publish (IOError) then a wrong-seed publish
   (ValueError) then healed, and a slow replica under backpressure, each bit
   for bit the fleet plane's; ``python -m repro_torch.launch.fleet_serve
-  --replicas 2 --kill-replica 1 --kill-after 3 --verify`` in a subprocess,
-  which must print ``parity=bitwise``.  Start and recovery seconds, route
+  --replicas 2 --kill-replica 1 --kill-after 3 --verify --steps 12`` (**cut**
+  from its default 24 steps) in a subprocess, which must print
+  ``parity=bitwise``.  Start and recovery seconds, route
   p50/p99, events/s, published MB and the replicas' kernel launches (each
   replica reports its counts with its publishes and its stop) recorded.
 * Gradient compression.  ``optim.gradcomp`` on the dense phase's gemma2_2b
@@ -204,6 +205,29 @@ before it and read just after:
   near ties; fan-in ``async`` equal to fan-in ``sparse`` bit for bit in
   the deterministic mode.  Events/s, pack efficiency, the producers' and
   the pump's wait and the busy share of a traced feed are recorded.
+* The paper's runners.  ``repro_torch.paper`` at ``--fast``: Table 3 (the
+  five rows, n = 10**4, k = 100, 10 randomizations), Figure 1, Figure 2
+  and Appendix B.1, through ``core.worp``'s plain sketch on the card (no
+  kernel launched, as the reference's runners launch none); each row and
+  its time printed; for the first randomization of each Table 3 row the
+  ``wor``, ``one`` and ``two`` sample keys equal to a CPU run's.
+* The examples.  The six ``examples/torch_*.py``, each in a process of its
+  own on the card, all started together, at their default sizes (the
+  train example at 3 steps over one NCCL rank): each exits 0 and prints
+  and returns its claims true (two-pass == perfect p-ppswor; the merged
+  sketch == the union's; async == sync bit for bit and the butterfly
+  aggregate == one worker, in the deterministic mode; fan-in == sync bit
+  for bit and the per-shard collapse close; finite prefill logits; finite
+  losses); their kernel launches read from the children.
+* The dry-run.  ``python -m repro_torch.launch.dryrun`` over every
+  architecture x shape on one card (a subprocess on the host, started
+  before the paper phase): every cell ``ok`` or a documented skip.  Its reckoning of mamba2_13b's and gemma2_2b's train
+  steps at 8 x 128 (the train phase's CLI and loop steps) against the
+  same steps on the card, in a fresh process: counted FLOPs within
+  relative 1e-6 of ``FlopCounterMode``'s count of the real step, the
+  parameter and moment bytes equal to the allocator's deltas of
+  ``init_params`` and ``adamw.init``; the predicted against the measured
+  peak and the model-FLOP share of the bf16 peak printed.
 
 Every estimate of the sparse and dense paths (candidate refresh, sample)
 is one launch of the estimate kernel, which takes the median of rows in
@@ -286,9 +310,15 @@ the script exits non-zero without the final ``ok`` line):
      the deterministic async cell;
   ingest.  the feeder's fan-in and per-shard runs against direct ingest,
      their rates and waits, a traced feed, the deterministic fan-in;
+  paper.  the four runners' rows and times, their keys against the CPU;
+  examples.  the six examples' claims, times and launches;
+  dryrun.  the sweep's cells, the two train steps' reckoning against the
+     card (FLOPs, bytes, peaks, share of peak);
   7. one ``{"kernels": [...]}`` line, then the ``ok`` line.
 
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
+``python3 chip_smoke.py --card-step ARCH[,ARCH]`` runs only the dry-run
+phase's card steps and prints their records.
 ``python3 chip_smoke.py --sass`` instead builds the transform factor alone,
 as it was (``-logf`` then ``powf``) and as it is, and prints the static
 SASS instruction counts of each (``cuobjdump -sass``); it needs the CUDA
@@ -3926,6 +3956,7 @@ def phase_wire(torch, steps, tag):
 # the chaos scenarios; the fleet_serve subprocess's own time limit
 FLEET_R, FLEET_PUBLISH, FLEET_KILL_AFTER = 2, 4, 3
 CHAOS_R, CHAOS_STEPS, SERVE_TIMEOUT_S = 3, 8, 600
+FLEET_SERVE_STEPS = 12  # cut from the CLI's default 24 (the script's time)
 
 
 def fleet_config(num_streams=None, **kw):
@@ -4075,13 +4106,15 @@ def fleet_chaos(torch, steps, tag) -> dict:
 
 def fleet_serve_run(tag) -> dict:
     """``python -m repro_torch.launch.fleet_serve --replicas 2
-    --kill-replica 1 --kill-after 3 --verify`` at its defaults, on the
-    card, in a subprocess that must print ``parity=bitwise``."""
+    --kill-replica 1 --kill-after 3 --verify --steps FLEET_SERVE_STEPS``
+    (its other flags at their defaults), on the card, in a subprocess that
+    must print ``parity=bitwise``."""
     env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     cmd = [sys.executable, "-m", "repro_torch.launch.fleet_serve",
            "--replicas", "2", "--kill-replica", "1", "--kill-after", "3",
-           "--verify"] + (["--device", DEVICE] if DEVICE != "cuda" else [])
+           "--verify", "--steps", str(FLEET_SERVE_STEPS)] + (
+               ["--device", DEVICE] if DEVICE != "cuda" else [])
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
                           timeout=SERVE_TIMEOUT_S)
@@ -4091,7 +4124,7 @@ def fleet_serve_run(tag) -> dict:
     ok = proc.returncode == 0 and any(ln.startswith("parity=bitwise")
                                       for ln in lines) and len(summary) == 1
     log(f"[fleet] fleet_serve --replicas 2 --kill-replica 1 --kill-after 3 "
-        f"--verify: exit {proc.returncode}, parity=bitwise printed: {ok}, "
+        f"--verify --steps {FLEET_SERVE_STEPS}: exit {proc.returncode}, parity=bitwise printed: {ok}, "
         f"{secs:.1f} s wall; {summary[0] if summary else 'no summary'} {tag}")
     if not ok:
         raise AssertionError(f"fleet_serve failed:\n{proc.stdout[-4000:]}\n"
@@ -5846,6 +5879,462 @@ def phase_train(torch, seed, tag):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the paper's runners, the examples, the dry-run
+# ---------------------------------------------------------------------------
+
+PAPER_FAST_RUNS = 10       # ``python -m repro_torch.paper --fast``'s Table 3
+PAPER_N, PAPER_K = 10_000, 100
+
+
+def phase_paper(torch, tag):
+    """The four paper runners (``repro_torch.paper``) on the card at
+    ``--fast``: each row printed with its time; no kernel launched (they go
+    through ``core.worp``'s plain sketch, as the reference's do); for the
+    first randomization of each Table 3 row the card's ``wor``, ``one``
+    and ``two`` sample keys identical to a CPU run of the port's
+    runner."""
+    import math
+
+    from repro_torch.paper import (fig1_wor_vs_wr, fig2_rankfreq,
+                                   psi_calibration, table3_nrmse)
+    from repro_torch.paper.common import zipf_freqs
+
+    t_phase = time.perf_counter()
+    reset_counts()
+    runners = (
+        ("table3", lambda: table3_nrmse.run(runs=PAPER_FAST_RUNS,
+                                            verbose=False, device=DEVICE)),
+        ("fig1", lambda: fig1_wor_vs_wr.run(verbose=False, device=DEVICE)),
+        ("fig2", lambda: fig2_rankfreq.run(verbose=False, device=DEVICE)),
+        ("psi", lambda: psi_calibration.run(verbose=False)))
+    out = {"sections": {}}
+    for label, fn in runners:
+        t0 = time.perf_counter()
+        rows = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for name, us, derived in rows:
+            log(f"[paper] {name},{us:.2f},{derived} {tag}")
+            nums = [float(x.split("=")[1]) for x in derived.split()
+                    if "=" in x]
+            if not all(math.isfinite(x) for x in nums):
+                raise AssertionError(f"paper {name}: {derived}")
+        out["sections"][label] = {"seconds": secs,
+                                  "rows": [list(r) for r in rows]}
+        log(f"[paper] {label}: {len(rows)} rows in {secs:.2f} s wall {tag}")
+    out["launches"] = read_counts()
+    if any(out["launches"].values()):
+        raise AssertionError(f"paper: the runners launched kernels "
+                             f"{out['launches']}")
+    out["keys_equal_cpu"] = {}
+    for (p, alpha, power) in table3_nrmse.ROWS:
+        freqs = zipf_freqs(PAPER_N, alpha, seed=int(alpha * 10))
+        card = table3_nrmse.run_samples(freqs, PAPER_K, p, 5000, DEVICE)
+        cpu = table3_nrmse.run_samples(freqs, PAPER_K, p, 5000, "cpu")
+        for m in ("wor", "one", "two"):
+            a = sorted(card[m].keys.cpu().tolist())
+            b = sorted(cpu[m].keys.tolist())
+            if a != b:
+                raise AssertionError(
+                    f"paper table3 l{p:g} zipf{alpha:g}: the card's {m} "
+                    f"keys differ from the CPU's: "
+                    f"{sorted(set(a) ^ set(b))}")
+        label = f"l{p:g}_zipf{alpha:g}_pow{power:g}"
+        out["keys_equal_cpu"][label] = True
+        log(f"[paper] table3 {label} run 0: wor, one and two sample keys "
+            f"equal to a CPU run {tag}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[phase] paper: {out['wall_s']:.2f} s wall")
+    return out
+
+
+# each port example, its arguments, and the claims it must print (and
+# return) as true
+EXAMPLES = (
+    ("torch_quickstart", [], ("two_pass_equals_perfect",),
+     ("two-pass == perfect p-ppswor: True",)),
+    ("torch_stream_sampling", [], ("merged_equals_union",),
+     ("merged sketch == sketch of the union: True",)),
+    ("torch_async_ingest", [], ("async_equals_sync",
+                                "aggregate_equals_single"),
+     ("async drained state bitwise == sync sparse plane: True",
+      "4-worker butterfly aggregate == single-worker sample keys: True")),
+    ("torch_sharded_ingest", [], ("fan_in_equals_sync", "pershard_close"),
+     ("threaded fan-in into async plane bitwise == sync plane: True",
+      "per-shard sub-planes collapse (merge) to the fan-in state: True")),
+    ("torch_serve_example", [], ("finite",), ("prefill logits finite: True",)),
+    ("torch_train_worp_compressed", ["--steps", "3", "--timeout", "500"], (),
+     ("final loss: ",)),
+)
+EXAMPLE_TIMEOUT_S = 600
+# the train example's losses against a direct run_training on the card: one
+# code path, so equal but for float atomics' order in the sketch scatter
+TRAIN_EXAMPLE_RTOL = 1e-4
+EXAMPLE_RUNNER = r"""
+import importlib, json, sys
+import numpy as np
+sys.path[:0] = [sys.argv[1]]
+from repro_torch.kernels import countsketch_query, launch_counts
+out = importlib.import_module(sys.argv[2]).main(sys.argv[3:])
+rank0 = out.pop("launches", None)
+counts = dict(launch_counts(),
+              estimate_single=countsketch_query.estimate_single_launches)
+print("[example-result] " + json.dumps(
+    {"out": {k: v for k, v in out.items()
+             if not isinstance(v, np.ndarray)},
+     "launches": counts, "rank0_launches": rank0}, default=str))
+"""
+
+
+def train_example_direct(torch, root, want, tag) -> float:
+    """The train example's losses (its process, one NCCL rank) against a
+    direct ``loop.run_training`` call in this process on the card with the
+    example's settings (``ARCH``, ``BATCH``, ``SEQ``, ``LR``, ``CC``):
+    within rel TRAIN_EXAMPLE_RTOL.  Returns the largest relative
+    difference; None off the card, where the example runs 4 gloo ranks
+    and a one-rank twin takes other candidates."""
+    if DEVICE != "cuda":
+        log("[examples] torch_train_worp_compressed: 4 CPU ranks, no "
+            "one-rank twin")
+        return None
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.configs.base import get_config
+    from repro_torch.optim import gradcomp
+    from repro_torch.train import loop
+
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke_train_example",
+        root / "examples" / "torch_train_worp_compressed.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    d = tempfile.mkdtemp(prefix="chip-smoke-example-")
+    dist.init_process_group(
+        "nccl" if DEVICE == "cuda" else "gloo", store=dist.FileStore(
+            os.path.join(d, "store"), 1), rank=0, world_size=1)
+    try:
+        got = loop.run_training(
+            get_config(ex.ARCH).reduced(), len(want), batch=ex.BATCH,
+            seq=ex.SEQ, lr=ex.LR, compressed=True,
+            cc=gradcomp.CompressorConfig(**ex.CC), log_every=100,
+            print_fn=lambda s: None, device=DEVICE)["losses"]
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(d, ignore_errors=True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(want, got))
+    if len(got) != len(want) or not rel <= TRAIN_EXAMPLE_RTOL:
+        raise AssertionError(f"example torch_train_worp_compressed: losses "
+                             f"{want} against a direct run_training's {got}")
+    log(f"[examples] torch_train_worp_compressed: losses {want} against a "
+        f"direct run_training's {got}: max rel diff {rel:.3e} (gate "
+        f"{TRAIN_EXAMPLE_RTOL:g}) {tag}")
+    return rel
+
+
+def phase_examples(torch, tag):
+    """The six port examples (``examples/torch_*.py``), each in its own
+    process on the card, all started together: each must exit 0, print its
+    claims true and return them true; the train example runs 3 steps over
+    one NCCL rank with checkpoints in a temporary directory, and its
+    losses are held to a direct ``run_training`` call
+    (``train_example_direct``).  The kernel launches are read from the
+    children (the train example's from its rank 0)."""
+    import math
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    out = {"examples": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for name, argv, _, _ in EXAMPLES:
+            extra = (["--ckpt", os.path.join(tmp, "ckpt")]
+                     if name == "torch_train_worp_compressed" else [])
+            extra += ["--device", DEVICE] if DEVICE != "cuda" else []
+            procs[name] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-c", EXAMPLE_RUNNER, str(root / "examples"),
+                 name] + argv + extra, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, env=env, cwd=str(root)))
+        try:
+            for name, argv, keys, lines in EXAMPLES:
+                t0, proc = procs[name]
+                stdout, stderr = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+                secs = time.perf_counter() - t0
+                result = [ln for ln in stdout.splitlines()
+                          if ln.startswith("[example-result] ")]
+                if proc.returncode != 0 or len(result) != 1:
+                    raise AssertionError(
+                        f"example {name}: exit {proc.returncode}\n"
+                        f"{stdout[-3000:]}\n{stderr[-3000:]}")
+                rec = json.loads(result[0].split(" ", 1)[1])
+                printed = stdout.splitlines()
+                bad = [k for k in keys if rec["out"].get(k) is not True]
+                bad += [ln for ln in lines
+                        if not any(x.startswith(ln) for x in printed)]
+                if name == "torch_train_worp_compressed":
+                    losses = rec["out"]["losses"]
+                    if not (len(losses) == 3
+                            and all(math.isfinite(x) for x in losses)):
+                        bad.append(f"losses {losses}")
+                if bad:
+                    raise AssertionError(f"example {name}: claims not true: "
+                                         f"{bad}\n{stdout[-3000:]}")
+                launches = rec["launches"]
+                if rec["rank0_launches"]:
+                    launches = {k: launches.get(k, 0) + v for k, v in
+                                rec["rank0_launches"].items()}
+                    launches.setdefault("estimate_single", 0)
+                claims = [x for x in printed if any(x.startswith(ln)
+                                                    for ln in lines)]
+                out["examples"][name] = {"seconds": secs, "claims": claims,
+                                         "launches": launches}
+                if "losses" in rec["out"]:
+                    out["examples"][name]["losses"] = rec["out"]["losses"]
+                log(f"[examples] {' '.join([name] + argv)}: exit 0 in "
+                    f"{secs:.1f} s wall; {claims}; launches {launches} "
+                    f"{tag}")
+        finally:
+            for _, proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(30)
+    train = out["examples"]["torch_train_worp_compressed"]
+    train["direct_max_rel"] = train_example_direct(torch, root,
+                                                   train["losses"], tag)
+    keys = ("scatter", "smem", "global", "det", "segment_sum", "estimate",
+            "estimate_single", "row_read", "other")
+    out["launches"] = {k: sum(e["launches"].get(k, 0)
+                              for e in out["examples"].values())
+                       for k in keys}
+    for name in ("torch_stream_sampling", "torch_async_ingest",
+                 "torch_sharded_ingest"):
+        got = out["examples"][name]["launches"]
+        if DEVICE == "cuda" and not (got["scatter"] > 0
+                                     and got["estimate"]
+                                     + got["estimate_single"] > 0):
+            raise AssertionError(f"example {name}: launches {got}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[phase] examples: {out['wall_s']:.2f} s wall, launches "
+        f"{out['launches']}")
+    return out
+
+
+DRYRUN_ARCHS = ("mamba2_13b", "gemma2_2b")
+DRYRUN_STEP = (8, 128)      # the train phase's CLI and loop steps: B x S
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_STEPS_TIMED = 3
+
+
+def card_step(torch, arch) -> dict:
+    """One train step of ``arch`` at DRYRUN_STEP on the card, in a process
+    of its own (``--card-step``): the allocator's bytes (``memory_
+    allocated()`` and the requested bytes) added by ``init_params`` and by
+    ``adamw.init``, the step's FLOPs under ``FlopCounterMode``, the
+    median time of DRYRUN_STEPS_TIMED more steps, and the peak memory of
+    the steps."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import ZipfStream
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps
+
+    dev = torch.device(DEVICE)
+    cfg = get_config(arch)
+
+    def mem():
+        torch.cuda.synchronize()
+        st = torch.cuda.memory_stats()
+        return (torch.cuda.memory_allocated(),
+                st.get("requested_bytes.all.current", -1))
+
+    torch.cuda.empty_cache()
+    m0 = mem()
+    params = M.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                           device=dev)
+    m1 = mem()
+    opt = adamw.init(params)
+    m2 = mem()
+    B, S = DRYRUN_STEP
+    batch = ZipfStream(vocab_size=cfg.vocab_size, alpha=1.2,
+                       seed=0).lm_batch(0, shard=0, batch=B, seq=S,
+                                        device=dev)
+    state = steps.TrainState(params=params, opt=opt)
+    del params, opt
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        state, _ = steps.train_step(state, batch, cfg)
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(DRYRUN_STEPS_TIMED):
+        t0 = time.perf_counter()
+        state, metrics = steps.train_step(state, batch, cfg)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    rec = {"arch": arch, "param_allocated": m1[0] - m0[0],
+           "param_requested": m1[1] - m0[1],
+           "moment_allocated": m2[0] - m1[0],
+           "moment_requested": m2[1] - m1[1],
+           "flops": float(fc.get_total_flops()), "step_ms": ms,
+           "loss": float(metrics["loss"]),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del state
+    torch.cuda.empty_cache()
+    return rec
+
+
+def start_dryrun_sweep():
+    """``python -m repro_torch.launch.dryrun`` over every arch x shape on
+    one card, into ``build/dryrun_smoke``, started in the background (it
+    counts on meta tensors, on the host alone): (the process, its output
+    directory)."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    out_dir = root / "build" / "dryrun_smoke"
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+         str(out_dir), "--force"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=str(root)), out_dir
+
+
+def phase_dryrun(torch, tag, sweep=None):
+    """The dry-run sweep (``start_dryrun_sweep``; started here unless the
+    caller started it earlier): every cell ``ok`` or a documented skip.
+    Once it has ended, the dry-run's reckoning of the
+    train phase's two steps (DRYRUN_ARCHS at DRYRUN_STEP, a ``ShapeCell`` of
+    that size) is held to ``card_step`` in a fresh process (its allocator with
+    expandable segments, so that each block is its request rounded to 512
+    B): gated, the counted FLOPs within relative 1e-6 of the card's
+    ``FlopCounterMode`` count, and the parameter and moment bytes equal to
+    the requested-bytes and ``memory_allocated()`` deltas; printed, the
+    predicted peak against the measured one and the model-FLOP share of
+    the card's bf16 peak at the measured step time."""
+    from repro_torch.configs.base import ARCH_NAMES, SHAPES, ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import analyzer
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    sweep, out_dir = sweep or start_dryrun_sweep()
+    out = {}
+    try:
+        # the card step is timed after the sweep has ended: a step is bound
+        # by its host's Python loop, which another process would slow
+        stdout, stderr = sweep.communicate(timeout=DRYRUN_TIMEOUT_S)
+        t0 = time.perf_counter()
+        card = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--card-step",
+             ",".join(DRYRUN_ARCHS)], capture_output=True, text=True,
+            timeout=DRYRUN_TIMEOUT_S, cwd=str(root),
+            env=dict(env, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True"))
+        card_s = time.perf_counter() - t0
+        recs = [json.loads(ln.split(" ", 1)[1])
+                for ln in card.stdout.splitlines()
+                if ln.startswith("[card-step] ")]
+        if card.returncode != 0 or len(recs) != len(DRYRUN_ARCHS):
+            raise AssertionError(f"card step: exit {card.returncode}\n"
+                                 f"{card.stdout[-3000:]}\n"
+                                 f"{card.stderr[-3000:]}")
+        B, S = DRYRUN_STEP
+        cell = ShapeCell(f"train_{B}x{S}", S, B, "train")
+        out["steps"] = {}
+        for got in recs:
+            arch = got["arch"]
+            t1 = time.perf_counter()
+            rec = dryrun.run_cell(arch, cell.name, shape=cell, verbose=False)
+            count_s = time.perf_counter() - t1
+            mem = rec["memory_stats"]
+            rel = abs(rec["flops"] - got["flops"]) / got["flops"]
+            step_ms = sorted(got["step_ms"])[len(got["step_ms"]) // 2]
+            share = rec["model_flops"] / (step_ms / 1e3) / \
+                analyzer.PEAK_FLOPS
+            counted_share = rec["flops"] / (step_ms / 1e3) / \
+                analyzer.PEAK_FLOPS
+            row = {
+                "count_seconds": count_s, "flops": rec["flops"],
+                "card_flops": got["flops"], "flops_rel_err": rel,
+                "model_flops": rec["model_flops"],
+                "param_bytes": mem["param_bytes"],
+                "param_alloc_bytes": mem["param_alloc_bytes"],
+                "card_param_requested": got["param_requested"],
+                "card_param_allocated": got["param_allocated"],
+                "moment_bytes": mem["moment_bytes"],
+                "moment_alloc_bytes": mem["moment_alloc_bytes"],
+                "card_moment_requested": got["moment_requested"],
+                "card_moment_allocated": got["moment_allocated"],
+                "predicted_peak_gb": mem["peak_bytes"] / 1e9,
+                "saved_gb": mem["saved_bytes"] / 1e9,
+                "card_peak_gb": got["peak_bytes"] / 1e9,
+                "step_ms": got["step_ms"], "steady_step_ms": step_ms,
+                "model_flop_share_of_peak": share,
+                "counted_flop_share_of_peak": counted_share,
+                "t_compute_ms": rec["t_compute"] * 1e3,
+                "t_memory_ms": rec["t_memory"] * 1e3,
+                "bottleneck": rec["bottleneck"], "loss": got["loss"]}
+            out["steps"][arch] = row
+            log(f"[dryrun] {arch} train {B}x{S}: counted {rec['flops']:.6e} "
+                f"FLOPs vs the card's FlopCounterMode {got['flops']:.6e} "
+                f"(rel {rel:.2e}); params {mem['param_bytes']} B requested "
+                f"{got['param_requested']} B, {mem['param_alloc_bytes']} B "
+                f"allocated {got['param_allocated']} B; moments "
+                f"{mem['moment_bytes']} / {got['moment_requested']} B, "
+                f"{mem['moment_alloc_bytes']} / {got['moment_allocated']} "
+                f"B; predicted peak {row['predicted_peak_gb']:.2f} GB vs "
+                f"measured {row['card_peak_gb']:.2f} GB; step "
+                f"{step_ms:.1f} ms: model FLOPs {share:.2%} of the bf16 "
+                f"peak, counted FLOPs {counted_share:.2%}; roofline "
+                f"compute {row['t_compute_ms']:.2f} ms, memory "
+                f"{row['t_memory_ms']:.2f} ms ({rec['bottleneck']}) {tag}")
+            if not (rel <= 1e-6
+                    and mem["param_bytes"] == got["param_requested"]
+                    and mem["param_alloc_bytes"] == got["param_allocated"]
+                    and mem["moment_bytes"] == got["moment_requested"]
+                    and mem["moment_alloc_bytes"]
+                    == got["moment_allocated"]):
+                raise AssertionError(f"dryrun {arch}: the reckoning misses "
+                                     f"the card: {row}")
+        out["card_step_s"] = card_s
+    finally:
+        if sweep.poll() is None:
+            sweep.kill()
+            sweep.wait(30)
+    if sweep.returncode != 0:
+        raise AssertionError(f"dryrun sweep: exit {sweep.returncode}\n"
+                             f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    cells = {}
+    for arch in ARCH_NAMES:
+        for shape in SHAPES:
+            with open(out_dir / f"{arch}__{shape}__card.json") as f:
+                rec = json.load(f)
+            ok = rec["status"] == "ok" or (
+                rec["status"] == "skip" and "documented" in rec["reason"])
+            if not ok:
+                raise AssertionError(f"dryrun {arch} {shape}: {rec}")
+            cells[f"{arch}/{shape}"] = (
+                rec["status"] if rec["status"] == "skip" else
+                {k: rec[k] for k in ("flops", "hbm_bytes", "t_compute",
+                                     "t_memory", "bottleneck", "fits",
+                                     "useful_ratio", "count_seconds")}
+                | {"peak_gb": rec["memory_stats"]["peak_bytes"] / 1e9})
+    out["cells"] = cells
+    n_ok = sum(1 for v in cells.values() if v != "skip")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[dryrun] sweep: {n_ok} cells ok, {len(cells) - n_ok} documented "
+        f"skips {tag}")
+    log(f"[phase] dryrun: {out['wall_s']:.2f} s wall")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -5853,6 +6342,10 @@ def main() -> int:
     ap.add_argument("--sass", action="store_true",
                     help="only count the transform factor's SASS, old and "
                          "new, and exit")
+    ap.add_argument("--card-step", default=None,
+                    help="only run ``card_step`` for these comma-separated "
+                         "architectures and print a record of each (the "
+                         "dry-run phase's fresh process)")
     args = ap.parse_args()
     if args.sass:
         return factor_sass()
@@ -5867,6 +6360,10 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    if args.card_step:
+        for arch in args.card_step.split(","):
+            log("[card-step] " + json.dumps(card_step(torch, arch)))
+        return 0
 
     from repro_torch.engine import derive_stream_seeds
     from repro_torch.engine.engine import EngineConfig
@@ -5948,6 +6445,20 @@ def main() -> int:
     validate_launches, validate = phase_validate(torch, tag)
     torch.cuda.empty_cache()
     ingest_launches, ingest_det, ingest = phase_ingest(torch, args.seed, tag)
+    torch.cuda.empty_cache()
+
+    # -- the paper's runners, the examples, the dry-run (its sweep on the
+    # host meanwhile) -----------------------------------------------------
+    sweep = start_dryrun_sweep()
+    try:
+        paper = phase_paper(torch, tag)
+        torch.cuda.empty_cache()
+        examples = phase_examples(torch, tag)
+    except BaseException:
+        sweep[0].kill()
+        sweep[0].wait(30)
+        raise
+    dry = phase_dryrun(torch, tag, sweep)
 
     # -- phase 7: the kernels line and the ok line -------------------------
     by_name = {k["name"]: k for k in kernels}
@@ -6066,6 +6577,21 @@ def main() -> int:
         est["launches"] += got["estimate"]
         scatter.setdefault("train_launches", {})[label] = got["scatter"]
         est.setdefault("train_launches", {})[label] = got["estimate"]
+    got = examples["launches"]
+    scatter["launches"] += got["scatter"]
+    for v in ("smem", "global", "det"):
+        scatter["variants"][v]["launches"] += got[v]
+    est["launches"] += got["estimate"]
+    by_name["countsketch_estimate"]["launches"] += got["estimate_single"]
+    scatter["examples_launches"] = {
+        name: e["launches"]["scatter"]
+        for name, e in examples["examples"].items()}
+    est["examples_launches"] = {
+        name: e["launches"]["estimate"]
+        for name, e in examples["examples"].items()}
+    by_name["countsketch_estimate"]["examples_launches"] = {
+        name: e["launches"]["estimate_single"]
+        for name, e in examples["examples"].items()}
     est["validate_launches"] = validate_launches["estimate"]
     est["ingest_launches"] = (ingest_launches["estimate"]
                               + ingest_det["estimate"])
@@ -6080,7 +6606,8 @@ def main() -> int:
                      + wire_launches["segment_sum"]
                      + validate_launches["segment_sum"]
                      + ingest_det["segment_sum"]
-                     + fleet_launches["segment_sum"]),
+                     + fleet_launches["segment_sum"]
+                     + examples["launches"]["segment_sum"]),
         "max_abs_err": 0.0,
         "parity": "bit for bit equal to the CPU's scatter_add_ (index "
                   "order), the same bits on every launch",
@@ -6110,6 +6637,9 @@ def main() -> int:
     log("[serve] " + json.dumps(served))
     log("[families] " + json.dumps(families))
     log("[train] " + json.dumps(trained))
+    log("[paper] " + json.dumps(paper))
+    log("[examples] " + json.dumps(examples))
+    log("[dryrun] " + json.dumps(dry))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))

@@ -30,8 +30,8 @@ divides, as the reference does.  A mesh here is anything whose ``.shape``
 maps axis names to sizes (a ``jax.sharding.Mesh`` or a dict stand-in), and
 a spec is a tuple of per-dimension tuples or ``None``, where the reference
 gives a ``PartitionSpec``.  ``shard`` is the identity: the port runs its
-models on one card.  The reference's ``named_sharding`` has no counterpart
-until the port shards a model (ROADMAP Queue 1 item 6).
+models on one card.  Where the reference asks its ``named_sharding`` for
+a leaf's per-device shape (the dry-run), the port has ``shard_shape``.
 """
 from __future__ import annotations
 
@@ -140,6 +140,21 @@ def resolve_pspec(shape: Sequence[int], axes: Sequence[Optional[str]],
             size = nxt
         used.update(kept)
         out.append(tuple(kept) if kept else None)
+    return tuple(out)
+
+
+def shard_shape(shape: Sequence[int], axes: Sequence[Optional[str]],
+                mesh, rules: Optional[dict] = None) -> tuple:
+    """A leaf's per-card shape on ``mesh``: each dimension divided by the
+    product of the mesh axes ``resolve_pspec`` keeps for it (the
+    reference's ``named_sharding(...).shard_shape(shape)``)."""
+    spec = resolve_pspec(shape, axes, mesh, rules)
+    out = []
+    for dim, kept in zip(shape, spec):
+        n = 1
+        for ax in kept or ():
+            n *= mesh.shape[ax]
+        out.append(dim // n)
     return tuple(out)
 
 

@@ -12,8 +12,8 @@ All softmax math is float32, masks use -1e30 (a fully masked row is
 uniform, not NaN), and gemma2's logit softcap applies before the mask,
 which ``scaled_dot_product_attention`` cannot express.  None of this is a
 TPU kernel in the reference (it is ``jnp`` code), so it stays plain
-PyTorch here.  The reference's cost-mode and ``q_parallel`` knobs are set
-only by its dry-run, and wait for ROADMAP Queue 1 item 6.
+PyTorch here.  The cost-mode knobs are set only by the dry-run
+(``repro_torch.launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -23,6 +23,34 @@ import torch.nn.functional as F
 from repro_torch.distributed.sharding import shard
 
 _NEG_INF = -1e30
+
+# Cost-mode context (set by the dry-run only): ``dense_attn`` replaces the
+# blockwise loops with one masked einsum (``_dense_attention``), and
+# ``unroll`` = u makes each cut layer loop run its first u trips
+# (``cost_trips``).  The reference unrolls its layer scans u times so that
+# XLA, which counts a loop body once, counts F + u x B; the port's loops are
+# Python, counted at every trip, so running u trips gives the same F + u x B
+# without walking every layer (``repro_torch.roofline.analyzer``'s
+# ``combine_loop_costs`` extrapolates to the full depth).  Cost mode is on
+# while either knob is off its default.
+_COST_MODE = {"dense_attn": False, "unroll": 1}
+
+
+def set_cost_mode(dense_attn: bool = False, unroll: int = 1):
+    _COST_MODE["dense_attn"] = dense_attn
+    _COST_MODE["unroll"] = unroll
+
+
+def cost_unroll() -> int:
+    return _COST_MODE["unroll"]
+
+
+def cost_trips(n: int) -> int:
+    """The trips a cut layer loop of ``n`` layers runs: all of them
+    outside cost mode, the first ``cost_unroll()`` in it."""
+    if _COST_MODE["dense_attn"] or cost_unroll() > 1:
+        return min(n, cost_unroll())
+    return n
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
@@ -112,6 +140,10 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k4 = k.reshape(B, nk, kv_block, Kh, dh)
     v4 = v.reshape(B, nk, kv_block, Kh, dh)
 
+    if _COST_MODE["dense_attn"]:
+        return _dense_attention(q, k, v, causal=causal, window=window,
+                                logit_cap=logit_cap, q_offset=q_offset)
+
     if wedge and causal and window == 0 and Sq == Skv and q_block == kv_block:
         return _wedge_attention(q5, k4, v4, scale, logit_cap, q_offset)
 
@@ -148,7 +180,8 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _dense_attention(q, k, v, *, causal, window, logit_cap, q_offset):
     """Attention with the full (Sq, Skv) score matrix; numerically
-    equivalent to blockwise_attention (small-shape tests)."""
+    equivalent to blockwise_attention (cost-mode counting, small-shape
+    tests)."""
     B, Sq, H, dh = q.shape
     Skv, Kh = k.shape[1], k.shape[2]
     G = H // Kh

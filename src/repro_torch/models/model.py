@@ -1,9 +1,10 @@
 """Public model facade: parameters, caches, losses and small inputs
 (PyTorch).
 
-The port's counterpart of ``repro.models.model``.  The reference's
-``input_specs`` and ``abstract_*`` (``ShapeDtypeStruct`` stand-ins for its
-dry-run) wait for ROADMAP Queue 1 item 6.
+The port's counterpart of ``repro.models.model``.  ``input_specs`` and
+``abstract_*`` give the dry-run's stand-ins as tensors on ``device="meta"``
+(the reference's ``ShapeDtypeStruct``s), of each leaf's per-card shard
+shape when a mesh is given.
 """
 from __future__ import annotations
 
@@ -13,9 +14,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, ShapeCell
+from repro_torch.distributed import sharding as shd
 
 from . import params as P
 from . import transformer as T
+
+
+def abstract_params(cfg: ArchConfig, mesh=None, dtype=torch.bfloat16):
+    tree = T.param_tree(cfg)
+    if mesh is None:
+        return P.abstract(tree, dtype)
+    return P.abstract_sharded(tree, mesh, dtype)
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
@@ -38,6 +47,14 @@ def active_param_count(cfg: ArchConfig) -> int:
         return total
     expert = 3 * cfg.d_model * cfg.d_ff_expert * cfg.num_layers
     return total - expert * (cfg.num_experts - cfg.moe_top_k)
+
+
+def abstract_cache(cfg: ArchConfig, B: int, S: int, mesh=None,
+                   dtype=torch.bfloat16):
+    tree = T.cache_tree(cfg, B, S)
+    if mesh is None:
+        return P.abstract(tree, dtype)
+    return P.abstract_sharded(tree, mesh, dtype)
 
 
 def init_cache(cfg: ArchConfig, B: int, S: int, dtype=torch.bfloat16,
@@ -76,12 +93,19 @@ def decode_step(params, batch, cfg: ArchConfig):
 
 
 # ---------------------------------------------------------------------------
-# small concrete inputs per (arch x shape)
+# inputs per (arch x shape)
 # ---------------------------------------------------------------------------
 
+_ACT_AXES = {"tokens": ("act_batch", "act_seq"),
+             "frames": ("act_batch", "act_seq", "act_embed"),
+             "patch_embeds": ("act_batch", None, "act_embed"),
+             "labels": ("act_batch", "act_seq"),
+             "token": ("act_batch", None)}
+
+
 def _input_shapes(cfg: ArchConfig, shape: ShapeCell) -> Dict[str, Any]:
-    """The reference's ``input_specs`` without a mesh: name -> (shape,
-    kind), kind "tokens" or "embeds" ("cache" and "pos" for decode)."""
+    """The step's inputs of this cell: name -> (shape, kind), kind
+    "tokens" or "embeds" ("cache" and "pos" for decode)."""
     B, S = shape.global_batch, shape.seq_len
     out: Dict[str, Any] = {}
     if shape.kind in ("train", "prefill"):
@@ -101,6 +125,29 @@ def _input_shapes(cfg: ArchConfig, shape: ShapeCell) -> Dict[str, Any]:
     out["token"] = ((B, 1), "tokens")
     out["pos"] = ((), "pos")
     out["cache"] = ((B, S), "cache")
+    return out
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeCell, mesh=None,
+                dtype=torch.bfloat16) -> Dict[str, Any]:
+    """Meta-tensor stand-ins for every input of the step function of this
+    cell (the reference's ``ShapeDtypeStruct``s), each of its per-card
+    shard shape when ``mesh`` is given: token ids int32, embeddings in
+    ``dtype``, decode's ``pos`` an int32 scalar and its cache
+    ``abstract_cache``."""
+    out: Dict[str, Any] = {}
+    for name, (shp, kind) in _input_shapes(cfg, shape).items():
+        if kind == "cache":
+            out[name] = abstract_cache(cfg, *shp, mesh=mesh, dtype=dtype)
+            continue
+        if kind == "pos":
+            out[name] = torch.empty((), dtype=torch.int32, device="meta")
+            continue
+        if mesh is not None:
+            shp = shd.shard_shape(shp, _ACT_AXES[name], mesh)
+        out[name] = torch.empty(
+            shp, dtype=torch.int32 if kind == "tokens" else dtype,
+            device="meta")
     return out
 
 

@@ -6,9 +6,12 @@ the lower expert index first), the position of each (token, choice) in its
 expert a cumsum per batch row over the flattened ``(S*K)`` choices,
 token-major, a ``(B, E*cap + 1, D)`` dispatch buffer, the experts' SwiGLU
 einsums batched over E, and the gather back.  A choice at ``pos >= cap``
-is dropped: its slot is ``E*cap`` and its gate zero.  Only the kept
-choices are written into the buffer, so no slot repeats and the result
-does not depend on which duplicate write wins on the card.
+is dropped: its slot is ``E*cap`` and its gate zero.  Every choice is
+written into the buffer, the dropped ones all into the dump slot ``E*cap``,
+which is sliced off before the experts: the dispatch is shape-static (it
+runs on ``device="meta"``, for the dry-run's counts), and the kept slots
+never repeat, so the result does not depend on which duplicate write to
+the dump slot wins on the card.
 
 ``count_drops()`` collects, while it is entered, each call's dropped
 choices and all its choices as device tensors (no host sync).
@@ -75,7 +78,7 @@ def moe_ffn(x: torch.Tensor, mp: dict, num_experts: int, top_k: int,
     x_rep = torch.repeat_interleave(x, K, dim=1)  # (B, S*K, D)
     rows = torch.arange(B, device=x.device)[:, None].expand(B, S * K)
     buf = x.new_zeros((B, E * cap + 1, D))
-    buf = buf.index_put((rows[ok], slot[ok]), x_rep[ok])
+    buf = buf.index_put((rows, slot), x_rep)
     h = buf[:, : E * cap].reshape(B, E, cap, D)
     h = shard(h, "act_batch", "act_experts", None, None)
 

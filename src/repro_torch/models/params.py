@@ -6,9 +6,10 @@ concrete initialized tensors (``initialize``, from a ``torch.Generator``)
 and per-leaf specs through the logical-axis rules
 (``repro_torch.distributed.sharding.resolve_pspec``).  Leaves are visited
 in the reference's flatten order (dict keys sorted), so a tree of tensors
-and the reference's tree of arrays line up leaf by leaf.  The reference's
-``abstract``/``abstract_sharded`` (dry-run stand-ins) wait for ROADMAP
-Queue 1 item 6.
+and the reference's tree of arrays line up leaf by leaf.  ``abstract``
+and ``abstract_sharded`` give the dry-run's stand-ins: tensors on
+``device="meta"`` (a shape and a dtype, no storage), whole or of each
+leaf's per-card shard.
 """
 from __future__ import annotations
 
@@ -42,6 +43,22 @@ def leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in leaves(tree[k])]
     return [tree]
+
+
+def abstract(tree, dtype=torch.bfloat16):
+    """Meta tensors of each leaf's shape (no allocation) -- the dry-run
+    path."""
+    return tree_map_pd(
+        lambda pd: torch.empty(pd.shape, dtype=dtype, device="meta"), tree)
+
+
+def abstract_sharded(tree, mesh, dtype=torch.bfloat16, rules=None):
+    """Meta tensors of each leaf's per-card shard shape on ``mesh``
+    (``sharding.shard_shape``)."""
+    return tree_map_pd(
+        lambda pd: torch.empty(
+            sharding.shard_shape(pd.shape, pd.axes, mesh, rules),
+            dtype=dtype, device="meta"), tree)
 
 
 def pspecs(tree, mesh, rules=None):

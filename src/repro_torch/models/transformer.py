@@ -34,7 +34,8 @@ from repro_torch.distributed.sharding import shard
 from . import moe as moe_lib
 from . import rglru, ssm
 from .layers import (attn_out, attn_qkv, blockwise_attention, cache_insert,
-                     decode_attention, rmsnorm, rope, softcap, swiglu)
+                     cost_trips, decode_attention, rmsnorm, rope, softcap,
+                     swiglu)
 from .params import PD
 
 
@@ -367,12 +368,16 @@ def _assign(dst, src):
         dst.copy_(src)
 
 
-def _scan_stack(body, x, stack, cache, mode: str):
+def _scan_stack(body, x, stack, cache, mode: str, cut: bool = True):
     """The layers in order.  train: no cache; prefill: the per-layer caches
     stacked; decode: ``cache`` itself, each layer's slice updated in place
-    through its view (a kv ring by ``cache_insert``, a state by a copy)."""
+    through its view (a kv ring by ``cache_insert``, a state by a copy).
+    In cost mode a ``cut`` loop runs ``layers.cost_trips`` of its layers
+    (the loops the reference scans at ``cost_unroll()``; the hybrid's tail,
+    which it unrolls whole, is not cut)."""
     new = []
-    for i in range(_num_layers(stack)):
+    n = _num_layers(stack)
+    for i in range(cost_trips(n) if cut else n):
         cl = None if cache is None else _index(cache, i)
         x, nc = body(x, _index(stack, i), cl)
         if mode == "decode":
@@ -453,7 +458,8 @@ def _apply_backbone(params, x, cfg: ArchConfig, mode: str, cache, pos,
             def tbody(x, lp, st):
                 return _rec_apply(x, lp, cfg, mode, st)
             tc = None if cache is None else cache["tail"]
-            x, ntail = _scan_stack(tbody, x, params["tail"], tc, mode)
+            x, ntail = _scan_stack(tbody, x, params["tail"], tc, mode,
+                                   cut=False)
             if ncache is not None:
                 ncache = dict(ncache, tail=ntail)
         return x, ncache

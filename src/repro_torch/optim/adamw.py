@@ -3,9 +3,8 @@
 
 The optimizer state mirrors the parameter tree; first and second moments
 are float32 whatever the parameters' dtype.  Trees are walked in the
-reference's leaf order (``repro_torch.distributed.pytree``).  The
-reference's ``abstract_state`` (a ``ShapeDtypeStruct`` mirror for dry-run
-lowering) comes with the port's dry-run tooling.
+reference's leaf order (``repro_torch.distributed.pytree``).
+``abstract_state`` is the dry-run's mirror on ``device="meta"``.
 """
 from __future__ import annotations
 
@@ -35,6 +34,19 @@ def init(params) -> AdamWState:
         step=torch.zeros((), dtype=torch.int32, device=dev),
         mu=pytree.tree_map(f32, params),
         nu=pytree.tree_map(f32, params),
+    )
+
+
+def abstract_state(abstract_params) -> AdamWState:
+    """Meta-tensor mirror for the dry-run: float32 moments of each
+    (per-card) parameter's shape, an int32 scalar step."""
+    def f32(p):
+        return torch.empty(p.shape, dtype=torch.float32, device="meta")
+
+    return AdamWState(
+        step=torch.empty((), dtype=torch.int32, device="meta"),
+        mu=pytree.tree_map(f32, abstract_params),
+        nu=pytree.tree_map(f32, abstract_params),
     )
 
 
@@ -85,4 +97,4 @@ def update(
     return new_p, AdamWState(step=step, mu=new_m, nu=new_v)
 
 
-__all__ = ["AdamWState", "init", "update"]
+__all__ = ["AdamWState", "abstract_state", "init", "update"]

@@ -7,9 +7,10 @@
     host).  Host-only, the reference's own.
   * ``plan_remesh`` -- the mesh of a (possibly different) device count at
     restart time, with the reference's axis names and sizes.  The port
-    runs a model on one card, so the mesh is a stand-in (``CardMesh``)
-    that ``sharding.set_mesh``/``resolve_pspec`` take: its ``.shape`` maps
-    axis names to sizes, and every leaf lives on its one device.
+    runs a model on one card, so the mesh is a description
+    (``launch.mesh.Mesh``) that ``sharding.set_mesh``/``resolve_pspec``
+    take: its ``.shape`` maps axis names to sizes, and every leaf lives on
+    its one device.
   * ``reshard_tree`` -- resolve every leaf's spec against that mesh (a
     spec naming an absent axis, or one that does not divide its dimension,
     raises, as ``NamedSharding`` does), then place the leaf on the mesh's
@@ -22,13 +23,14 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import convert
 from repro_torch.core.device import resolve_device
+from repro_torch.launch.mesh import Mesh, make_mesh_auto
 
 
 class StragglerWatchdog:
@@ -66,16 +68,8 @@ class StragglerWatchdog:
         return dt
 
 
-class CardMesh(NamedTuple):
-    """A mesh stand-in: axis names in order, their sizes (``shape``, what
-    ``resolve_pspec`` reads) and the one device every leaf lives on."""
-    axis_names: tuple
-    shape: dict
-    device: torch.device
-
-
 def plan_remesh(num_devices: int, model_parallel: int, pods: int = 1,
-                device=None) -> CardMesh:
+                device=None) -> Mesh:
     """The mesh for ``num_devices`` at restart time: ``("data", "model")``
     of (num_devices // model_parallel, model_parallel), or ``("pod",
     "data", "model")`` for ``pods > 1``, as the reference plans it; its
@@ -92,10 +86,10 @@ def plan_remesh(num_devices: int, model_parallel: int, pods: int = 1,
         raise ValueError(
             f"plan_remesh: {num_devices} devices do not split into "
             f"{dict(zip(names, sizes))}")
-    return CardMesh(names, dict(zip(names, sizes)), resolve_device(device))
+    return make_mesh_auto(sizes, names, resolve_device(device))
 
 
-def _check_spec(shape, spec, mesh: CardMesh, where: str) -> None:
+def _check_spec(shape, spec, mesh: Mesh, where: str) -> None:
     """Raise unless ``spec`` (None, or per dimension None / a mesh axis /
     a tuple of mesh axes) names axes of ``mesh``, each once, dividing its
     dimension."""
@@ -124,7 +118,7 @@ def _check_spec(shape, spec, mesh: CardMesh, where: str) -> None:
                              f"not divide by {size} ({axes})")
 
 
-def reshard_tree(tree, mesh: CardMesh, pspecs, _path: str = ""):
+def reshard_tree(tree, mesh: Mesh, pspecs, _path: str = ""):
     """Every leaf of ``tree`` (a tensor or array) on ``mesh``'s device,
     its spec in ``pspecs`` (the same nested dicts) resolved against the
     mesh first (elastic restart step 2)."""
@@ -137,4 +131,4 @@ def reshard_tree(tree, mesh: CardMesh, pspecs, _path: str = ""):
     return convert.params_from_numpy(tree, mesh.device)
 
 
-__all__ = ["CardMesh", "StragglerWatchdog", "plan_remesh", "reshard_tree"]
+__all__ = ["StragglerWatchdog", "plan_remesh", "reshard_tree"]
