@@ -319,6 +319,10 @@ the script exits non-zero without the final ``ok`` line):
 Run from the repository root: ``python3 chip_smoke.py [--seed N]``.
 ``python3 chip_smoke.py --card-step ARCH[,ARCH]`` runs only the dry-run
 phase's card steps and prints their records.
+``python3 chip_smoke.py --det-parent DIR [DIR ...]`` runs only the dense
+update's det kernel of the checkouts at DIR (e.g. a ``git archive`` of the
+parent commit) beside this tree's, checks each against its order model
+and times them in turns.
 ``python3 chip_smoke.py --sass`` instead builds the transform factor alone,
 as it was (``-logf`` then ``powf``) and as it is, and prints the static
 SASS instruction counts of each (``cuobjdump -sass``); it needs the CUDA
@@ -446,6 +450,25 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_ms_median(torch, fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median device time of ``reps`` calls of ``fn``, each timed alone by
+    CUDA events (the card idle before each), after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2] if reps % 2 else \
+        sum(sorted(times)[reps // 2 - 1:reps // 2 + 1]) / 2
 
 
 def device_ms(torch, fn, iters: int) -> float | None:
@@ -682,6 +705,8 @@ def report_occupancy(tag):
                             variant="det")
     wide = tiling.table_plan(B, INSERTS, None, 1, WIDE_WIDTH, 132,
                              variant="det")
+    dense_det = tiling.table_plan(1, 1, [1], ROWS, WIDTH, 132, variant="det",
+                                  det_chunks=True)
     seg = tiling.SEGMENT_THREADS
     for name, variant, label, threads, smem in (
             ("countsketch_scatter", 1, "smem", tiling.TABLE_THREADS, table),
@@ -691,7 +716,8 @@ def report_occupancy(tag):
              wide.smem_bytes),
             ("countsketch_update", 1, "smem", tiling.TABLE_THREADS, table),
             ("countsketch_update", 0, "global", tiling.THREADS_PER_BLOCK, 0),
-            ("countsketch_update", 2, "det", det.threads, det.smem_bytes),
+            ("countsketch_update", 2, "det", dense_det.threads,
+             dense_det.smem_bytes),
             ("countsketch_query", 0, "", tiling.THREADS_PER_BLOCK, 0),
             ("countsketch_query", 1, "estimate", tiling.THREADS_PER_BLOCK,
              0),
@@ -1960,7 +1986,8 @@ def reset_counts() -> None:
     from repro_torch.kernels import ppswor_transform as tr
     from repro_torch.kernels import segment_sum as sg
 
-    s.launches = u.launches = u.single_launches = tr.launches = 0
+    s.launches = s.single_launches = 0
+    u.launches = u.single_launches = tr.launches = 0
     q.launches = q.single_launches = 0
     q.estimate_launches = q.estimate_single_launches = 0
     sg.launches = 0
@@ -4483,10 +4510,13 @@ def phase_det_update(torch, seed, tag):
     (``ref.countsketch_update_det_ref`` at the plan's chunk, on the card)
     without the transform and, with it, fed the ppswor_transform kernel's
     values; each cell within its rounding bound of the plain version and
-    of the shared-memory (atomics) variant.  Then ``update_dense`` and
+    of the shared-memory (atomics) variant.  Times of both variants
+    (medians of 10 by CUDA events) beside the bound, at the layer and at
+    one 21.2 M segment (#4, B = 1: the wg leaf, whose three launches give
+    the order model's bits too).  Then ``update_dense`` and
     ``gradcomp.tree_compress_step_engine`` twice each in the mode (the
     launches counted from 0, the det variant required): the same bits both
-    times.  Times of both variants by CUDA events beside the bound."""
+    times."""
     import tempfile
 
     import numpy as np
@@ -4571,12 +4601,13 @@ def phase_det_update(torch, seed, tag):
     torch.cuda.empty_cache()
 
     # times: the det variant, the atomics, the order model (its plain
-    # version), beside the bound of the smem row
-    with deterministic_mode(torch):
-        out["ms"] = cuda_ms(torch, lambda: u.countsketch_update_batched(
-            v0, ROWS, WIDTH, seeds, p=P, **kw), 10)
-    out["atomics_ms"] = cuda_ms(torch, lambda: u.countsketch_update_batched(
-        v0, ROWS, WIDTH, seeds, p=P, _variant="smem", **kw), 10)
+    # version), beside the bound of the smem row; the kernels each a median
+    # of 10 launches timed alone through their C entries (the wrapper reads
+    # the lengths back to plan, which would put its host time in the window)
+    out["ms"] = cuda_ms_median(torch, raw_update(
+        torch, v0, seeds, tseeds, np.asarray(sizes), P, "det")[1])
+    out["atomics_ms"] = cuda_ms_median(torch, raw_update(
+        torch, v0, seeds, tseeds, np.asarray(sizes), P, "smem")[1])
     out["plain_ms"] = cuda_ms(torch, lambda: ref.countsketch_update_det_ref(
         v0, ROWS, WIDTH, seeds, p=P, chunk=plan.chunk, **kw), 1, warmup=0)
     out["bound_ms"], out["bound_by"] = bound(
@@ -4588,7 +4619,52 @@ def phase_det_update(torch, seed, tag):
         f"({100 * out['bound_ms'] / out['atomics_ms']:.1f} %), order model "
         f"(plain) {out['plain_ms']:.1f} ms, bound {out['bound_ms']:.4f} ms "
         f"by {out['bound_by']}; det / atomics {out['ratio_to_atomics']:.2f}x "
-        f"{tag}")
+        f"(medians of 10) {tag}")
+
+    # #4: the det kernel at one 21.2 M segment (the wg leaf, B = 1), the
+    # same bits on every launch and the order model's, beside its bound and
+    # the atomics
+    b_wg = [name for name, _ in LEAVES].index("wg")
+    wg = v0[b_wg]
+    seg = {"n": wg.numel(), "plan": tiling.table_plan(
+        1, wg.numel(), np.asarray([wg.numel()]), ROWS, WIDTH,
+        tiling.sm_count(dev), "det", det_chunks=True)._asdict()}
+    wseed, wtseed = int(seeds[b_wg]), int(tseeds[b_wg])
+    with deterministic_mode(torch):
+        before = (u.single_launches, u.variant_launches["det"])
+        segs = [u.countsketch_update(wg, ROWS, WIDTH, wseed, p=None)
+                for _ in range(3)]
+        if (u.single_launches - before[0],
+                u.variant_launches["det"] - before[1]) != (3, 3):
+            raise AssertionError("det update B = 1: the det variant did not "
+                                 "launch")
+    torch.cuda.synchronize()
+    model = ref.countsketch_update_det_ref(wg[None], ROWS, WIDTH, wseed,
+                                           chunk=seg["plan"]["chunk"])[0]
+    seg_same = all(same_bits(torch, o, segs[0]) for o in segs[1:])
+    seg_equal = same_bits(torch, segs[0], model)
+    del segs, model
+    one = (v0[b_wg:b_wg + 1], seeds[b_wg:b_wg + 1], tseeds[b_wg:b_wg + 1],
+           np.asarray([wg.numel()]), P)
+    seg["ms"] = cuda_ms_median(torch, raw_update(torch, *one, "det")[1])
+    seg["atomics_ms"] = cuda_ms_median(torch, raw_update(torch, *one,
+                                                         "smem")[1])
+    seg["bound_ms"], seg["bound_by"] = bound(
+        wg.numel() * 4 + ROWS * WIDTH * 4, wg.numel() * UPDATE_OPS_PER_SLOT)
+    seg["ratio_to_atomics"] = seg["ms"] / seg["atomics_ms"]
+    out["single_segment"] = seg
+    log(f"[det] update B = 1, n = {wg.numel()}: 3 launches in the "
+        f"deterministic mode, identical bits: {seg_same}; equal to the order "
+        f"model (chunk {seg['plan']['chunk']}, {seg['plan']['blocks']} "
+        f"blocks) bit for bit: {seg_equal} {tag}")
+    log(f"[time] update B = 1, n = {wg.numel()}: det {seg['ms']:.4f} ms "
+        f"({100 * seg['bound_ms'] / seg['ms']:.1f} % of bound), shared-"
+        f"memory atomics {seg['atomics_ms']:.4f} ms, bound "
+        f"{seg['bound_ms']:.4f} ms by {seg['bound_by']}; det / atomics "
+        f"{seg['ratio_to_atomics']:.2f}x (medians of 10) {tag}")
+    if not (seg_same and seg_equal):
+        raise AssertionError(f"det update B = 1: identical {seg_same}, order "
+                             f"model {seg_equal}")
 
     # the dense paths in the mode, launches counted from 0: update_dense and
     # the gradcomp engine step, twice each, the same bits
@@ -4649,6 +4725,228 @@ def phase_det_update(torch, seed, tag):
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"[phase] det update: {out['wall_s']:.2f} s wall")
     return out
+
+
+def raw_update(torch, vals, seeds, tseeds, lens, p, variant, plan_mod=None,
+               fn=None):
+    """The plan and a closure that launches the dense update's ``variant``
+    ("det" or "smem") once through its C entry on (B, n) ``vals`` with host
+    ``lens``: no wrapper work (the seeds, lengths and chunk ends on the card
+    once, before), so CUDA events around a call time the kernel, and for
+    "det" its chunk-sum pass, alone.  ``plan_mod`` is the ``tiling`` module
+    of the checkout whose entry ``fn`` is (this tree's by default)."""
+    import numpy as np
+    from repro_torch.core import hashing
+    from repro_torch.kernels import build, tiling
+    from repro_torch.kernels import countsketch_update as u
+
+    dev = vals.device
+    plan_mod = plan_mod or tiling
+    B, n = vals.shape
+    plan = plan_mod.table_plan(B, n, lens, ROWS, WIDTH, tiling.sm_count(dev),
+                               variant, det_chunks=True)
+    if fn is None:
+        fn = build.function("countsketch_update",
+                            f"worp_countsketch_update_{variant}",
+                            u._DET_ARGTYPES if variant == "det"
+                            else u._SMEM_ARGTYPES)
+    s32, t32 = hashing.int32_arg(seeds, B, dev), hashing.int32_arg(tseeds, B,
+                                                                   dev)
+    base32 = torch.zeros(B, dtype=torch.int32, device=dev)
+    lens32 = tiling.lengths_arg(lens, B, n, dev)
+    ends = None if plan.one_per_stream else torch.from_numpy(
+        tiling.block_ends(lens, plan.chunk).astype(np.int32)).to(dev)
+    work = None if plan.one_per_stream or variant != "det" else torch.empty(
+        (plan.blocks, ROWS, WIDTH), device=dev)
+    delta = torch.empty((B, ROWS, WIDTH), device=dev)
+    ptrs = [vals.data_ptr(), s32.data_ptr(), t32.data_ptr(),
+            base32.data_ptr(), lens32.data_ptr(),
+            None if ends is None else ends.data_ptr()]
+    if variant == "det":
+        ptrs.append(None if work is None else work.data_ptr())
+    args = (*ptrs, delta.data_ptr(), B, n, ROWS, WIDTH, plan.chunk,
+            int(p is not None), -1.0 / p if p is not None else 0.0, 0,
+            plan.blocks, plan.threads, plan.smem_bytes,
+            torch.cuda.current_stream().cuda_stream)
+
+    def go(owners=(s32, t32, base32, lens32, ends, work)):
+        # ``owners`` keeps the tensors behind the pointers alive
+        if variant == "smem" and not plan.one_per_stream:
+            delta.zero_()  # the chunks add into a zeroed delta
+        err = fn(*args)
+        if err:
+            raise RuntimeError(f"update ({variant}): CUDA error {err}")
+        return delta
+    return plan, go
+
+
+def det_parent_ab(torch, others: list, seed: int) -> int:
+    """``--det-parent DIR [DIR ...]``: the dense update's det kernel of
+    other checkouts (each DIR's ``countsketch_update.cu`` built here, all
+    at once, and launched with its own ``tiling`` plan) beside this tree's,
+    in one process on one card, at the gemma2_2b layer (11 streams, 77.9 M
+    live slots) and at one 21.2 M segment (#4, B = 1), with and without the
+    transform: each gives its order model's bits
+    (``ref.countsketch_update_det_ref`` at its plan's chunk), and each is
+    timed in turns (the others, this, this, the others in reverse), 10
+    back-to-back launches a turn, beside the atomics variant and the bound.
+    All take the same C entry, launched raw, so no wrapper time is in any
+    window.  Prints each det kernel's registers, occupancy and static SASS
+    opcode counts (``cuobjdump -sass``)."""
+    import collections
+    import ctypes
+    import importlib.util
+    import re
+
+    import numpy as np
+    from repro_torch.engine import EngineConfig, derive_stream_seeds
+    from repro_torch.kernels import build, ref, tiling
+    from repro_torch.kernels import countsketch_update as u
+    from repro_torch.kernels import ppswor_transform as tr
+
+    smi = card_info()
+    tag = f"[{smi}]"
+    log(smi)
+    dev = torch.device(DEVICE)
+    built = build.build_all(("countsketch_update", "ppswor_transform"))
+    libs = {"this": built["countsketch_update"].path}
+    out_dir = build.BUILD_DIR / "det_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for d in others:
+        lib = out_dir / f"libcountsketch_update_{d.name}.so"
+        jobs[d.name] = (d, lib, subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+             str(d / "src/repro_torch/kernels/csrc/countsketch_update.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    versions = {}
+    for label, (d, lib, proc) in jobs.items():
+        text, _ = proc.communicate(timeout=600)
+        for line in text.splitlines():
+            if "countsketch_update_det" in line or "Used" in line:
+                log(f"[build] {label} countsketch_update: {line.strip()}")
+        if proc.returncode:
+            raise RuntimeError(f"{d}: countsketch_update.cu did not build")
+        spec = importlib.util.spec_from_file_location(
+            f"tiling_{label}", d / "src/repro_torch/kernels/tiling.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        clib = ctypes.CDLL(str(lib))
+        versions[label] = (mod, clib.worp_countsketch_update_det,
+                           clib.worp_countsketch_update_info)
+        libs[label] = lib
+    clib = ctypes.CDLL(str(libs["this"]))
+    versions["this"] = (tiling, clib.worp_countsketch_update_det,
+                        clib.worp_countsketch_update_info)
+    for _, fn, info in versions.values():
+        fn.argtypes, fn.restype = u._DET_ARGTYPES, ctypes.c_int
+        info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_void_p]
+        info.restype = ctypes.c_int
+    order = [*jobs, "this", "this", *reversed(jobs)]
+    report = {"card": smi, "sass": {}}
+    cuobjdump = str(Path(build.nvcc()).parent / "cuobjdump")
+    for label, lib in libs.items():
+        sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        for body in sass.split("Function : ")[1:]:
+            name = body.split()[0]
+            if "countsketch_update_det" not in name:
+                continue
+            ops = collections.Counter()
+            for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(.*?);", body):
+                words = m.group(1).split()
+                op = (words[1] if words[0].startswith("@") else
+                      words[0]).split(".")[0]
+                ops[op] += op != "NOP"
+            top = dict(ops.most_common())
+            report["sass"][f"{label} {name[-40:]}"] = top
+            (out_dir / f"{label}.sass").write_text(body)
+            log(f"[sass] {label} {name[-40:]}: {sum(top.values())} "
+                f"instructions: " + ", ".join(f"{k} {v}" for k, v in
+                                              list(top.items())[:16]))
+
+    grads = gc_gradients(torch, seed + 11, 1)[0]
+    sizes = [n for _, n in LEAVES]
+    L, n_max = len(sizes), max(sizes)
+    v0 = torch.zeros((L, n_max), device=dev)
+    for b, (name, n) in enumerate(LEAVES):
+        v0[b, :n] = grads[name]
+    del grads
+    seeds, tseeds = derive_stream_seeds(EngineConfig(num_streams=L),
+                                        device=dev)
+    b_wg = [name for name, _ in LEAVES].index("wg")
+    shapes = {"layer": (v0, seeds, tseeds, np.asarray(sizes)),
+              "segment": (v0[b_wg:b_wg + 1], seeds[b_wg:b_wg + 1],
+                          tseeds[b_wg:b_wg + 1], np.asarray([n_max]))}
+
+    ok = True
+    for shape, (vals, sd, td, lens) in shapes.items():
+        B = vals.shape[0]
+        live = int(lens.sum())
+        rec = {"live": live}
+        rec["bound_ms"], rec["bound_by"] = bound(
+            live * 4 + B * ROWS * WIDTH * 4, live * UPDATE_OPS_PER_SLOT)
+        for p in (None, P):
+            tvals = vals
+            if p is not None:
+                tvals = torch.zeros_like(vals)
+                for b in range(B):
+                    n = int(lens[b])
+                    tvals[b, :n] = tr.ppswor_transform(
+                        torch.arange(n, dtype=torch.int32, device=dev),
+                        vals[b, :n].contiguous(), p, int(td[b]))
+            gos = {}
+            for label, (mod, fn, _) in versions.items():
+                plan, go = raw_update(torch, vals, sd, td, lens, p, "det",
+                                      mod, fn)
+                outs = [go().clone() for _ in range(3)]
+                torch.cuda.synchronize()
+                model = ref.countsketch_update_det_ref(
+                    tvals, ROWS, WIDTH, sd, lengths=torch.from_numpy(lens),
+                    chunk=plan.chunk)
+                same = all(same_bits(torch, o, outs[0]) for o in outs[1:])
+                equal = same_bits(torch, outs[0], model)
+                ok = ok and same and equal
+                log(f"[det-ab] {shape} p={p} {label}: plan {plan.blocks} "
+                    f"blocks x {plan.threads} threads, chunk {plan.chunk}, "
+                    f"{plan.smem_bytes} B; 3 launches identical: {same}; "
+                    f"the order model's bits: {equal} {tag}")
+                rec[f"{label}_plan_p{p}"] = plan._asdict()
+                gos[label] = go
+                del outs, model
+            turns = [(label, cuda_ms(torch, gos[label], 10))
+                     for label in order]
+            for label in versions:
+                rec[f"{label}_ms_p{p}"] = [t for lab, t in turns
+                                           if lab == label]
+            log(f"[det-ab] {shape} p={p}: " + ", ".join(
+                f"{lab} {t:.4f} ms" for lab, t in turns)
+                + f"; bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+                f"{tag}")
+            del tvals, gos
+        rec["atomics_ms"] = cuda_ms(torch, raw_update(
+            torch, vals, sd, td, lens, P, "smem")[1], 10)
+        log(f"[det-ab] {shape}: shared-memory atomics {rec['atomics_ms']:.4f}"
+            f" ms at p={P} {tag}")
+        report[shape] = rec
+    for label, (mod, _, info) in versions.items():
+        plan = mod.table_plan(L, n_max, np.asarray(sizes), ROWS, WIDTH, 132,
+                              "det", det_chunks=True)
+        buf = (ctypes.c_int * 4)()
+        if info(2, plan.threads, plan.smem_bytes, ctypes.addressof(buf)):
+            raise RuntimeError(f"{label}: kernel info failed")
+        occ = dict(zip(("registers", "static_smem", "blocks_per_sm",
+                        "max_dynamic_smem"), buf))
+        report[f"{label}_occupancy"] = dict(occ, threads=plan.threads,
+                                            dynamic_smem=plan.smem_bytes)
+        log(f"[occupancy] countsketch_update det ({label}): "
+            f"{occ['registers']} registers a thread, {plan.threads} threads, "
+            f"dynamic smem {plan.smem_bytes} B, {occ['blocks_per_sm']} "
+            f"blocks per SM {tag}")
+    log("[det-ab] " + json.dumps(report))
+    return 0 if ok else 1
 
 
 # the serve phase: (a) gemma2_2b at full width and 2 layers (one local/global
@@ -6342,6 +6640,10 @@ def main() -> int:
     ap.add_argument("--sass", action="store_true",
                     help="only count the transform factor's SASS, old and "
                          "new, and exit")
+    ap.add_argument("--det-parent", default=None, type=Path, nargs="+",
+                    help="only time the dense update's det kernel of the "
+                         "checkouts at these directories beside this "
+                         "tree's, and exit")
     ap.add_argument("--card-step", default=None,
                     help="only run ``card_step`` for these comma-separated "
                          "architectures and print a record of each (the "
@@ -6360,6 +6662,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    if args.det_parent is not None:
+        return det_parent_ab(torch, [d.resolve() for d in args.det_parent],
+                             args.seed)
     if args.card_step:
         for arch in args.card_step.split(","):
             log("[card-step] " + json.dumps(card_step(torch, arch)))
@@ -6544,11 +6849,16 @@ def main() -> int:
         "parity": "bit for bit ref.countsketch_update_det_ref (its order "
                   "model, at the plan's chunk) on the card; per-cell "
                   "rounding bound of the plain version and of the atomics",
+        "design": "det_dense_block (csrc/smem_table.cuh): a warp "
+                  "a row hashes its row's buckets and signs and adds them "
+                  "in slot order over a stage of transformed values that "
+                  "every thread fills; countsketch_chunk_sum adds the chunk "
+                  "tables in chunk order",
         **{key: det_update[key] for key in (
             "max_abs_err", "worst_err_over_bound", "vs_atomics_max_abs_err",
             "vs_atomics_worst_err_over_bound", "ms", "plain_ms", "bound_ms",
             "bound_by", "atomics_ms", "ratio_to_atomics", "plan",
-            "occupancy")},
+            "occupancy", "single_segment")},
         "library_ms": update["library_ms"],
         "plain": "ref.countsketch_update_det_ref on the card",
         "library": "index_add_ of the transformed terms (memory half only)"}

@@ -24,6 +24,7 @@ its spec's plain PyTorch on the engine's device.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -86,6 +87,43 @@ def derive_stream_seeds(cfg: EngineConfig, offset: int = 0, device=None):
             hashing.hash_u32(b, (cfg.seed & hashing.MASK32) ^ 0xA5A5A5A5))
 
 
+# ---------------------------------------------------------------------------
+# generic batched sampler ops: the spec functions take the stream axis
+# ---------------------------------------------------------------------------
+
+class BatchedSamplerOps:
+    """One SamplerSpec's functions over a leading stream axis, with the
+    reference's call signatures.
+
+    ``init(sk_seeds, t_seeds, *, device=None)`` maps (B,) seed vectors to
+    the batched state (on the seeds' device where they are tensors, else on
+    ``device``, the card unless the caller asks otherwise); every other op
+    maps batched states and (B, n) element batches as a loop of
+    single-stream calls would, ``sample(st, k)`` included.  The port's spec
+    functions take the stream axis natively, so each op is the spec's own
+    function.  The two-phase hooks (``init2``, ``update2``, ``merge2``,
+    ``sample2``) are present iff the spec has an exact second pass."""
+
+    def __init__(self, spec: SamplerSpec):
+        self.spec = spec
+        self.init = spec.init
+        self.update = spec.update
+        self.merge = spec.merge
+        self.sample = spec.sample
+        self.estimate = spec.estimate
+        if spec.two_phase:
+            self.init2 = spec.init2
+            self.update2 = spec.update2
+            self.merge2 = spec.merge2
+            self.sample2 = spec.sample2
+
+
+@functools.lru_cache(maxsize=None)
+def batched_ops(spec: SamplerSpec) -> BatchedSamplerOps:
+    """Batched ops for a spec, one object per spec."""
+    return BatchedSamplerOps(spec)
+
+
 def init_batched(cfg: EngineConfig, device=None):
     """Batched initial state of cfg's registered sampler on ``device`` (the
     card unless the caller asks otherwise)."""
@@ -121,6 +159,14 @@ def _refresh_candidates(sk: countsketch.CountSketch, cand_keys, batch_keys):
     all_keys = torch.cat([cand_keys, batch_keys.to(cand_keys.dtype)], 1)
     est = torch.abs(ops.estimate_batched(sk.table, all_keys, sk.seed))
     return worp._refresh_from_estimates(all_keys, est, cand_keys.shape[1])
+
+
+def onepass_update_batched(st: worp.OnePassState, keys: torch.Tensor,
+                           values: torch.Tensor, p: float,
+                           scheme: str = transforms.PPSWOR):
+    """``worp.onepass_update`` on a batched state: keys and values are
+    (B, n)."""
+    return worp.onepass_update(st, keys, values, p, scheme)
 
 
 def onepass_update_dense(st: worp.OnePassState, values: torch.Tensor,

@@ -1,16 +1,17 @@
 """Batched turnstile scatter: the wrapper of ``csrc/countsketch_scatter.cu``.
 
 ``countsketch_scatter_batched`` takes B sparse signed streams and returns
-their (B, rows, width) CountSketch delta.  A CUDA tensor launches the
+their (B, rows, width) CountSketch delta; ``countsketch_scatter`` is one
+stream, a B = 1 launch of the same kernel.  A CUDA tensor launches the
 hand-written kernel (or raises); a CPU tensor takes the plain version in
 ``ref``.  The kernel's variant follows from the mode and the shape before
 the launch (``tiling.table_plan``): under
 ``torch.use_deterministic_algorithms(True)`` the deterministic variant
 ("det": every cell summed in an order fixed by slot index, the same bits on
 every run; a table too large for it raises), else the shared-memory table
-where rows x width fits a block, else global atomics.  ``launches`` counts
-kernel launches, and nothing else; ``variant_launches`` splits them by
-variant.
+where rows x width fits a block, else global atomics.  ``launches``
+(batched) and ``single_launches`` (one stream) count kernel launches, and
+nothing else; ``variant_launches`` splits all of them by variant.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from repro_torch.core import hashing, transforms
 from . import build, ref, tiling
 
 launches = 0
+single_launches = 0
 variant_launches = {"smem": 0, "global": 0, "det": 0}
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
@@ -61,6 +63,39 @@ def countsketch_scatter_batched(keys: torch.Tensor, values: torch.Tensor,
         return ref.countsketch_scatter_batched_ref(
             keys, values, rows, width, seeds, p=p,
             transform_seeds=transform_seeds, lengths=lengths, scheme=scheme)
+    delta, launched = _launch(keys, values, rows, width, seeds, p, scheme,
+                              transform_seeds, lengths, _variant)
+    if launched:
+        global launches
+        launches += 1
+    return delta
+
+
+def countsketch_scatter(keys: torch.Tensor, values: torch.Tensor, rows: int,
+                        width: int, seed, p: float | None = None,
+                        scheme: str = transforms.PPSWOR, transform_seed=0, *,
+                        _variant: str | None = None) -> torch.Tensor:
+    """Scatter one sparse signed stream: (n,) int32 keys and float32 values
+    -> (rows, width) table, with the fused transform when ``p`` is set."""
+    if keys.device.type == "cpu":
+        return ref.countsketch_scatter_ref(keys, values, rows, width, seed,
+                                           p=p, transform_seed=transform_seed,
+                                           scheme=scheme)
+    _require(keys.dim() == 1 and values.dim() == 1,
+             f"keys and values must be (n,), got shapes "
+             f"{tuple(keys.shape)} and {tuple(values.shape)}")
+    delta, launched = _launch(keys[None], values[None], rows, width, seed, p,
+                              scheme, transform_seed, None, _variant)
+    if launched:
+        global single_launches
+        single_launches += 1
+    return delta[0]
+
+
+def _launch(keys, values, rows, width, seeds, p, scheme, transform_seeds,
+            lengths, variant):
+    """Check the arguments and launch the kernel once: the (B, rows, width)
+    delta and whether a kernel ran (an empty batch launches nothing)."""
     _require(keys.device.type == "cuda",
              f"keys on {keys.device}; expected a CUDA or CPU tensor")
     _require(keys.dim() == 2 and keys.dtype == torch.int32
@@ -75,13 +110,14 @@ def countsketch_scatter_batched(keys: torch.Tensor, values: torch.Tensor,
     _require(B <= _INT_MAX and n <= _INT_MAX, f"shape {tuple(keys.shape)}")
     dev = keys.device
     if B * n == 0:
-        return torch.zeros((B, rows, width), dtype=torch.float32, device=dev)
+        return torch.zeros((B, rows, width), dtype=torch.float32,
+                           device=dev), False
     seeds32 = hashing.int32_arg(seeds, B, dev)
     tseeds32 = hashing.int32_arg(
         0 if transform_seeds is None else transform_seeds, B, dev)
     lens32 = tiling.lengths_arg(lengths, B, n, dev)
     plan, delta = tiling.table_launch(
-        B, n, lengths, rows, width, dev, _variant,
+        B, n, lengths, rows, width, dev, variant,
         deterministic=torch.are_deterministic_algorithms_enabled())
     transform = (int(p is not None), -1.0 / p if p is not None else 0.0,
                  SCHEMES.get(scheme, 0))
@@ -117,7 +153,5 @@ def countsketch_scatter_batched(keys: torch.Tensor, values: torch.Tensor,
     if err:
         raise RuntimeError(f"countsketch_scatter kernel launch failed: CUDA "
                            f"error {err}")
-    global launches
-    launches += 1
     variant_launches[plan.variant] += 1
-    return delta
+    return delta, True

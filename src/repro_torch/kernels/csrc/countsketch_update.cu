@@ -31,32 +31,32 @@
 // the plain version within float tolerance, not bit for bit.
 //   * worp_countsketch_update_det, under
 //     torch.use_deterministic_algorithms(True) where the table and two
-//     stages fit a block (tiling.det_fits): every cell summed in an order
-//     fixed by the slot indices and the plan's chunk, the same bits on
-//     every run.  A larger table has no deterministic variant: the wrapper
-//     raises.
+//     stages fit a block (tiling.det_dense_fits): every cell summed in an
+//     order fixed by the slot indices and the plan's chunk, the same bits
+//     on every run.  A larger table has no deterministic variant: the
+//     wrapper raises.
 //
-// The det variant.  The block body is the det scatter's (smem_table.cuh
-// det_table_block: producer warps hash a stage of 256 slots, a walker warp
-// a row adds it in slot order), with dense slots: key base_keys[b] + i,
-// live below the length, and no key matching, since the keys of a segment
-// are distinct.  One block a stream would run the gemma2_2b layer's 21.2 M
-// slot wg leaf on one SM, so each block takes one chunk of a stream, as the
-// shared-memory variant's plan cuts them (tiling.table_plan, a multiple of
-// 512 slots), and writes its table whole to its row of a (blocks, rows,
-// width) workspace.  A second kernel then sums each stream's chunk tables
-// in chunk order, each cell from 0.0f, into the delta.  Where one chunk
-// holds the longest stream, each stream is one block that writes its delta
-// row itself and the second pass is skipped.  kernels/ref.py
+// The det variant.  Its block body is the dense update's own
+// (smem_table.cuh det_dense_block): a warp a row hashes its row's buckets
+// and signs and adds them in slot order, over a stage of transformed values
+// that every thread fills, with no key matching, since the keys of a
+// segment are distinct.  One block a stream would run the gemma2_2b
+// layer's 21.2 M slot wg leaf on one SM, so each block takes one chunk of
+// a stream (tiling.table_plan with det_chunks: a multiple of the block's
+// stage) and writes its table whole to its row of a (blocks, rows, width)
+// workspace.  A second kernel then sums each stream's chunk tables in
+// chunk order, each cell from 0.0f, into the delta.  Where one chunk holds
+// the longest stream, each stream is one block that writes its delta row
+// itself and the second pass is skipped.  kernels/ref.py
 // countsketch_update_det_ref is this order in plain PyTorch, and the card
 // checks hold the kernel to it bit for bit.  The workspace is 57,344 B a
-// block at the defaults (60.6 MB at the gemma2_2b layer's 1,057 blocks),
-// read once by the second pass.
+// block at the defaults, read once by the second pass.
 //
 // Budget: 57,344 B of shared memory a block at the defaults and 31
 // registers a thread, so 4 blocks of 512 threads an SM (chip_smoke.py
-// prints both).  The bucket of a power-of-two width is hash & (W - 1), bit
-// for bit hash % W (hashing.cuh).
+// prints both); the det variant 64,512 B and 224 threads, 3 blocks an SM.
+// The bucket of a power-of-two width is hash & (W - 1), bit for bit
+// hash % W (hashing.cuh).
 //
 // Bound: per live slot, 7 rows x (two hash_u32 + a mask) plus the
 // transform's hash, log and pow, some 358 32-bit operations, against 4
@@ -67,7 +67,10 @@
 // to L2, in 8.61-9.42 ms, and one 21.2 M segment in 2.30-2.83 ms; the
 // shared-memory design runs the layer in 2.18-2.50 ms (67-76 % of its
 // bound) and the segment in 0.653-0.721 ms (63-70 %) (chip_smoke.py, H100
-// 80GB HBM3, 700.00 W).
+// 80GB HBM3, 700.00 W).  The det variant runs the layer in 2.30-2.32 ms
+// (72 %) and the segment in 0.711-0.719 ms (63-64 %), 1.22x faster than
+// the det_table_block body it replaced, launched in the same processes
+// (chip_smoke.py --det-parent, H100 80GB HBM3, 700.00 W).
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -116,21 +119,14 @@ __global__ void __launch_bounds__(worp::kTableThreads, 3)
   worp::table_block(worp::DenseSlots{values, base_keys}, args, table);
 }
 
-// Entry: a row's staged bucket and sign, 16 bits where width <= 2**15.
-template <class Entry>
-__global__ void __launch_bounds__(worp::kTableThreads, 3)
+// 224 threads for rows 7, so 3 blocks (64,512 B of shared memory each) an
+// SM: at most 85 registers a thread keep them resident.
+__global__ void __launch_bounds__(32 * worp::kDenseMaxWarps, 3)
     countsketch_update_det(const float* __restrict__ values,
                            const int32_t* __restrict__ base_keys,
                            worp::TableArgs args) {
   extern __shared__ float table[];
-  worp::det_table_block<worp::DenseSlots, Entry>(
-      worp::DenseSlots{values, base_keys}, args, table);
-}
-
-// The det kernel's instantiation for a table `width` buckets wide.
-void (*det_kernel(int width))(const float*, const int32_t*, worp::TableArgs) {
-  if (width <= (1 << 15)) return countsketch_update_det<uint16_t>;
-  return countsketch_update_det<uint32_t>;
+  worp::det_dense_block(values, base_keys, args, table);
 }
 
 // The det variant's second pass: delta[b, c] = ((0 + ws[g0, c]) + ws[g0 +
@@ -156,9 +152,9 @@ __global__ void countsketch_chunk_sum(const float* __restrict__ ws,
 
 }  // namespace
 
-// The deterministic variant: `blocks` blocks of `threads` (32 x (8
-// producer warps + min(rows, 8) walkers)) and `smem_bytes`
-// (tiling.det_smem_bytes) of dynamic shared memory.  With block_ends null
+// The deterministic variant: `blocks` blocks of `threads` (32 x min(rows,
+// 8): a warp a row) and `smem_bytes` (tiling.det_dense_smem_bytes: the
+// table and two stages) of dynamic shared memory.  With block_ends null
 // each stream is one block and writes its delta row; else block g takes
 // the chunk that block_ends (the (B,) inclusive prefix sum of chunk counts)
 // gives it, writes its table to workspace row g, and the second pass sums
@@ -170,8 +166,7 @@ extern "C" int worp_countsketch_update_det(
     void* workspace, void* delta, int B, int n, int rows, int width,
     int chunk, int has_p, float neg_inv_p, int scheme, int blocks,
     int threads, int smem_bytes, void* stream) {
-  const auto kernel = det_kernel(width);
-  int err = worp::prepare_table_kernel(kernel, smem_bytes);
+  int err = worp::prepare_table_kernel(countsketch_update_det, smem_bytes);
   if (err) return err;
   const auto ends = static_cast<const int32_t*>(block_ends);
   const worp::TableArgs args{
@@ -182,7 +177,7 @@ extern "C" int worp_countsketch_update_det(
       static_cast<float*>(ends == nullptr ? delta : workspace), B, n, rows,
       width, chunk, has_p, scheme, neg_inv_p};
   const auto s = static_cast<cudaStream_t>(stream);
-  kernel<<<blocks, threads, smem_bytes, s>>>(
+  countsketch_update_det<<<blocks, threads, smem_bytes, s>>>(
       static_cast<const float*>(values),
       static_cast<const int32_t*>(base_keys), args);
   err = static_cast<int>(cudaGetLastError());
@@ -226,15 +221,16 @@ extern "C" int worp_countsketch_update_smem(
 }
 
 // Registers, static shared memory, blocks per SM and dynamic shared memory
-// (worp::kernel_info) of variant 0 (global atomics), 1 (shared memory), 2
-// (deterministic, width <= 2**15) or 3 (deterministic, 32-bit entries).
+// (worp::kernel_info) of variant 0 (global atomics), 1 (shared memory) or 2
+// (deterministic).
 extern "C" int worp_countsketch_update_info(int variant, int threads,
                                             int smem_bytes, int* out) {
-  if (variant >= 2) {
-    const auto kernel = det_kernel(variant == 2 ? 1 : (1 << 15) + 1);
-    const int err = worp::prepare_table_kernel(kernel, smem_bytes);
+  if (variant == 2) {
+    const int err = worp::prepare_table_kernel(countsketch_update_det,
+                                               smem_bytes);
     if (err) return err;
-    return worp::kernel_info(kernel, threads, smem_bytes, out);
+    return worp::kernel_info(countsketch_update_det, threads, smem_bytes,
+                             out);
   }
   if (variant == 1) {
     const int err = worp::prepare_table_kernel(countsketch_update_smem,

@@ -54,6 +54,21 @@ __device__ __forceinline__ float sign_hash(uint32_t key, uint32_t salt) {
   return sign_bit(key, salt) ? -1.0f : 1.0f;
 }
 
+// sign_bit(key, salt) << 31, for an XOR into a float's sign.  The bit is
+// bit 0 of x ^ (x >> 16), x the outer mixer's state before its last step;
+// x * 0x80008000 = (x << 31) + (x << 15) holds x0 ^ x16 in bit 31, since
+// nothing below bit 31 carries into it: one multiply (on the FMA pipe) and
+// a mask in place of the last shift, the XOR and the bit tests.
+__device__ __forceinline__ uint32_t sign_mask(uint32_t key, uint32_t salt) {
+  const uint32_t s = salt ^ kSignSalt;
+  uint32_t x = mix32(key + s) ^ (s * kRowSalt);
+  x ^= x >> 16;
+  x *= kM1;
+  x ^= x >> 15;
+  x *= kM2;
+  return (x * 0x80008000u) & 0x80000000u;
+}
+
 // hash % width.  For a power-of-two width the mask gives the same bucket
 // bit for bit in one instruction, where a 32-bit modulo by a run-time width
 // is a sequence of some twenty.

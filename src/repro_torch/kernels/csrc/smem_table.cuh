@@ -1,9 +1,9 @@
 // The block bodies shared by the WORp summing kernels for Hopper (sm_90a):
 // the batched scatter (countsketch_scatter.cu) and the dense segment update
-// (countsketch_update.cu), both the shared-memory atomics body and the
-// deterministic one.  The two kernels differ only in how a slot gets its
-// key: the scatter loads it and skips padding (-1), the dense update
-// computes base_keys[b] + i and skips nothing.
+// (countsketch_update.cu): the shared-memory atomics body, which the two
+// share, and a deterministic body each.  The two kernels differ only in how
+// a slot gets its key: the scatter loads it and skips padding (-1), the
+// dense update computes base_keys[b] + i and skips nothing.
 //
 // Design: one block per (stream, chunk of slots), as kernels/tiling.py's
 // table_plan cuts them.  The block zeroes a rows x width float32 table in
@@ -27,7 +27,9 @@
 // tolerance, not bit for bit.  The scatter's deterministic variant
 // (det_table_block below, under torch.use_deterministic_algorithms) fixes
 // the order: producer warps hash a stage of slots once, and one warp a row
-// then adds the staged terms to its row in slot order.
+// then adds the staged terms to its row in slot order.  The dense update's
+// deterministic variant (det_dense_block) keeps that order with a warp a
+// row that hashes its own row.
 //
 // Shared memory: rows x width x 4 B, 57,344 B at the defaults (7 x 2048).
 // Above 48 KB a block needs the opt-in attribute, which prepare_table_kernel
@@ -252,10 +254,8 @@ __device__ __forceinline__ void table_block(const Slots& slots,
 // countsketch_scatter_det_ref is this order in plain PyTorch, and the card
 // tests hold the kernel to it bit for bit.
 //
-// The design.  One block per stream (the dense update's det variant: one
-// block per chunk of a stream, det_table_block), warp-specialised: 8
-// producer warps and
-// one row-walker warp a row (at most 8; walker w takes rows w, w + 8, ...),
+// The design.  One block per stream, warp-specialised: 8 producer warps
+// and one row-walker warp a row (at most 8; walker w takes rows w, w + 8, ...),
 // over a double-buffered stage of kDetStage = 256 slots in shared memory
 // beside the table:
 //   * producer warp g takes group g of each stage (its next key and value
@@ -461,10 +461,8 @@ __device__ __forceinline__ void det_walk(const TableArgs& a, float* table,
 
 // The block takes its range as table_block does: the scatter's det launch
 // gives each stream one block (block_ends null, chunk 0) and the delta row
-// b; the dense update's gives each chunk of a stream one block (chunk a
-// multiple of kDetStage, so the groups still count from slot 0), whose
-// table goes whole to row blockIdx.x of a workspace that a second pass
-// sums in chunk order (countsketch_update.cu).
+// b.  (The dense update's det variant has a block body of its own,
+// det_dense_block below.)
 template <class Slots, class Entry>
 __device__ __forceinline__ void det_table_block(const Slots& slots,
                                                 const TableArgs& a,
@@ -487,6 +485,205 @@ __device__ __forceinline__ void det_table_block(const Slots& slots,
                     a.rows < kDetMaxWalkers ? a.rows : kDetMaxWalkers, tiles);
   }
   __syncthreads();
+
+  float* dst = a.delta + static_cast<int64_t>(b) * cells;
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) dst[c] = table[c];
+}
+
+// ---------------------------------------------------------------------------
+// The deterministic block body of the dense update (countsketch_update.cu
+// worp_countsketch_update_det; its plan is kernels/tiling.py table_plan
+// with det_chunks): one block a chunk of a segment, its table summed in the
+// det scatter's order, which for a dense segment reads: in each row, the
+// live slots of a 32-slot group (counted from slot 0) that fall in one cell
+// sum their signed terms in slot order, d = (t1 + t2) + ..., and the cell
+// takes cell + d, group by group in slot order, from 0.0f (kernels/ref.py
+// countsketch_update_det_ref, one chunk).
+//
+// Why not det_table_block.  The order fixes a cell's terms only within its
+// row, and a dense segment's keys are distinct, so no key matching is
+// needed.  In det_table_block 8 producer warps hash every row of a stage
+// and a walker warp a row adds it: the hashing ran on 24 warps an SM and
+// the slowest producer paced each stage.  Here a row's bucket and sign
+// hashing lives in the warp that adds that row, so every warp hashes and
+// no row's entries pass from one warp to another:
+//   * warp w owns rows w, w + warps, ... (warps = min(rows,
+//     kDenseMaxWarps)).  For a row, each lane hashes kDenseAhead groups
+//     ahead (independent hash chains), then adds them in group order with
+//     the det walker's test: each live lane reads its cell, marks it with
+//     its lane's tag and reads the mark back; where every lane reads its
+//     own tag no two slots share a cell and each adds its term with a plain
+//     store, else the warp matches the buckets and sums each to its lowest
+//     lane in lane order (ordered_combine) first.  A full stage takes a
+//     walk with every lane live (det_dense_walk<true>): no predicate, no
+//     group check.  The sign goes into the term by an XOR of sign_mask
+//     (hashing.cuh), a multiply where the bit tests were.
+//   * the transform, some 78 of the 358 operations a slot, runs once a
+//     slot, never once a row: every thread transforms kDenseSlotsPerThread
+//     slots of the next stage (loaded into registers a stage ahead) into a
+//     double-buffered stage of transformed values in shared memory beside
+//     the table, after it has walked the current stage.  One __syncthreads
+//     a stage hands it over; every warp does the same work between two of
+//     them.  Without the transform the stage holds the values.
+// Shared memory: the table and two stages of kDenseSlotsPerThread x threads
+// floats: 57,344 + 7,168 B for rows 7 x width 2048 (224 threads), 3 blocks
+// (21 warps) an SM.
+//
+// What the card showed (chip_smoke.py --det-parent on trial trees, H100
+// 80GB HBM3, 700.00 W; PERF.md has the times): the walk costs as much as
+// the hashing and the two add up, so every instruction of either counts.
+// The full-stage walk and sign_mask gave the most; a __match_any_sync in
+// place of the tag test took twice the time (match is slow on the card),
+// an atomicExch tag (one access fewer) was slower, and so were hashing 8
+// groups ahead and the fill spread over the walk; 8 slots a thread were
+// 2 % faster but narrow the widest table (7,789 buckets at rows 7, where
+// 4 slots admit 8,045 and the design this replaced 7,970).
+constexpr int kDenseMaxWarps = 8;       // row-owning warps a block at most
+constexpr int kDenseSlotsPerThread = 4;  // a stage: this x threads slots
+constexpr int kDenseAhead = 4;          // groups a lane hashes ahead
+
+// Adds one 32-slot group of a row in the det order: lane l holds slot l's
+// bucket and signed term; `live` false past the segment's end.
+__device__ __forceinline__ void det_add_group(float* row, uint32_t bucket,
+                                              float v, bool live,
+                                              uint32_t tag) {
+  constexpr unsigned kAll = 0xFFFFFFFFu;
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  float* cell = row + bucket;
+  const float old = live ? *cell : 0.0f;
+  __syncwarp();
+  if (live) *cell = __uint_as_float(tag);
+  __syncwarp();
+  const bool shared = live && __float_as_uint(*cell) != tag;
+  if (__any_sync(kAll, shared)) {  // two slots, one cell
+    float d = v;
+    const unsigned peers =
+        __match_any_sync(kAll, live ? bucket : 0x80000000u | lane);
+    if (ordered_combine(peers, live, d)) *cell = __fadd_rn(old, d);
+  } else if (live) {
+    *cell = __fadd_rn(old, v);
+  }
+  __syncwarp();  // this group's adds before the next group's reads
+}
+
+// Thread t's share of a stage of `stage` slots from slot s0: slots s0 + t,
+// s0 + t + threads, ... (coalesced), loaded (0 past the end) ...
+__device__ __forceinline__ void det_dense_load(
+    const float* __restrict__ values, int64_t row0, int64_t s0, int64_t end,
+    float (&raw)[kDenseSlotsPerThread]) {
+#pragma unroll
+  for (int k = 0; k < kDenseSlotsPerThread; ++k) {
+    const int64_t i = s0 + k * static_cast<int>(blockDim.x) + threadIdx.x;
+    raw[k] = i < end ? values[row0 + i] : 0.0f;
+  }
+}
+
+// ... then transformed (where has_p) into the stage buffer.
+__device__ __forceinline__ void det_dense_fill(
+    const TableArgs& a, uint32_t base, uint32_t tseed, int64_t s0,
+    int64_t end, const float (&raw)[kDenseSlotsPerThread], float* buf) {
+#pragma unroll
+  for (int k = 0; k < kDenseSlotsPerThread; ++k) {
+    const int j = k * static_cast<int>(blockDim.x) + threadIdx.x;
+    float v = raw[k];
+    if (a.has_p && s0 + j < end) {
+      const uint32_t key = base + static_cast<uint32_t>(s0 + j);
+      v = transform_value(v, key, tseed, a.scheme, a.neg_inv_p);
+    }
+    buf[j] = v;
+  }
+}
+
+// Warp-owned rows over one stage: `count` live slots from slot s0, their
+// (transformed) values in buf.  kFull: the stage is full (count is the
+// stage), so every lane is live and no group check is needed; only a
+// chunk's last stage takes the ragged walk.
+template <bool kFull>
+__device__ __forceinline__ void det_dense_walk(const TableArgs& a,
+                                               float* table, const float* buf,
+                                               uint32_t base, uint32_t seed,
+                                               int64_t s0, int count) {
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int warp = static_cast<int>(threadIdx.x >> 5);
+  const int warps = static_cast<int>(blockDim.x >> 5);
+  const uint32_t width = static_cast<uint32_t>(a.width);
+  const uint32_t tag = kTag | static_cast<uint32_t>(lane);
+  const uint32_t key0 = base + static_cast<uint32_t>(s0) + lane;
+  for (int r = warp; r < a.rows; r += warps) {
+    const uint32_t salt = row_salt(seed, static_cast<uint32_t>(r));
+    float* row = table + static_cast<int64_t>(r) * a.width;
+    for (int g0 = 0; g0 * 32 < count; g0 += kDenseAhead) {
+      uint32_t bucket[kDenseAhead];
+      float term[kDenseAhead];
+#pragma unroll
+      for (int q = 0; q < kDenseAhead; ++q) {  // independent hash chains
+        const int j = (g0 + q) * 32 + lane;
+        const uint32_t key = key0 + static_cast<uint32_t>((g0 + q) * 32);
+        bucket[q] = bucket_hash(key, salt, width);
+        const float v = buf[j];
+        term[q] = __uint_as_float(__float_as_uint(v) ^ sign_mask(key, salt));
+      }
+#pragma unroll
+      for (int q = 0; q < kDenseAhead; ++q) {
+        const int g = g0 + q;
+        if (!kFull && g * 32 >= count) break;  // warp-uniform
+        det_add_group(row, bucket[q], term[q],
+                      kFull || g * 32 + lane < count, tag);
+      }
+    }
+  }
+}
+
+// The block takes its range as table_block does (a chunk of stream b, or
+// the whole stream where block_ends is null) and writes its table whole:
+// to delta row b where each stream is one block, else to row blockIdx.x of
+// the (blocks, rows, width) workspace that countsketch_chunk_sum sums in
+// chunk order.  The stage is kDenseSlotsPerThread x blockDim.x slots, a
+// multiple of kDenseAhead groups (blockDim.x a multiple of 32), so a
+// stage's hashed-ahead reads stay in its buffer; chunks start at multiples
+// of 32, so the groups still count from slot 0.
+__device__ __forceinline__ void det_dense_block(
+    const float* __restrict__ values, const int32_t* __restrict__ base_keys,
+    const TableArgs& a, float* table) {
+  int b;
+  int64_t begin, end;
+  block_range(a, b, begin, end);
+  const int cells = a.rows * a.width;
+  const int stage = kDenseSlotsPerThread * static_cast<int>(blockDim.x);
+  float* stages = table + cells;
+  const uint32_t base = static_cast<uint32_t>(base_keys[b]);
+  const uint32_t seed = static_cast<uint32_t>(a.seeds[b]);
+  const uint32_t tseed = static_cast<uint32_t>(a.tseeds[b]);
+  const int64_t row0 = static_cast<int64_t>(b) * a.n;
+  const int tiles =
+      end > begin ? static_cast<int>((end - begin + stage - 1) / stage) : 0;
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) table[c] = 0.0f;
+  float raw[kDenseSlotsPerThread];
+  if (tiles > 0) {
+    det_dense_load(values, row0, begin, end, raw);
+    det_dense_fill(a, base, tseed, begin, end, raw, stages);
+  }
+  if (tiles > 1) det_dense_load(values, row0, begin + stage, end, raw);
+  __syncthreads();  // the table zeroed, stage 0 filled
+  for (int t = 0; t < tiles; ++t) {
+    const int64_t s0 = begin + static_cast<int64_t>(t) * stage;
+    const int64_t left = end - s0;
+    if (left >= stage) {
+      det_dense_walk<true>(a, table, stages + (t & 1) * stage, base, seed,
+                           s0, stage);
+    } else {
+      det_dense_walk<false>(a, table, stages + (t & 1) * stage, base, seed,
+                            s0, static_cast<int>(left));
+    }
+    if (t + 1 < tiles) {  // stage t - 1's buffer: every warp is past it
+      det_dense_fill(a, base, tseed, s0 + stage, end, raw,
+                     stages + ((t + 1) & 1) * stage);
+      if (t + 2 < tiles) {
+        det_dense_load(values, row0, s0 + 2 * stage, end, raw);
+      }
+    }
+    __syncthreads();  // stage t walked everywhere, stage t + 1 filled
+  }
 
   const int64_t out = a.block_ends == nullptr ? b : blockIdx.x;
   float* dst = a.delta + out * cells;

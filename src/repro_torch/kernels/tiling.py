@@ -37,6 +37,15 @@ TABLE_BLOCKS_PER_SM = 8
 DET_STAGE = 256
 DET_PRODUCERS = DET_STAGE // 32
 DET_MAX_WALKERS = 8
+# The deterministic dense update (csrc/smem_table.cuh det_dense_block): a
+# warp a row, at most DENSE_MAX_WARPS (warp w takes rows w, w + 8, ...),
+# over a double-buffered stage of DENSE_SLOTS_PER_THREAD x threads
+# transformed values beside the table.  Its chunks are cut for
+# DET_DENSE_BLOCKS_PER_SM blocks an SM: three waves of the 3 blocks
+# (64,512 B each) that an SM holds at the defaults.
+DENSE_MAX_WARPS = 8
+DENSE_SLOTS_PER_THREAD = 4
+DET_DENSE_BLOCKS_PER_SM = 9
 # The quantum of a packed host block (``data.ingest_pipeline.PackedBatcher``):
 # a whole number of the shared-memory scatter's passes (``TABLE_THREADS``
 # slots; every chunk of ``table_plan`` is a multiple of it) and of the
@@ -96,13 +105,13 @@ class TablePlan(NamedTuple):
     the chunks that hold live slots get a block, and each adds its table
     into a zeroed delta.  "global": one thread per slot with global atomics
     into a zeroed delta, for tables too large for shared memory.  "det"
-    (under ``torch.use_deterministic_algorithms(True)``): producer warps
-    hashing stages of ``DET_STAGE`` slots and a warp a row adding them,
-    every cell summed in an order fixed by the slot indices; the scatter's
-    is one block per stream (``chunk`` is then the stage), the dense
-    update's is cut into chunks as "smem" is, each chunk's table summed
-    into the delta in chunk order by a second pass unless
-    ``one_per_stream``."""
+    (under ``torch.use_deterministic_algorithms(True)``): every cell summed
+    in an order fixed by the slot indices.  The scatter's is one block per
+    stream (``chunk`` is then the stage): producer warps hash stages of
+    ``DET_STAGE`` slots and a warp a row adds them.  The dense update's is
+    cut into chunks as "smem" is, each block a warp a row that hashes and
+    adds its row (``det_dense_threads``), each chunk's table summed into
+    the delta in chunk order by a second pass unless ``one_per_stream``."""
     variant: str
     blocks: int
     threads: int
@@ -140,6 +149,32 @@ def det_smem_bytes(rows: int, width: int) -> int:
 def det_fits(rows: int, width: int) -> bool:
     """Whether the deterministic scatter has a variant for this table."""
     return det_smem_bytes(rows, width) <= SMEM_PER_BLOCK_OPTIN
+
+
+def det_dense_threads(rows: int) -> int:
+    """Threads of a deterministic dense-update block: a warp a row, at most
+    ``DENSE_MAX_WARPS``."""
+    return 32 * min(rows, DENSE_MAX_WARPS)
+
+
+def det_dense_stage(rows: int) -> int:
+    """Slots of the deterministic dense update's stage: a multiple of
+    ``4 x 32`` (the groups a lane hashes ahead)."""
+    return DENSE_SLOTS_PER_THREAD * det_dense_threads(rows)
+
+
+def det_dense_smem_bytes(rows: int, width: int) -> int:
+    """Shared memory of a deterministic dense-update block: the table and
+    two stages of float32 values."""
+    return rows * width * 4 + 2 * 4 * det_dense_stage(rows)
+
+
+def det_dense_fits(rows: int, width: int) -> bool:
+    """Whether the deterministic dense update has a variant for this table:
+    rows x width x 4 B plus 2,048 B a row-owning warp within a block's
+    232,448 B, so width <= 8,045 at rows 7 (8,301 for the shared-memory
+    atomics) and <= 57,856 at rows 1."""
+    return det_dense_smem_bytes(rows, width) <= SMEM_PER_BLOCK_OPTIN
 
 
 def host_lengths(lengths, B: int, n: int) -> np.ndarray:
@@ -181,14 +216,16 @@ def plan_blocks(plan: TablePlan, lengths: np.ndarray) -> np.ndarray:
 
 
 def _chunked_plan(variant: str, B: int, lengths, rows: int, width: int,
-                  sm_count: int, threads: int, smem: int) -> TablePlan:
+                  sm_count: int, threads: int, smem: int,
+                  blocks_per_sm: int = TABLE_BLOCKS_PER_SM,
+                  quantum: int = TABLE_THREADS) -> TablePlan:
     """A plan of one block per (stream, chunk) holding live slots (see
     ``table_plan``)."""
     lens = np.asarray(lengths, np.int64)
     live = int(lens.sum())
-    want = -(-live // (TABLE_BLOCKS_PER_SM * sm_count))
+    want = -(-live // (blocks_per_sm * sm_count))
     least = min(4 * rows * width, -(-live // sm_count))
-    chunk = pad_to(max(want, least, 1), TABLE_THREADS)
+    chunk = pad_to(max(want, least, 1), quantum)
     if chunk >= int(lens.max(initial=0)):
         return TablePlan(variant, B, threads, chunk, True, smem)
     blocks = int(block_ends(lens, chunk)[-1])
@@ -215,7 +252,9 @@ def table_plan(B: int, n: int, lengths, rows: int, width: int,
     raises).  "det" is one block a stream, or with ``det_chunks`` (the
     dense update) cut into chunks as "smem" is, and then ``lengths`` is
     read.  The chunk is the live slots over ``TABLE_BLOCKS_PER_SM`` x
-    ``sm_count`` blocks, and a multiple of the block's threads.  It is at
+    ``sm_count`` blocks, and a multiple of the block's threads (the dense
+    "det": over ``DET_DENSE_BLOCKS_PER_SM`` x ``sm_count`` blocks, and a
+    multiple of its stage).  It is at
     least four tables' cells (so a block's flush, one add a cell, is under
     4 % of its rows adds a slot), unless that would leave SMs without a
     block: then at least the live slots over ``sm_count``.  Where one chunk
@@ -225,6 +264,19 @@ def table_plan(B: int, n: int, lengths, rows: int, width: int,
         variant = "det" if deterministic else "smem" if fits else "global"
     if variant == "global":  # ``lengths`` is not read (it may be None)
         return TablePlan("global", grid_1d(B * n), THREADS_PER_BLOCK)
+    if variant == "det" and det_chunks:
+        if not det_dense_fits(rows, width):
+            raise ValueError(
+                f"deterministic mode: the {rows} x {width} float32 table and "
+                f"its two {det_dense_stage(rows)}-slot stages "
+                f"({det_dense_smem_bytes(rows, width)} B) do not fit the "
+                f"{SMEM_PER_BLOCK_OPTIN} B of shared memory of a block, and "
+                f"the deterministic dense update has no variant for a "
+                f"larger table")
+        return _chunked_plan("det", B, lengths, rows, width, sm_count,
+                             det_dense_threads(rows),
+                             det_dense_smem_bytes(rows, width),
+                             DET_DENSE_BLOCKS_PER_SM, det_dense_stage(rows))
     if variant == "det":
         if not det_fits(rows, width):
             raise ValueError(
@@ -234,10 +286,6 @@ def table_plan(B: int, n: int, lengths, rows: int, width: int,
                 f"{SMEM_PER_BLOCK_OPTIN} B of shared memory of a block, and "
                 f"the deterministic kernels have no variant for a larger "
                 f"table")
-        if det_chunks:
-            return _chunked_plan("det", B, lengths, rows, width, sm_count,
-                                 det_threads(rows),
-                                 det_smem_bytes(rows, width))
         if B > MAX_GRID_X:  # ``lengths`` is not read: each stream is a block
             raise ValueError(f"{B} blocks exceed the grid limit {MAX_GRID_X}")
         return TablePlan("det", B, det_threads(rows), DET_STAGE, True,

@@ -137,6 +137,41 @@ def test_cuda_scatter_matches_plain(case, variant):
         assert not got[1].any()
 
 
+@pytest.mark.parametrize("variant", ["smem", "global", None])
+def test_cuda_single_stream_scatter_counts_its_launches(variant):
+    """``countsketch_scatter`` (one stream, a B = 1 launch of #1) against
+    its plain version: the shared-memory and global variants within the
+    scatter's bounds, each counted in ``single_launches`` and not in the
+    batched ``launches``; in the deterministic mode (``variant`` None) the
+    det variant, the same bits as its order model."""
+    _need_card()
+    keys, vals, seeds, tseeds = _streams(1, 5000, seed=8, hi=700)
+    keys[0, ::7] = -1
+    k, v = keys[0], vals[0]
+    seed, tseed = int(seeds[0]), int(tseeds[0])
+    label = variant or "det"
+    before = (ts.launches, ts.single_launches, ts.variant_launches[label])
+    with _deterministic() if variant is None else contextlib.nullcontext():
+        got = ts.countsketch_scatter(k.cuda(), v.cuda(), 6, 1000, seed,
+                                     p=None if variant is None else 1.0,
+                                     transform_seed=tseed,
+                                     _variant=variant).cpu()
+    assert (ts.launches, ts.single_launches, ts.variant_launches[label]) == (
+        before[0], before[1] + 1, before[2] + 1)
+    assert got.shape == (6, 1000)
+    if variant is None:
+        want = ref.countsketch_scatter_det_ref(keys, vals, 6, 1000,
+                                               seeds[:1])[0]
+        assert _same_bits(got, want)
+        return
+    want = ref.countsketch_scatter_ref(k, v, 6, 1000, seed, p=1.0,
+                                       transform_seed=tseed)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=_atol(want))
+    tol = ref.scatter_tolerance(*ref.countsketch_scatter_mass_ref(
+        keys, vals, 6, 1000, seeds[:1], p=1.0, transform_seeds=tseeds[:1]))
+    assert bool(((got - want).abs() <= tol[0]).all())
+
+
 @pytest.mark.parametrize("rows,width,k", [(5, 384, 37), (7, 2048, 1),
                                           (6, 1000, 5632)])
 def test_cuda_query_bitwise_equals_plain(rows, width, k):
@@ -929,22 +964,41 @@ def _same_bits(a, b):
 
 
 # the dense update's "det" variant: chunks of a segment summed in slot
-# order, then in chunk order (B, n, lengths, base keys)
+# order, then in chunk order (B, n, lengths, base keys, rows, width, value
+# type).  Widths 8,045 (rows 7) and 57,856 (rows 1) are the widest tables
+# its plan admits (tiling.det_dense_fits), 3,000 and 8,045 take the
+# ``hash % W`` path; "chunks" and the rest cross many chunk boundaries
+# (the plan's chunk is a few thousand slots at these lengths)
 DET_UPDATE_CASES = {
     "one_block_a_stream": (4, 500, [500, 0, 137, 1], [0, 2**32 - 5, 7,
-                                                      2**31 - 100]),
+                                                      2**31 - 100], 7, 2048,
+                           torch.float32),
     "chunks": (3, 200_000, [200_000, 123_457, 4097], [5, 2**32 - 77_000,
-                                                      2**31]),
+                                                      2**31], 7, 2048,
+               torch.float32),
+    "rows1_widest": (2, 70_000, [70_000, 33_333], [9, 2**32 - 1], 1,
+                     57_856, torch.float32),
+    "rows5_width3000": (3, 100_000, [100_000, 99_999, 31], [0, 2**31 - 1,
+                                                            17], 5, 3000,
+                        torch.float32),
+    "rows7_widest": (2, 150_000, [150_000, 77_777], [3, 2**32 - 60_000], 7,
+                     8045, torch.float32),
+    "rows8": (3, 120_000, [120_000, 65_536, 1], [1, 2, 2**31 + 5], 8, 2048,
+              torch.float32),
+    "bfloat16": (3, 80_000, [80_000, 40_001, 2048], [4, 2**32 - 100, 0], 7,
+                 2048, torch.bfloat16),
+    "one_segment": (1, 300_000, [300_000], [11], 7, 2048, torch.float32),
 }
 
 
-def _det_update(vals, seeds, tseeds, lengths, base, p, forced=None):
+def _det_update(vals, seeds, tseeds, lengths, base, p, rows=7, width=2048,
+                forced=None):
     """One update launch in the deterministic mode (on the card), checked
-    to run the det variant; the (B, 7, 2048) table on the host."""
+    to run the det variant; the (B, rows, width) table on the host."""
     with _deterministic():
         before = dict(tu.variant_launches)
         got = tu.countsketch_update_batched(
-            vals.cuda(), 7, 2048, seeds.cuda(), p=p,
+            vals.cuda(), rows, width, seeds.cuda(), p=p,
             transform_seeds=tseeds.cuda(), base_keys=base.cuda(),
             lengths=lengths.cuda(), _variant=forced).cpu()
         assert {v: tu.variant_launches[v] - before[v] for v in before} == {
@@ -952,73 +1006,97 @@ def _det_update(vals, seeds, tseeds, lengths, base, p, forced=None):
     return got
 
 
+def _det_model(vals, seeds, tseeds, lengths, base, p, rows, width, chunk):
+    """The order model (``ref.countsketch_update_det_ref`` at the plan's
+    chunk) on the values the kernel sums: float32 (bfloat16 cast, as the
+    wrapper does) and, with ``p``, transformed by the ppswor_transform
+    kernel, whose bits are the fused transform's."""
+    tvals = vals.to(torch.float32)
+    if p is not None:
+        n = vals.shape[1]
+        keys = ((base[:, None] + torch.arange(n)) % 2**32).to(torch.int64)
+        keys = torch.where(keys >= 2**31, keys - 2**32, keys).to(torch.int32)
+        tvals = torch.stack([tt.ppswor_transform(
+            keys[b].cuda(), tvals[b].cuda(), p, int(tseeds[b])).cpu()
+            for b in range(vals.shape[0])])
+    return ref.countsketch_update_det_ref(tvals, rows, width, seeds,
+                                          base_keys=base, lengths=lengths,
+                                          chunk=chunk)
+
+
 @pytest.mark.parametrize("case", sorted(DET_UPDATE_CASES))
 def test_cuda_det_update_same_bits_and_order_model(case):
     """Under the deterministic mode the dense update takes its "det"
-    variant by itself: three launches give the same bits; without the
-    transform they are the order model's (``ref.countsketch_update_det_
-    ref`` at the plan's chunk) bit for bit, with it the order model's fed
-    the values the ppswor_transform kernel gives; each cell is within its
-    rounding bound of the plain version, and a zero-length segment is
-    zero."""
+    variant by itself (its launch counted): three launches give the same
+    bits; without the transform they are the order model's
+    (``ref.countsketch_update_det_ref`` at the plan's chunk) bit for bit,
+    with it the order model's fed the values the ppswor_transform kernel
+    gives; each cell is within its rounding bound of the plain version,
+    and a zero-length segment is zero."""
     _need_card()
-    B, n, lengths, base = DET_UPDATE_CASES[case]
-    rng = np.random.default_rng(n)
-    vals = torch.from_numpy(rng.normal(size=(B, n)).astype(np.float32))
+    B, n, lengths, base, rows, width, dtype = DET_UPDATE_CASES[case]
+    rng = np.random.default_rng(n + rows)
+    vals = torch.from_numpy(rng.normal(size=(B, n)).astype(np.float32)).to(
+        dtype)
     seeds = torch.from_numpy(rng.integers(0, 2**32, B, dtype=np.int64))
     tseeds = torch.from_numpy(rng.integers(0, 2**32, B, dtype=np.int64))
     lengths, base = torch.tensor(lengths), torch.tensor(base)
-    plan = tiling.table_plan(B, n, lengths.numpy(), 7, 2048,
+    plan = tiling.table_plan(B, n, lengths.numpy(), rows, width,
                              tiling.sm_count(torch.device("cuda")), "det",
                              det_chunks=True)
+    assert (plan.threads, plan.smem_bytes) == (
+        tiling.det_dense_threads(rows),
+        tiling.det_dense_smem_bytes(rows, width))
     assert plan.one_per_stream is (case == "one_block_a_stream")
     kw = dict(transform_seeds=tseeds, base_keys=base, lengths=lengths)
     for p in (None, 1.0):
-        outs = [_det_update(vals, seeds, tseeds, lengths, base, p)
-                for _ in range(3)]
+        outs = [_det_update(vals, seeds, tseeds, lengths, base, p, rows,
+                            width) for _ in range(3)]
         assert all(_same_bits(o, outs[0]) for o in outs[1:])
-        tvals = vals
-        if p is not None:
-            keys = ((base[:, None] + torch.arange(n)) % 2**32).to(
-                torch.int64)
-            keys = torch.where(keys >= 2**31, keys - 2**32, keys).to(
-                torch.int32)
-            tvals = torch.stack([tt.ppswor_transform(
-                keys[b].cuda(), vals[b].cuda(), p, int(tseeds[b])).cpu()
-                for b in range(B)])
-        want = ref.countsketch_update_det_ref(tvals, 7, 2048, seeds,
-                                              base_keys=base,
-                                              lengths=lengths,
-                                              chunk=plan.chunk)
+        want = _det_model(vals, seeds, tseeds, lengths, base, p, rows,
+                          width, plan.chunk)
         assert _same_bits(outs[0], want)
-        plain = ref.countsketch_update_batched_ref(vals, 7, 2048, seeds,
+        plain = ref.countsketch_update_batched_ref(vals, rows, width, seeds,
                                                    p=p, **kw)
         _check_sum(outs[0], plain, ref.countsketch_update_mass_ref(
-            vals, 7, 2048, seeds, p=p, **kw))
+            vals, rows, width, seeds, p=p, **kw))
         for b, length in enumerate(lengths.tolist()):
             assert length or not outs[0][b].any()
 
 
 def test_cuda_det_update_single_segment_and_dense_entry_points():
-    """``countsketch_update`` (one segment, 21 chunks here) and
+    """``countsketch_update`` (one segment, 6 chunks here) and
     ``ops.sketch_dense_vector`` launch the det variant in the mode, with
-    the same bits every time; ``update_dense`` twice from one state gives
-    the same state bit for bit."""
+    the same bits every time, the order model's at the plan's chunk (with
+    and without the transform, a bfloat16 segment too), each launch
+    counted as a single-segment det launch; ``update_dense`` twice from one
+    state gives the same state bit for bit."""
     _need_card()
     from repro_torch.kernels import ops
 
     rng = np.random.default_rng(5)
     v = torch.from_numpy(rng.normal(size=300_000).astype(np.float32)).cuda()
+    plan = tiling.table_plan(1, v.numel(), np.array([v.numel()]), 7, 2048,
+                             tiling.sm_count(v.device), "det",
+                             det_chunks=True)
+    assert not plan.one_per_stream and plan.blocks > 1
+    one = torch.tensor([v.numel()])
     with _deterministic():
-        before = (tu.single_launches, tu.variant_launches["det"])
-        outs = [tu.countsketch_update(v, 7, 2048, 99, p=1.0,
-                                      transform_seed=3, base_key=11)
-                for _ in range(2)]
-        outs.append(ops.sketch_dense_vector(v, 7, 2048, 99, p=1.0,
-                                            transform_seed=3, base_key=11))
-        assert (tu.single_launches - before[0],
-                tu.variant_launches["det"] - before[1]) == (3, 3)
-        assert all(_same_bits(o, outs[0]) for o in outs[1:])
+        for x, p in ((v, 1.0), (v, None), (v.to(torch.bfloat16), 1.0)):
+            before = (tu.single_launches, tu.variant_launches["det"])
+            outs = [tu.countsketch_update(x, 7, 2048, 99, p=p,
+                                          transform_seed=3, base_key=11)
+                    for _ in range(2)]
+            outs.append(ops.sketch_dense_vector(x, 7, 2048, 99, p=p,
+                                                transform_seed=3,
+                                                base_key=11))
+            assert (tu.single_launches - before[0],
+                    tu.variant_launches["det"] - before[1]) == (3, 3)
+            assert all(_same_bits(o, outs[0]) for o in outs[1:])
+            want = _det_model(x[None].cpu(), torch.tensor([99]),
+                              torch.tensor([3]), one, torch.tensor([11]), p,
+                              7, 2048, plan.chunk)[0]
+            assert _same_bits(outs[0].cpu(), want)
         cfg = EngineConfig(num_streams=3, rows=7, width=2048, candidates=64)
         grads = torch.from_numpy(rng.normal(size=(3, 70_000)).astype(
             np.float32)).cuda()

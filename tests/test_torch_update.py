@@ -159,11 +159,12 @@ def test_det_order_model_is_the_det_scatters_chunk_by_chunk(chunk):
 
 
 def test_det_plan_cuts_the_dense_update_into_chunks():
-    """Under the deterministic mode the dense update's plan is the det
-    block (8 producer warps, a walker a row, the table and two stages)
-    over the shared-memory variant's chunks; at the gemma2_2b layer's 11
-    leaves (77.9 M live slots) that is 1,057 blocks of 74,240 slots, and a
-    segment that one chunk holds is one block that writes its delta row."""
+    """Under the deterministic mode the dense update's plan is its own det
+    block (a warp a row, the table and two stages of 896 transformed
+    values) over chunks cut for 9 blocks an SM, each a multiple of the
+    stage; at the gemma2_2b layer's 11 leaves (77.9 M live slots) that is
+    1,183 blocks of 66,304 slots, and a segment that one chunk holds is one
+    block that writes its delta row."""
     from repro_torch.kernels import tiling
 
     d, ff = 2304, 9216
@@ -172,9 +173,9 @@ def test_det_plan_cuts_the_dense_update_into_chunks():
                                               d * 4 * 256])
     plan = tiling.table_plan(11, int(lens.max()), lens, 7, 2048, 132,
                              deterministic=True, det_chunks=True)
-    assert plan == tiling.TablePlan("det", 1057, 32 * (8 + 7), 74_240,
-                                    False, 66_624)
-    assert plan.chunk % tiling.DET_STAGE == 0
+    assert plan == tiling.TablePlan("det", 1183, 32 * 7, 66_304, False,
+                                    64_512)
+    assert plan.chunk % tiling.det_dense_stage(7) == 0
     assert plan.blocks == int(tiling.block_ends(lens, plan.chunk)[-1])
     small = tiling.table_plan(3, 600, np.array([500, 5, 0]), 7, 2048, 132,
                               deterministic=True, det_chunks=True)
@@ -183,6 +184,41 @@ def test_det_plan_cuts_the_dense_update_into_chunks():
     with pytest.raises(ValueError, match="deterministic mode.*7 x 16384"):
         tiling.table_plan(2, 300, np.array([300, 3]), 7, 16384, 132,
                           deterministic=True, det_chunks=True)
+
+
+@pytest.mark.parametrize("rows,widest", [(1, 57_856), (5, 11_366),
+                                         (7, 8_045), (8, 7_008)])
+def test_det_dense_plan_threads_bytes_and_widest_table(rows, widest):
+    """The dense det block's geometry (csrc/smem_table.cuh det_dense_block):
+    32 x min(rows, 8) threads, a stage of 4 values a thread, the table and
+    two stages of shared memory; the widest table it admits fills the
+    232,448 B of a block, and one bucket more raises.  One 21.2 M segment
+    (#4) is 371 blocks of 57,344 slots (four tables' cells) at rows 7."""
+    from repro_torch.kernels import tiling
+
+    threads = 32 * min(rows, 8)
+    assert tiling.det_dense_threads(rows) == threads
+    assert tiling.det_dense_stage(rows) == 4 * threads
+    assert tiling.det_dense_smem_bytes(rows, 2048) == (rows * 2048 * 4
+                                                       + 8 * 4 * threads)
+    lens = np.array([300_000, 5, 70_001])
+    plan = tiling.table_plan(3, 300_000, lens, rows, widest, 132,
+                             deterministic=True, det_chunks=True)
+    assert (plan.variant, plan.threads, plan.smem_bytes) == (
+        "det", threads, tiling.det_dense_smem_bytes(rows, widest))
+    assert plan.smem_bytes <= tiling.SMEM_PER_BLOCK_OPTIN \
+        < tiling.det_dense_smem_bytes(rows, widest + 1)
+    assert plan.chunk % (4 * threads) == 0 and plan.chunk % 32 == 0
+    with pytest.raises(ValueError, match=f"deterministic mode.*{rows} x "
+                                         f"{widest + 1}"):
+        tiling.table_plan(3, 300_000, lens, rows, widest + 1, 132,
+                          deterministic=True, det_chunks=True)
+    if rows == 7:
+        one = tiling.table_plan(1, 2304 * 9216, np.array([2304 * 9216]), 7,
+                                2048, 132, deterministic=True,
+                                det_chunks=True)
+        assert one == tiling.TablePlan("det", 371, 224, 57_344, False,
+                                       64_512)
 
 
 def test_plain_update_sketches_key_0xffffffff():
