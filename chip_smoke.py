@@ -90,7 +90,9 @@ just before it and read just after:
   (ValueError) then healed, and a slow replica under backpressure, each bit
   for bit the fleet plane's; ``python -m repro_torch.launch.fleet_serve
   --replicas 2 --kill-replica 1 --kill-after 3 --verify --steps 12`` (**cut**
-  from its default 24 steps) in a subprocess, which must print
+  from its default 24 steps) and ``--replicas 2 --verify --topk 400
+  --steps 4`` (a 5 x 12,400 table, which the det kernels split across
+  blocks) in subprocesses at once, each of which must print
   ``parity=bitwise``.  Start and recovery seconds, route
   p50/p99, events/s, published MB and the replicas' kernel launches (each
   replica reports its counts with its publishes and its stop) recorded.
@@ -265,7 +267,7 @@ the script exits non-zero without the final ``ok`` line):
   6. the single-stream entry points and ``query_rows_batched`` against
      their plain versions (the transform at p = 0.5, 1, 1.5 and 2, both
      variants, the edge key and n not a multiple of the vector width), and
-     times;
+     times; the row read at the flush's 4096 x 512 keys, rows 7 and 17;
   samplers.  ``twopass``, ``tv``, ``onepass``'s exact second pass and
      ``perfect`` against the plain path, their launches (a ``twopass``
      flush 1 scatter + 2 estimates, a ``tv`` flush 2 + 2, a ``tv`` sample
@@ -277,8 +279,11 @@ the script exits non-zero without the final ``ok`` line):
      (three launches identical, each cell within its bound of the plain
      version and of the atomics variant) and the segment sum (equal to the
      CPU's bit for bit), with their times and the NaN fill of
-     ``torch.empty`` in the mode; async against sparse bit for bit; the
-     overlap; the pipeline; the interval timer;
+     ``torch.empty`` in the mode; the det scatter on tables too large for
+     one block, split across blocks (5 x 12,400 and 7 x 16,384 on the
+     flush's streams, 1 x 100,000 on 64: the same bits three times, the
+     order model's, against the global atomics' time); async against
+     sparse bit for bit; the overlap; the pipeline; the interval timer;
   wire.  codecs, the pipeline's codec and byte budget, serving
      aggregation, checkpoints, the fleet plane (above), with their wire
      MB, stage times, MB/s and launches by part;
@@ -291,7 +296,9 @@ the script exits non-zero without the final ``ok`` line):
      (three launches identical, the order model bit for bit, each cell
      within its bound of the plain version and of the atomics variant),
      update_dense and the gradcomp engine step twice each in the mode, the
-     same bits, with the times of both variants and the bound;
+     same bits, with the times of both variants and the bound; the det
+     update split across blocks (the layer at 7 x 16,384, one segment at
+     1 x 100,000), the same checks;
   serve.  the 2-layer float32 pair against the CPU path, the serving CLI
      at the full configuration and with 2 workers, a window and the async
      plane (above), with prefill and decode times, tokens/s, the
@@ -322,7 +329,9 @@ phase's card steps and prints their records.
 ``python3 chip_smoke.py --det-parent DIR [DIR ...]`` runs only the dense
 update's det kernel of the checkouts at DIR (e.g. a ``git archive`` of the
 parent commit) beside this tree's, checks each against its order model
-and times them in turns.
+and times them in turns; then the det scatter at the flush shape (every
+checkout's bits equal) and the row read at B = 2 and 1 x 512 keys and
+4096 x 512 at rows 7 and 17, beside the gather yardstick.
 ``python3 chip_smoke.py --sass`` instead builds the transform factor alone,
 as it was (``-logf`` then ``powf``) and as it is, and prints the static
 SASS instruction counts of each (``cuobjdump -sass``); it needs the CUDA
@@ -418,6 +427,17 @@ def select_ops(rows: int) -> int:
 
 
 ESTIMATE_OPS_PER_KEY = QUERY_OPS_PER_KEY + select_ops(ROWS)
+
+
+def slot_ops(rows: int) -> int:
+    """``SCATTER_OPS_PER_SLOT`` (= ``UPDATE_OPS_PER_SLOT``) of a table of
+    ``rows`` rows: each row's hashing, the transform once."""
+    return rows * OPS_PER_ROW + 24 + 2 + 3
+
+
+def query_ops(rows: int) -> int:
+    """``QUERY_OPS_PER_KEY`` of a table of ``rows`` rows."""
+    return rows * (OPS_PER_ROW + 1)
 # the dense update computes its key (an add) where the scatter loads and
 # tests it, and tests the length alone: the same count per live slot
 UPDATE_OPS_PER_SLOT = SCATTER_OPS_PER_SLOT
@@ -694,6 +714,19 @@ def row_index(torch, keys, seeds, width: int, rows: int = ROWS):
     return torch.cat(idx, 1), torch.cat(sign, 1)
 
 
+def det_info_variant(kind, plan, width) -> int:
+    """The ``worp_countsketch_<kind>_info`` variant of a det plan's kernel,
+    its split 0 (whole), 1 (row groups) or 2 (bucket ranges): the
+    scatter's 2 + (32-bit entries) + 2 x split, the dense update's 2 +
+    split."""
+    from repro_torch.kernels import tiling
+
+    split = 2 if plan.ranges > 1 else 1 if plan.row_group else 0
+    if kind == "update":
+        return 2 + split
+    return 2 + (tiling.det_span(plan, width) > 2**15) + 2 * split
+
+
 def report_occupancy(tag):
     """Each kernel's registers, static and dynamic shared memory and
     resident blocks per SM at its launch shape (the CUDA occupancy
@@ -707,6 +740,10 @@ def report_occupancy(tag):
                              variant="det")
     dense_det = tiling.table_plan(1, 1, [1], ROWS, WIDTH, 132, variant="det",
                                   det_chunks=True)
+    split = {(kind, rows, width): tiling.table_plan(
+        1, 1, [1], rows, width, 132, variant="det",
+        det_chunks=kind == "update") for kind in ("scatter", "update")
+        for rows, width, _ in SPLIT_TABLES}
     seg = tiling.SEGMENT_THREADS
     for name, variant, label, threads, smem in (
             ("countsketch_scatter", 1, "smem", tiling.TABLE_THREADS, table),
@@ -718,7 +755,12 @@ def report_occupancy(tag):
             ("countsketch_update", 0, "global", tiling.THREADS_PER_BLOCK, 0),
             ("countsketch_update", 2, "det", dense_det.threads,
              dense_det.smem_bytes),
-            ("countsketch_query", 0, "", tiling.THREADS_PER_BLOCK, 0),
+            *((f"countsketch_{kind}", det_info_variant(kind, plan, width),
+               f"det split {rows} x {width}", plan.threads, plan.smem_bytes)
+              for (kind, rows, width), plan in split.items()),
+            ("countsketch_query", 2, "a lane a read", 32 * ROWS, 0),
+            ("countsketch_query", 0, "a lane a key",
+             tiling.THREADS_PER_BLOCK, 0),
             ("countsketch_query", 1, "estimate", tiling.THREADS_PER_BLOCK,
              0),
             ("ppswor_transform", 0, "float32", tiling.THREADS_PER_BLOCK, 0),
@@ -1646,6 +1688,63 @@ def phase_dense(torch, args, tag):
     return entry, steps[0][wg, :sizes[wg]], estimate_launches, est_t
 
 
+# the row read at the flush's shape: B streams' CANDIDATES keys against
+# tables of these rows (17: past MAX_FUSED_ROWS, the estimate's fallback)
+FLUSH_READ_ROWS = (ROWS, 17)
+
+
+def row_read_inputs(torch, rows, seed=5):
+    """(B, rows, WIDTH) N(0, 1) tables, (B, CANDIDATES) random int32 keys
+    and B seeds on the card, from a seeded CPU generator."""
+    g = torch.Generator().manual_seed(seed + rows)
+    dev = torch.device(DEVICE)
+    tables = torch.randn((B, rows, WIDTH), generator=g).to(dev)
+    keys = torch.randint(-2**31, 2**31 - 1, (B, CANDIDATES), generator=g,
+                         dtype=torch.int64).to(torch.int32).to(dev)
+    seeds = torch.randint(0, 2**32, (B,), generator=g).to(dev)
+    return tables, keys, seeds
+
+
+def row_read_shape(torch, rows, tag) -> dict:
+    """The batched row read at the flush's shape: bit for bit its plain
+    version, one launch; its time (CUDA events, 20 calls), the plain
+    version's and the gather yardstick's (precomputed indices), beside
+    the bound: the keys read once, the 32-byte table sectors they touch,
+    the reads written, or their hashing."""
+    from repro_torch.kernels import countsketch_query as q
+    from repro_torch.kernels import ref
+
+    tables, keys, seeds = row_read_inputs(torch, rows)
+    before = q.launches
+    got = q.countsketch_query_batched(tables, keys, seeds)
+    if q.launches != before + 1:
+        raise AssertionError(f"row read rows {rows}: did not launch")
+    check_bitwise(torch, f"query_rows_batched B={B} k={CANDIDATES} rows "
+                  f"{rows}", got, ref.countsketch_query_batched_ref(
+                      tables, keys, seeds))
+    del got
+    gidx = gather_index(torch, keys, seeds, WIDTH, rows)
+    flat = tables.reshape(B, -1)
+    rec = {"B": B, "k": CANDIDATES, "rows": rows,
+           "ms": cuda_ms(torch, lambda: q.countsketch_query_batched(
+               tables, keys, seeds), 20),
+           "plain_ms": cuda_ms(
+               torch, lambda: ref.countsketch_query_batched_ref(
+                   tables, keys, seeds), 3, warmup=1),
+           "library_ms": cuda_ms(torch, lambda: torch.gather(flat, 1, gidx),
+                                 20)}
+    nk = keys.numel()
+    rec["bound_ms"], rec["bound_by"] = bound(
+        nk * 4 + table_bytes_read(torch, tables, keys, seeds) + rows * nk * 4,
+        nk * query_ops(rows))
+    log(f"[time] query_rows_batched (B={B}, k={CANDIDATES}, rows {rows}): "
+        f"kernel {rec['ms']:.4f} ms ({100 * rec['bound_ms'] / rec['ms']:.1f} "
+        f"% of bound), plain {rec['plain_ms']:.4f} ms, gather yardstick "
+        f"(memory half only) {rec['library_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} (CUDA events) {tag}")
+    return rec
+
+
 def phase_single(torch, wg_values, tag):
     """Phase 6: the single-stream entry points (benchmarks/
     sketch_throughput.py's calls) and ``query_rows_batched`` against their
@@ -1841,6 +1940,10 @@ def phase_single(torch, wg_values, tag):
     qb_bound, qb_by = bound(
         nb * 4 + table_bytes_read(torch, both, both_keys, both_seeds)
         + ROWS * nb * 4, nb * QUERY_OPS_PER_KEY)
+    # the row read at the flush's shape (B streams x CANDIDATES keys), rows
+    # 7 and 17 (where the estimate falls back to it)
+    flush_reads = {rows: row_read_shape(torch, rows, tag)
+                   for rows in FLUSH_READ_ROWS}
     # the estimate: its kernel against the row read and the plain median
     # (one launch against eight), device time per call from a trace
     e_fns = {
@@ -1944,7 +2047,12 @@ def phase_single(torch, wg_values, tag):
          "bound_ms": qb_bound, "bound_by": qb_by, "library_ms": qb_lib,
          "timing": "device time per call from a torch.profiler trace, at "
                    "query_rows_batched's shape",
-         "call_ms": qb_call[0]},
+         "call_ms": qb_call[0],
+         "design": "within one wave of the card a lane a (stream, row, "
+                   "key) read (a block a stream's 32-key tile, a warp a "
+                   "row); past it a lane a key, 4 rows' loads in flight",
+         **{f"flush_shape_rows{rows}": rec
+            for rows, rec in flush_reads.items()}},
         {"name": "countsketch_estimate", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/countsketch_query.cu",
          "replaces": "src/repro/kernels/countsketch_query.py:66",
@@ -2735,6 +2843,127 @@ def det_wide_check(torch, keys, vals, seeds, tseeds, tag) -> dict:
     return out
 
 
+# Tables too large for one det block, split (tiling.det_split): the flush's
+# B streams into fleet_serve --topk 400's 5 x 12,400 (two row groups; 1.0
+# GB of deltas) and 7 x 16,384 (three; 1.9 GB), and WIDE_STREAMS of them
+# into one row of 100,000 buckets (two bucket ranges); (rows, width,
+# streams, None: all B).  The dense update's: the gemma2_2b layer at 7 x
+# 16,384 and one 21.2 M segment at 1 x 100,000 (SPLIT_DENSE).
+SPLIT_TABLES = ((5, 12_400, None), (7, 16_384, None),
+                (1, 100_000, WIDE_STREAMS))
+SPLIT_DENSE = ((7, 16_384, "layer"), (1, 100_000, "segment"))
+
+
+def det_split_scatter(torch, keys, vals, seeds, tseeds, tag) -> dict:
+    """The det scatter on ``SPLIT_TABLES``: three launches give the same
+    bits, each counted as one det launch; without the transform the first
+    ``WIDE_STREAMS`` streams are the order model's bit for bit
+    (``ref.countsketch_scatter_det_ref`` on those streams, run on the card:
+    its float32 adds are single IEEE adds in its own order, the bits the
+    CPU gives, where the card tests run it); with it every cell lies within
+    its rounding bound of the plain version.  Times of the det variant and
+    of the global atomics (the default mode's variant at these widths),
+    through the wrapper by CUDA events, beside the bound."""
+    from repro_torch.core import transforms
+    from repro_torch.kernels import countsketch_scatter as s
+    from repro_torch.kernels import ref, tiling
+
+    out = {}
+    for rows, width, streams in SPLIT_TABLES:
+        k = keys if streams is None else keys[:streams].contiguous()
+        v = vals if streams is None else vals[:streams].contiguous()
+        Bs, n = k.shape
+        sd, td = seeds[:Bs], tseeds[:Bs]
+        plan = tiling.table_plan(Bs, n, None, rows, width,
+                                 tiling.sm_count(k.device),
+                                 deterministic=True)
+        if not plan.row_group:
+            raise AssertionError(f"det scatter {rows} x {width} is not split")
+        what = f"{rows} x {width}"
+        rec = {"rows": rows, "width": width, "streams": Bs,
+               "plan": plan._asdict(), "parts": tiling.det_parts(plan, rows)}
+
+        def det(p):
+            before = dict(s.variant_launches)
+            with deterministic_mode(torch):
+                got = s.countsketch_scatter_batched(k, v, rows, width, sd,
+                                                    p=p, transform_seeds=td)
+            ran = {x: s.variant_launches[x] - before[x] for x in before}
+            if ran != {"smem": 0, "global": 0, "det": 1}:
+                raise AssertionError(f"det scatter {what}: launched {ran}")
+            return got
+
+        for p in (None, P):
+            outs = [det(p) for _ in range(3)]
+            torch.cuda.synchronize()
+            identical = all(same_bits(torch, o, outs[0]) for o in outs[1:])
+            del outs[1:]
+            if p is None:
+                m = min(Bs, WIDE_STREAMS)
+                model = same_bits(torch, outs[0][:m],
+                                  ref.countsketch_scatter_det_ref(
+                                      k[:m], v[:m], rows, width, sd[:m]))
+                rec["equals_order_model"] = model
+            else:
+                model = True
+                kw = dict(p=p, transform_seeds=td)
+                want = ref.countsketch_scatter_batched_ref(k, v, rows, width,
+                                                           sd, **kw)
+                tol = ref.scatter_tolerance(
+                    *ref.countsketch_scatter_mass_ref(k, v, rows, width, sd,
+                                                      **kw))
+                rec["max_abs_err"], rec["worst_err_over_bound"] = check_sum(
+                    torch, f"scatter {what} [det, split]", outs[0], want,
+                    tol)
+                del want, tol
+            vs = "" if p else (f", the first {min(Bs, WIDE_STREAMS)} streams "
+                               f"equal to the order model bit for bit: "
+                               f"{model}")
+            log(f"[det] scatter {what} (B={Bs}, n={n}, split into "
+                f"{rec['parts']} blocks a stream: row group "
+                f"{plan.row_group}, ranges {plan.ranges}; p={p}): 3 launches "
+                f"identical: {identical}{vs} {tag}")
+            if not (identical and model):
+                raise AssertionError(f"det scatter {what}, p={p}: identical "
+                                     f"{identical}, model {model}")
+            del outs
+            torch.cuda.empty_cache()
+        kw = dict(p=P, transform_seeds=td)
+        with deterministic_mode(torch):
+            rec["ms"] = cuda_ms(torch, lambda: s.countsketch_scatter_batched(
+                k, v, rows, width, sd, **kw), 5)
+        rec["atomics_ms"] = cuda_ms(
+            torch, lambda: s.countsketch_scatter_batched(
+                k, v, rows, width, sd, _variant="global", **kw), 5)
+        rec["plain_ms"] = cuda_ms(
+            torch, lambda: ref.countsketch_scatter_batched_ref(
+                k, v, rows, width, sd, **kw), 1, warmup=0)
+        # the index_add_ yardstick (memory half only), as phase 4's
+        tv = transforms.transform_values(k, v, P, td[:, None])
+        idx, sign = row_index(torch, k, sd, width, rows)
+        idx, sv = idx.reshape(-1), (sign * tv.repeat(1, rows)).reshape(-1)
+        flat = torch.zeros(Bs * rows * width, device=k.device)
+        rec["library_ms"] = cuda_ms(
+            torch, lambda: flat.zero_().index_add_(0, idx, sv), 5)
+        del tv, idx, sign, sv, flat
+        live = int((k != -1).sum())
+        rec["bound_ms"], rec["bound_by"] = bound(
+            k.numel() * 8 + Bs * rows * width * 4, live * slot_ops(rows))
+        rec["ratio_to_atomics"] = rec["ms"] / rec["atomics_ms"]
+        log(f"[time] scatter {what} (B={Bs}, n={n}): det (split) "
+            f"{rec['ms']:.4f} ms ({100 * rec['bound_ms'] / rec['ms']:.1f} % "
+            f"of bound), global atomics {rec['atomics_ms']:.4f} ms "
+            f"({100 * rec['bound_ms'] / rec['atomics_ms']:.1f} %), plain "
+            f"{rec['plain_ms']:.2f} ms, index_add_ yardstick "
+            f"{rec['library_ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}; det / atomics "
+            f"{rec['ratio_to_atomics']:.2f}x (through the wrapper, the "
+            f"mode's NaN fill of the delta included) {tag}")
+        out[what] = rec
+        torch.cuda.empty_cache()
+    return out
+
+
 def segment_sum_shape(torch, what, rows, tag):
     """The sorted segment sum at a ``_dedup_topc`` shape of the flush (rows
     x (C + n) entries, the run ids of sorted Zipf-like keys, made on the
@@ -3120,7 +3349,11 @@ def phase_determinism(torch, steps, tag):
         vals.repeat_interleave(r, 0), tv_seeds, tv_tseeds, 5, tag)
     out["scatter_wide"] = det_wide_check(torch, keys, vals, seeds, tseeds,
                                          tag)
-    del keys, vals, tv_seeds, tv_tseeds
+    del tv_seeds, tv_tseeds
+    torch.cuda.empty_cache()
+    out["scatter_split"] = det_split_scatter(torch, keys, vals, seeds, tseeds,
+                                             tag)
+    del keys, vals
     torch.cuda.empty_cache()
     out["segment_sum_flush"] = segment_sum_shape(torch, "flush shape", B,
                                                  tag)
@@ -4131,32 +4364,57 @@ def fleet_chaos(torch, steps, tag) -> dict:
     return out
 
 
+# ``fleet_serve``'s two runs: the kill and restart at FLEET_SERVE_STEPS, and
+# --topk 400, whose 5 x 12,400 table the det kernels split across blocks
+# (a table the JAX CLI verifies at any --topk)
+FLEET_SERVE_RUNS = (
+    ("kill", ["--replicas", "2", "--kill-replica", "1", "--kill-after", "3",
+              "--verify", "--steps", str(FLEET_SERVE_STEPS)]),
+    ("topk 400", ["--replicas", "2", "--verify", "--topk", "400", "--steps",
+                  "4"]))
+
+
 def fleet_serve_run(tag) -> dict:
-    """``python -m repro_torch.launch.fleet_serve --replicas 2
-    --kill-replica 1 --kill-after 3 --verify --steps FLEET_SERVE_STEPS``
-    (its other flags at their defaults), on the card, in a subprocess that
-    must print ``parity=bitwise``."""
+    """``python -m repro_torch.launch.fleet_serve`` with each of
+    ``FLEET_SERVE_RUNS``' flags (the others at their defaults), on the
+    card, in subprocesses run at once: each must exit 0 and print
+    ``parity=bitwise`` and one summary line."""
     env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    cmd = [sys.executable, "-m", "repro_torch.launch.fleet_serve",
-           "--replicas", "2", "--kill-replica", "1", "--kill-after", "3",
-           "--verify", "--steps", str(FLEET_SERVE_STEPS)] + (
-               ["--device", DEVICE] if DEVICE != "cuda" else [])
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                          timeout=SERVE_TIMEOUT_S)
-    secs = time.perf_counter() - t0
-    lines = proc.stdout.splitlines()
-    summary = [ln for ln in lines if ln.startswith("fleet_serve_summary,")]
-    ok = proc.returncode == 0 and any(ln.startswith("parity=bitwise")
-                                      for ln in lines) and len(summary) == 1
-    log(f"[fleet] fleet_serve --replicas 2 --kill-replica 1 --kill-after 3 "
-        f"--verify --steps {FLEET_SERVE_STEPS}: exit {proc.returncode}, parity=bitwise printed: {ok}, "
-        f"{secs:.1f} s wall; {summary[0] if summary else 'no summary'} {tag}")
-    if not ok:
-        raise AssertionError(f"fleet_serve failed:\n{proc.stdout[-4000:]}\n"
-                             f"{proc.stderr[-4000:]}")
-    return {"seconds": secs, "summary": summary[0]}
+    procs = {}
+    for label, flags in FLEET_SERVE_RUNS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.fleet_serve",
+               *flags] + (["--device", DEVICE] if DEVICE != "cuda" else [])
+        procs[label] = (flags, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env))
+    out, failed = {}, []
+    try:
+        for label, (flags, t0, proc) in procs.items():
+            stdout, stderr = proc.communicate(timeout=SERVE_TIMEOUT_S)
+            secs = time.perf_counter() - t0
+            lines = stdout.splitlines()
+            summary = [ln for ln in lines
+                       if ln.startswith("fleet_serve_summary,")]
+            ok = proc.returncode == 0 and len(summary) == 1 and any(
+                ln.startswith("parity=bitwise") for ln in lines)
+            log(f"[fleet] fleet_serve {' '.join(flags)}: exit "
+                f"{proc.returncode}, parity=bitwise printed: {ok}, "
+                f"{secs:.1f} s wall (the {len(procs)} runs at once); "
+                f"{summary[0] if summary else 'no summary'} {tag}")
+            if not ok:
+                failed.append(f"{label}:\n{stdout[-4000:]}\n"
+                              f"{stderr[-4000:]}")
+            out[label] = {"seconds": secs,
+                          "summary": summary[0] if summary else None}
+    finally:
+        for _, _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+    if failed:
+        raise AssertionError("fleet_serve failed: " + "\n".join(failed))
+    return out
 
 
 def phase_fleet(torch, steps, tag):
@@ -4652,6 +4910,12 @@ def phase_det_update(torch, seed, tag):
     seg["bound_ms"], seg["bound_by"] = bound(
         wg.numel() * 4 + ROWS * WIDTH * 4, wg.numel() * UPDATE_OPS_PER_SLOT)
     seg["ratio_to_atomics"] = seg["ms"] / seg["atomics_ms"]
+    seg["plain_ms"] = cuda_ms(torch, lambda: ref.countsketch_update_det_ref(
+        wg[None], ROWS, WIDTH, wseed, p=P, transform_seeds=wtseed,
+        chunk=seg["plan"]["chunk"]), 1, warmup=0)
+    seg["library_ms"] = dense_library_ms(torch, wg[None], seeds[b_wg:b_wg + 1],
+                                         tseeds[b_wg:b_wg + 1], [wg.numel()],
+                                         ROWS, WIDTH)
     out["single_segment"] = seg
     log(f"[det] update B = 1, n = {wg.numel()}: 3 launches in the "
         f"deterministic mode, identical bits: {seg_same}; equal to the order "
@@ -4659,12 +4923,18 @@ def phase_det_update(torch, seed, tag):
         f"blocks) bit for bit: {seg_equal} {tag}")
     log(f"[time] update B = 1, n = {wg.numel()}: det {seg['ms']:.4f} ms "
         f"({100 * seg['bound_ms'] / seg['ms']:.1f} % of bound), shared-"
-        f"memory atomics {seg['atomics_ms']:.4f} ms, bound "
+        f"memory atomics {seg['atomics_ms']:.4f} ms, order model (plain) "
+        f"{seg['plain_ms']:.1f} ms, index_add_ yardstick "
+        f"{seg['library_ms']:.4f} ms, bound "
         f"{seg['bound_ms']:.4f} ms by {seg['bound_by']}; det / atomics "
         f"{seg['ratio_to_atomics']:.2f}x (medians of 10) {tag}")
     if not (seg_same and seg_equal):
         raise AssertionError(f"det update B = 1: identical {seg_same}, order "
                              f"model {seg_equal}")
+
+    # tables too large for one det block, split across blocks
+    out["split_tables"] = det_update_split(torch, v0, seeds, tseeds, sizes,
+                                           tag)
 
     # the dense paths in the mode, launches counted from 0: update_dense and
     # the gradcomp engine step, twice each, the same bits
@@ -4727,14 +4997,152 @@ def phase_det_update(torch, seed, tag):
     return out
 
 
+def dense_library_ms(torch, vals, seeds, tseeds, lens, rows, width):
+    """The dense update's index_add_ yardstick (memory half only): the
+    (B, n) ``vals``' live slots' flat (stream, row, bucket) indices and
+    signed transformed values precomputed, one ``index_add_`` into a
+    zeroed rows x width table a stream, timed by CUDA events."""
+    from repro_torch.core import hashing, transforms
+
+    dev = vals.device
+    per = torch.tensor(lens, device=dev)
+    keys = torch.cat([torch.arange(n, dtype=torch.int32, device=dev)
+                      for n in lens])
+    slot_seeds = seeds.repeat_interleave(per)
+    tv = transforms.transform_values(keys, torch.cat(
+        [vals[b, :n] for b, n in enumerate(lens)]), P,
+        tseeds.repeat_interleave(per))
+    base = torch.arange(len(lens), device=dev).repeat_interleave(per) \
+        * (rows * width)
+    idx, sv = [], []
+    for r in range(rows):
+        salt = hashing.row_salt(slot_seeds, r)
+        idx.append(base + r * width + hashing.bucket_hash(keys, salt, width))
+        sv.append(tv * hashing.sign_hash(keys, salt))
+    idx, sv = torch.cat(idx), torch.cat(sv)
+    del keys, slot_seeds, base, tv
+    flat = torch.zeros(len(lens) * rows * width, device=dev)
+    return cuda_ms(torch, lambda: flat.zero_().index_add_(0, idx, sv), 5)
+
+
+def det_update_split(torch, v0, seeds, tseeds, sizes, tag) -> dict:
+    """The dense det update on ``SPLIT_DENSE``'s tables, too large for one
+    block: the gemma2_2b layer's 11 leaves at 7 x 16,384 (row groups) and
+    the wg leaf's 21.2 M segment at 1 x 100,000 (bucket ranges).  Three
+    launches in the mode give the same bits, each counted as one det
+    launch; they are the order model's (``ref.countsketch_update_det_ref``
+    at the plan's chunk, on the card) bit for bit without the transform and
+    fed the ppswor_transform kernel's values with it; each cell lies within
+    its rounding bound of the plain version.  Times (medians of 10 by CUDA
+    events): the det kernel through its C entry, the global atomics (the
+    default mode's variant at these widths) through the wrapper, which
+    reads no lengths back for them; the order model (plain) once; the
+    index_add_ yardstick; beside the bound."""
+    import numpy as np
+    from repro_torch.kernels import countsketch_update as u
+    from repro_torch.kernels import ppswor_transform as tr
+    from repro_torch.kernels import ref, tiling
+
+    dev = v0.device
+    b_wg = [name for name, _ in LEAVES].index("wg")
+    out = {}
+    for rows, width, shape in SPLIT_DENSE:
+        if shape == "layer":
+            vals, sd, td, lens = v0, seeds, tseeds, list(sizes)
+        else:
+            vals, sd, td = (x[b_wg:b_wg + 1] for x in (v0, seeds, tseeds))
+            lens = [sizes[b_wg]]
+        Bs = vals.shape[0]
+        lengths = torch.tensor(lens, device=dev)
+        plan = tiling.table_plan(Bs, vals.shape[1], np.asarray(lens), rows,
+                                 width, tiling.sm_count(dev), "det",
+                                 det_chunks=True)
+        if not plan.row_group:
+            raise AssertionError(f"det update {rows} x {width} is not split")
+        what = f"{shape} {rows} x {width}"
+        rec = {"rows": rows, "width": width, "streams": Bs,
+               "live": int(sum(lens)), "plan": plan._asdict(),
+               "parts": tiling.det_parts(plan, rows)}
+        kw = dict(transform_seeds=td, lengths=lengths)
+        for p in (None, P):
+            outs = []
+            for _ in range(3):
+                before = dict(u.variant_launches)
+                with deterministic_mode(torch):
+                    outs.append(u.countsketch_update_batched(
+                        vals, rows, width, sd, p=p, **kw))
+                ran = {x: u.variant_launches[x] - before[x] for x in before}
+                if ran != {"smem": 0, "global": 0, "det": 1}:
+                    raise AssertionError(f"det update {what}: launched {ran}")
+            torch.cuda.synchronize()
+            identical = all(same_bits(torch, o, outs[0]) for o in outs[1:])
+            del outs[1:]
+            tvals = vals
+            if p is not None:
+                tvals = torch.zeros_like(vals)
+                for b, n in enumerate(lens):
+                    tvals[b, :n] = tr.ppswor_transform(
+                        torch.arange(n, dtype=torch.int32, device=dev),
+                        vals[b, :n].contiguous(), p, int(td[b]))
+            equal = same_bits(torch, outs[0], ref.countsketch_update_det_ref(
+                tvals, rows, width, sd, lengths=lengths, chunk=plan.chunk))
+            del tvals
+            log(f"[det] update {what} (B={Bs}, {rec['live']} live, split "
+                f"into {rec['parts']} blocks a chunk: row group "
+                f"{plan.row_group}, ranges {plan.ranges}, chunk {plan.chunk}, "
+                f"{plan.blocks} blocks; p={p}): 3 launches identical: "
+                f"{identical}; equal to the order model bit for bit: {equal} "
+                f"{tag}")
+            if not (identical and equal):
+                raise AssertionError(f"det update {what}, p={p}: identical "
+                                     f"{identical}, order model {equal}")
+        want = ref.countsketch_update_batched_ref(vals, rows, width, sd, p=P,
+                                                  **kw)
+        tol = ref.scatter_tolerance(*ref.countsketch_update_mass_ref(
+            vals, rows, width, sd, p=P, **kw))
+        rec["max_abs_err"], rec["worst_err_over_bound"] = check_sum(
+            torch, f"update {what} [det, split]", outs[0], want, tol)
+        del outs, want, tol
+        torch.cuda.empty_cache()
+        rec["ms"] = cuda_ms_median(torch, raw_update(
+            torch, vals, sd, td, np.asarray(lens), P, "det", rows=rows,
+            width=width)[1])
+        rec["atomics_ms"] = cuda_ms_median(
+            torch, lambda: u.countsketch_update_batched(
+                vals, rows, width, sd, p=P, _variant="global", **kw))
+        rec["plain_ms"] = cuda_ms(
+            torch, lambda: ref.countsketch_update_det_ref(
+                vals, rows, width, sd, p=P, chunk=plan.chunk, **kw), 1,
+            warmup=0)
+        rec["library_ms"] = dense_library_ms(torch, vals, sd, td, lens, rows,
+                                             width)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            rec["live"] * 4 + Bs * rows * width * 4,
+            rec["live"] * slot_ops(rows))
+        rec["ratio_to_atomics"] = rec["ms"] / rec["atomics_ms"]
+        log(f"[time] update {what}: det (split) {rec['ms']:.4f} ms "
+            f"({100 * rec['bound_ms'] / rec['ms']:.1f} % of bound), global "
+            f"atomics {rec['atomics_ms']:.4f} ms "
+            f"({100 * rec['bound_ms'] / rec['atomics_ms']:.1f} %), order "
+            f"model (plain) {rec['plain_ms']:.1f} ms, index_add_ yardstick "
+            f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by "
+            f"{rec['bound_by']}; det / atomics {rec['ratio_to_atomics']:.2f}x"
+            f" (medians of 10) {tag}")
+        out[what] = rec
+        torch.cuda.empty_cache()
+    return out
+
+
 def raw_update(torch, vals, seeds, tseeds, lens, p, variant, plan_mod=None,
-               fn=None):
+               fn=None, rows=ROWS, width=WIDTH):
     """The plan and a closure that launches the dense update's ``variant``
     ("det" or "smem") once through its C entry on (B, n) ``vals`` with host
-    ``lens``: no wrapper work (the seeds, lengths and chunk ends on the card
-    once, before), so CUDA events around a call time the kernel, and for
-    "det" its chunk-sum pass, alone.  ``plan_mod`` is the ``tiling`` module
-    of the checkout whose entry ``fn`` is (this tree's by default)."""
+    ``lens`` into a rows x width table: no wrapper work (the seeds, lengths
+    and chunk ends on the card once, before), so CUDA events around a call
+    time the kernel, and for "det" its chunk-sum pass, alone.  ``plan_mod``
+    is the ``tiling`` module of the checkout whose entry ``fn`` is (this
+    tree's by default; a checkout whose plans have no ``row_group`` takes
+    the det entry without the split's two arguments)."""
     import numpy as np
     from repro_torch.core import hashing
     from repro_torch.kernels import build, tiling
@@ -4743,8 +5151,10 @@ def raw_update(torch, vals, seeds, tseeds, lens, p, variant, plan_mod=None,
     dev = vals.device
     plan_mod = plan_mod or tiling
     B, n = vals.shape
-    plan = plan_mod.table_plan(B, n, lens, ROWS, WIDTH, tiling.sm_count(dev),
+    plan = plan_mod.table_plan(B, n, lens, rows, width, tiling.sm_count(dev),
                                variant, det_chunks=True)
+    split = () if variant != "det" or not hasattr(plan, "row_group") \
+        else (plan.row_group, plan.ranges)
     if fn is None:
         fn = build.function("countsketch_update",
                             f"worp_countsketch_update_{variant}",
@@ -4756,17 +5166,18 @@ def raw_update(torch, vals, seeds, tseeds, lens, p, variant, plan_mod=None,
     lens32 = tiling.lengths_arg(lens, B, n, dev)
     ends = None if plan.one_per_stream else torch.from_numpy(
         tiling.block_ends(lens, plan.chunk).astype(np.int32)).to(dev)
+    chunks = plan.blocks // (plan_mod.det_parts(plan, rows) if split else 1)
     work = None if plan.one_per_stream or variant != "det" else torch.empty(
-        (plan.blocks, ROWS, WIDTH), device=dev)
-    delta = torch.empty((B, ROWS, WIDTH), device=dev)
+        (chunks, rows, width), device=dev)
+    delta = torch.empty((B, rows, width), device=dev)
     ptrs = [vals.data_ptr(), s32.data_ptr(), t32.data_ptr(),
             base32.data_ptr(), lens32.data_ptr(),
             None if ends is None else ends.data_ptr()]
     if variant == "det":
         ptrs.append(None if work is None else work.data_ptr())
-    args = (*ptrs, delta.data_ptr(), B, n, ROWS, WIDTH, plan.chunk,
+    args = (*ptrs, delta.data_ptr(), B, n, rows, width, plan.chunk,
             int(p is not None), -1.0 / p if p is not None else 0.0, 0,
-            plan.blocks, plan.threads, plan.smem_bytes,
+            *split, plan.blocks, plan.threads, plan.smem_bytes,
             torch.cuda.current_stream().cuda_stream)
 
     def go(owners=(s32, t32, base32, lens32, ends, work)):
@@ -4808,29 +5219,37 @@ def det_parent_ab(torch, others: list, seed: int) -> int:
     tag = f"[{smi}]"
     log(smi)
     dev = torch.device(DEVICE)
-    built = build.build_all(("countsketch_update", "ppswor_transform"))
+    ab_sources = ("countsketch_update", "countsketch_scatter",
+                  "countsketch_query")
+    built = build.build_all((*ab_sources, "ppswor_transform"))
     libs = {"this": built["countsketch_update"].path}
+    others_libs = {"this": {src: built[src].path for src in ab_sources}}
     out_dir = build.BUILD_DIR / "det_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for d in others:
-        lib = out_dir / f"libcountsketch_update_{d.name}.so"
-        jobs[d.name] = (d, lib, subprocess.Popen(
-            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
-             str(d / "src/repro_torch/kernels/csrc/countsketch_update.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    versions = {}
-    for label, (d, lib, proc) in jobs.items():
+        for src in ab_sources:
+            lib = out_dir / f"lib{src}_{d.name}.so"
+            jobs[(d.name, src)] = (d, lib, subprocess.Popen(
+                [build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                 str(d / f"src/repro_torch/kernels/csrc/{src}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    versions, mods = {}, {"this": tiling}
+    for (label, src), (d, lib, proc) in jobs.items():
         text, _ = proc.communicate(timeout=600)
         for line in text.splitlines():
-            if "countsketch_update_det" in line or "Used" in line:
-                log(f"[build] {label} countsketch_update: {line.strip()}")
+            if "_det" in line or "query_kernel" in line or "Used" in line:
+                log(f"[build] {label} {src}: {line.strip()}")
         if proc.returncode:
-            raise RuntimeError(f"{d}: countsketch_update.cu did not build")
+            raise RuntimeError(f"{d}: {src}.cu did not build")
+        others_libs.setdefault(label, {})[src] = lib
+        if src != "countsketch_update":
+            continue
         spec = importlib.util.spec_from_file_location(
             f"tiling_{label}", d / "src/repro_torch/kernels/tiling.py")
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
+        mods[label] = mod
         clib = ctypes.CDLL(str(lib))
         versions[label] = (mod, clib.worp_countsketch_update_det,
                            clib.worp_countsketch_update_info)
@@ -4838,11 +5257,16 @@ def det_parent_ab(torch, others: list, seed: int) -> int:
     clib = ctypes.CDLL(str(libs["this"]))
     versions["this"] = (tiling, clib.worp_countsketch_update_det,
                         clib.worp_countsketch_update_info)
-    for _, fn, info in versions.values():
-        fn.argtypes, fn.restype = u._DET_ARGTYPES, ctypes.c_int
+    for mod, fn, info in versions.values():
+        # a checkout without the det split takes its entry without the
+        # split's two int arguments (row_group, ranges)
+        fn.argtypes = u._DET_ARGTYPES if splits(mod) \
+            else u._DET_ARGTYPES[:16] + u._DET_ARGTYPES[18:]
+        fn.restype = ctypes.c_int
         info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                          ctypes.c_void_p]
         info.restype = ctypes.c_int
+    jobs = {label: None for label in mods if label != "this"}
     order = [*jobs, "this", "this", *reversed(jobs)]
     report = {"card": smi, "sass": {}}
     cuobjdump = str(Path(build.nvcc()).parent / "cuobjdump")
@@ -4945,8 +5369,174 @@ def det_parent_ab(torch, others: list, seed: int) -> int:
             f"{occ['registers']} registers a thread, {plan.threads} threads, "
             f"dynamic smem {plan.smem_bytes} B, {occ['blocks_per_sm']} "
             f"blocks per SM {tag}")
+    sq_ok = scatter_query_ab(torch, others_libs, mods, order, report, tag)
     log("[det-ab] " + json.dumps(report))
-    return 0 if ok else 1
+    return 0 if ok and sq_ok else 1
+
+
+def splits(tiling_mod) -> bool:
+    """Whether a checkout's ``tiling`` plans the det split (its det
+    entries then take ``row_group`` and ``ranges``)."""
+    return "row_group" in tiling_mod.TablePlan._fields
+
+
+# the row read's A/B shapes: (B, rows, k); the flush's at rows 7 and 17
+ROW_READ_AB = ((2, ROWS, SINGLE_KEYS), (1, ROWS, SINGLE_KEYS),
+               (B, ROWS, CANDIDATES), (B, 17, CANDIDATES))
+
+
+def scatter_query_ab(torch, libs, mods, order, report, tag) -> bool:
+    """``--det-parent``'s second half: the det scatter at the flush shape
+    (one step of the deployment's stream, p = 1) and the row read at
+    ``ROW_READ_AB``'s shapes, each checkout's kernel (``libs[label]``,
+    planned by ``mods[label]``) launched raw through its C entry, in turns
+    (``order``).  Every det scatter gives every other's bits (the order
+    does not depend on the split, and a narrow table is not split) and the
+    same on three launches; every row read its plain version's.  Times:
+    the scatter by CUDA events (20 calls a turn); the row reads at B <= 2
+    by device time from a trace (50 calls a turn: CUDA events over such
+    calls time the host), at the flush by CUDA events; each beside the
+    gather yardstick and the bound.  Returns whether every check held."""
+    import ctypes
+
+    import numpy as np
+    from repro_torch.core import hashing
+    from repro_torch.data.pipeline import TurnstileZipfStream
+    from repro_torch.engine import EngineConfig, derive_stream_seeds
+    from repro_torch.kernels import countsketch_query as q
+    from repro_torch.kernels import countsketch_scatter as s
+    from repro_torch.kernels import ref, tiling
+
+    dev = torch.device(DEVICE)
+    ok = True
+    stream = TurnstileZipfStream(vocab_size=VOCAB, alpha=ALPHA, seed=0,
+                                 delete_fraction=DELETE_FRACTION)
+    batches = [stream.sparse_batch_at(1, b, INSERTS) for b in range(B)]
+    keys = torch.from_numpy(np.stack([k for k, _ in batches])).to(dev)
+    vals = torch.from_numpy(np.stack([v for _, v in batches])).to(dev)
+    del batches
+    Bs, n = keys.shape
+    seeds, tseeds = derive_stream_seeds(EngineConfig(
+        num_streams=Bs, rows=ROWS, width=WIDTH, candidates=CANDIDATES, p=P),
+        device=dev)
+    s32, t32 = (hashing.int32_arg(x, Bs, dev) for x in (seeds, tseeds))
+    lens32 = tiling.lengths_arg(None, Bs, n, dev)
+    stream_ptr = torch.cuda.current_stream().cuda_stream
+    gos, outs = {}, {}
+    for label, mod in mods.items():
+        fn = ctypes.CDLL(str(libs[label]["countsketch_scatter"])) \
+            .worp_countsketch_scatter_det
+        new = splits(mod)
+        fn.argtypes = s._DET_ARGTYPES if new \
+            else s._DET_ARGTYPES[:13] + s._DET_ARGTYPES[16:]
+        fn.restype = ctypes.c_int
+        plan = mod.table_plan(Bs, n, None, ROWS, WIDTH, tiling.sm_count(dev),
+                              "det")
+        delta = torch.empty((Bs, ROWS, WIDTH), device=dev)
+        head = (keys.data_ptr(), vals.data_ptr(), s32.data_ptr(),
+                t32.data_ptr(), lens32.data_ptr(), delta.data_ptr(), Bs, n,
+                ROWS, WIDTH, 1, -1.0 / P, 0)
+        args = (*head, *((plan.row_group, plan.ranges, plan.blocks) if new
+                         else ()), plan.threads, plan.smem_bytes, stream_ptr)
+
+        def go(fn=fn, args=args, delta=delta):
+            err = fn(*args)
+            if err:
+                raise RuntimeError(f"det scatter: CUDA error {err}")
+            return delta
+        gos[label] = go
+        got = [go().clone() for _ in range(3)]
+        torch.cuda.synchronize()
+        same = all(same_bits(torch, g, got[0]) for g in got[1:])
+        outs[label] = got[0]
+        ok = ok and same
+        log(f"[det-ab] scatter flush p={P} {label}: plan {tuple(plan)}; 3 "
+            f"launches identical: {same} {tag}")
+    equal = all(same_bits(torch, o, outs["this"]) for o in outs.values())
+    ok = ok and equal
+    turns = [(label, cuda_ms(torch, gos[label], 20)) for label in order]
+    live = int((keys != -1).sum())
+    b_ms, b_by = bound(keys.numel() * 8 + Bs * ROWS * WIDTH * 4,
+                       live * SCATTER_OPS_PER_SLOT)
+    report["scatter_flush"] = {
+        "bits_equal_across_checkouts": equal, "bound_ms": b_ms,
+        "bound_by": b_by, **{f"{label}_ms": [t for lab, t in turns
+                                             if lab == label]
+                             for label in mods}}
+    log(f"[det-ab] scatter flush p={P}: the checkouts' bits equal: {equal}; "
+        + ", ".join(f"{lab} {t:.4f} ms" for lab, t in turns)
+        + f"; bound {b_ms:.4f} ms by {b_by} (raw launches, CUDA events) "
+        f"{tag}")
+    del keys, vals, outs, gos, seeds, tseeds, s32, t32, lens32
+    torch.cuda.empty_cache()
+
+    fns = {}
+    for label, mod in mods.items():
+        fn = ctypes.CDLL(str(libs[label]["countsketch_query"])) \
+            .worp_countsketch_query
+        # a checkout without ``row_read_launch``: a thread a key, the
+        # estimate's signature
+        fn.argtypes = q._QUERY_ARGTYPES if hasattr(mod, "row_read_launch") \
+            else q._ARGTYPES
+        fn.restype = ctypes.c_int
+        fns[label] = fn
+    for Bq, rows, k in ROW_READ_AB:
+        g = torch.Generator().manual_seed(Bq + rows)
+        tables = torch.randn((Bq, rows, WIDTH), generator=g).to(dev)
+        qkeys = torch.randint(-2**31, 2**31 - 1, (Bq, k), generator=g,
+                              dtype=torch.int64).to(torch.int32).to(dev)
+        qseeds = hashing.int32_arg(torch.randint(0, 2**32, (Bq,),
+                                                 generator=g), Bq, dev)
+        want = ref.countsketch_query_batched_ref(tables, qkeys, qseeds)
+        small = Bq <= 2
+        gos = {}
+        for label, fn in fns.items():
+            mod = mods[label]
+            launch = mod.row_read_launch(Bq, rows, k, tiling.sm_count(dev)) \
+                if hasattr(mod, "row_read_launch") \
+                else (tiling.grid_1d(Bq * k), tiling.THREADS_PER_BLOCK)
+            out = torch.empty((Bq, rows, k), device=dev)
+            args = (tables.data_ptr(), qkeys.data_ptr(), qseeds.data_ptr(),
+                    out.data_ptr(), Bq, k, rows, WIDTH, *launch,
+                    torch.cuda.current_stream().cuda_stream)
+
+            def go(fn=fn, args=args, out=out):
+                err = fn(*args)
+                if err:
+                    raise RuntimeError(f"row read: CUDA error {err}")
+                return out
+            gos[label] = go
+            same = same_bits(torch, go(), want)
+            ok = ok and same
+            log(f"[det-ab] row read B={Bq} rows {rows} k={k} {label}: launch "
+                f"{launch} (blocks, threads[, keys a lane]); the plain "
+                f"version's bits: {same} {tag}")
+        gidx = gather_index(torch, qkeys, qseeds, WIDTH, rows)
+        flat = tables.reshape(Bq, -1)
+        gos["gather"] = lambda: torch.gather(flat, 1, gidx)
+
+        def timed(fn):
+            return (device_ms(torch, fn, 50) if small else None) \
+                or cuda_ms(torch, fn, 20)
+        turns = [(label, timed(gos[label])) for label in order]
+        lib_ms = timed(gos["gather"])
+        nk = qkeys.numel()
+        b_ms, b_by = bound(nk * 4 + table_bytes_read(torch, tables, qkeys,
+                                                     qseeds)
+                           + rows * nk * 4, nk * query_ops(rows))
+        report[f"row_read_B{Bq}_rows{rows}_k{k}"] = {
+            "bound_ms": b_ms, "bound_by": b_by, "gather_ms": lib_ms,
+            "timing": "device time from a trace" if small else "CUDA events",
+            **{f"{label}_ms": [t for lab, t in turns if lab == label]
+               for label in mods}}
+        log(f"[det-ab] row read B={Bq} rows {rows} k={k}: "
+            + ", ".join(f"{lab} {t:.4f} ms" for lab, t in turns)
+            + f"; gather yardstick {lib_ms:.4f} ms; bound {b_ms:.6f} ms by "
+            f"{b_by} ({report[f'row_read_B{Bq}_rows{rows}_k{k}']['timing']}) "
+            f"{tag}")
+        del tables, qkeys, want, gidx, flat, gos
+        torch.cuda.empty_cache()
+    return ok
 
 
 # the serve phase: (a) gemma2_2b at full width and 2 layers (one local/global
@@ -6812,7 +7402,10 @@ def main() -> int:
             "ms", "atomics_ms", "bound_ms", "bound_by",
             "ratio_to_atomics")},
         "wide_table": dict(planes["scatter_wide"], occupancy=OCCUPANCY.get(
-            ("countsketch_scatter", "det 32-bit entries")))}
+            ("countsketch_scatter", "det 32-bit entries"))),
+        "split_tables": {what: dict(rec, occupancy=(
+            OCCUPANCY.get(("countsketch_scatter", f"det split {what}"))))
+            for what, rec in planes["scatter_split"].items()}}
     # the wire phase's, the conformance grid's and the feeder's launches
     # (their default-mode runs take the shared-memory variant; their
     # deterministic runs the det variant and the segment sum)
@@ -6859,6 +7452,10 @@ def main() -> int:
             "vs_atomics_worst_err_over_bound", "ms", "plain_ms", "bound_ms",
             "bound_by", "atomics_ms", "ratio_to_atomics", "plan",
             "occupancy", "single_segment")},
+        "split_tables": {what: dict(rec, occupancy=OCCUPANCY.get((
+            "countsketch_update", f"det split {rec['rows']} x "
+            f"{rec['width']}"))) for what, rec in
+            det_update["split_tables"].items()},
         "library_ms": update["library_ms"],
         "plain": "ref.countsketch_update_det_ref on the card",
         "library": "index_add_ of the transformed terms (memory half only)"}
@@ -6934,7 +7531,7 @@ def main() -> int:
                                     if k != "tv_shapes"}))
     log("[planes] " + json.dumps({k: v for k, v in planes.items()
                                   if k not in ("scatter_flush", "scatter_tv",
-                                               "scatter_wide",
+                                               "scatter_wide", "scatter_split",
                                                "segment_sum_flush",
                                                "segment_sum_tv")}))
     log("[wire] " + json.dumps(wire))

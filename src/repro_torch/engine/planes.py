@@ -73,7 +73,8 @@ from repro_torch.core import countsketch, hashing, transforms, tv_sampler, worp
 from repro_torch.core import sampler as core_sampler
 from repro_torch.core.sampler import SamplerSpec
 from repro_torch.distributed import codecs as wire_codecs
-from repro_torch.engine.engine import _MERGES, _leaves, _refresh_candidates
+from repro_torch.engine.engine import (  # noqa: F401  (batched_ops: the
+    _MERGES, _leaves, _refresh_candidates, batched_ops)  # reference's name)
 from repro_torch.kernels import ops, tiling
 
 # ---------------------------------------------------------------------------

@@ -35,6 +35,9 @@ estimate_single_launches = 0
 MAX_FUSED_ROWS = 16
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# the row read's entry: the estimate's and the layout
+_QUERY_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+    + [ctypes.c_void_p]
 _INT_MAX = 2**31 - 1
 
 
@@ -76,13 +79,17 @@ def _launch(tables, keys, seeds, estimate: bool) -> torch.Tensor:
     if out.numel() == 0:
         return out
     seeds32 = hashing.int32_arg(seeds, B, keys.device)
-    symbol = "worp_countsketch_estimate" if estimate \
-        else "worp_countsketch_query"
-    fn = build.function("countsketch_query", symbol, _ARGTYPES)
+    if estimate:  # a thread a key
+        symbol, argtypes = "worp_countsketch_estimate", _ARGTYPES
+        launch = (tiling.grid_1d(B * k), tiling.THREADS_PER_BLOCK)
+    else:  # a lane a read, or past one wave a lane a key
+        symbol, argtypes = "worp_countsketch_query", _QUERY_ARGTYPES
+        launch = tiling.row_read_launch(B, rows, k,
+                                        tiling.sm_count(keys.device))
+    fn = build.function("countsketch_query", symbol, argtypes)
     with torch.cuda.device(keys.device):
         err = fn(tables.data_ptr(), keys.data_ptr(), seeds32.data_ptr(),
-                 out.data_ptr(), B, k, rows, width, tiling.grid_1d(B * k),
-                 tiling.THREADS_PER_BLOCK,
+                 out.data_ptr(), B, k, rows, width, *launch,
                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")

@@ -8,7 +8,8 @@ hand-written kernel (or raises); a CPU tensor takes the plain version in
 the launch (``tiling.table_plan``): under
 ``torch.use_deterministic_algorithms(True)`` the deterministic variant
 ("det": every cell summed in an order fixed by slot index, the same bits on
-every run; a table too large for it raises), else the shared-memory table
+every run; a table too large for one block split across blocks by rows or
+bucket ranges, with the same bits), else the shared-memory table
 where rows x width fits a block, else global atomics.  ``launches``
 (batched) and ``single_launches`` (one stream) count kernel launches, and
 nothing else; ``variant_launches`` splits all of them by variant.
@@ -34,7 +35,7 @@ _SMEM_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                   + [ctypes.c_float] + [ctypes.c_int] * 4
                   + [ctypes.c_void_p])
 _DET_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                 + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 SCHEMES = {transforms.PPSWOR: 0, transforms.PRIORITY: 1}
 _INT_MAX = 2**31 - 1
 
@@ -142,7 +143,8 @@ def _launch(keys, values, rows, width, seeds, p, scheme, transform_seeds,
             err = fn(keys.data_ptr(), values.data_ptr(), seeds32.data_ptr(),
                      tseeds32.data_ptr(), lens32.data_ptr(),
                      delta.data_ptr(), B, n, rows, width, *transform,
-                     plan.threads, plan.smem_bytes, stream)
+                     plan.row_group, plan.ranges, plan.blocks, plan.threads,
+                     plan.smem_bytes, stream)
         else:
             fn = build.function("countsketch_scatter",
                                 "worp_countsketch_scatter", _ARGTYPES)

@@ -10,7 +10,8 @@ kernel's variant follows from the mode and the shape before the launch
 the deterministic variant ("det": each chunk of a segment summed in an
 order fixed by slot index, the chunks then in chunk order, the same bits
 on every run, ``ref.countsketch_update_det_ref``'s; a table too large for
-it raises), else the shared-memory table where rows x width fits a block,
+one block split across blocks by rows or bucket ranges, with the same
+bits), else the shared-memory table where rows x width fits a block,
 else global atomics.  ``launches`` (batched) and ``single_launches``
 (one segment) count kernel launches, and nothing else;
 ``variant_launches`` splits all of them by variant.
@@ -36,7 +37,7 @@ _SMEM_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                   + [ctypes.c_float] + [ctypes.c_int] * 4
                   + [ctypes.c_void_p])
 _DET_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
-                 + [ctypes.c_float] + [ctypes.c_int] * 4
+                 + [ctypes.c_float] + [ctypes.c_int] * 6
                  + [ctypes.c_void_p])
 SCHEMES = {transforms.PPSWOR: 0, transforms.PRIORITY: 1}
 _VALUE_DTYPES = (torch.float32, torch.bfloat16)
@@ -85,8 +86,9 @@ def _launch(values, rows, width, seeds, p, scheme, transform_seeds,
             ends = work = None
             if not plan.one_per_stream:  # chunk tables, summed in order
                 ends = tiling.block_ends(lens32, plan.chunk)
-                work = torch.empty((plan.blocks, rows, width),
-                                   dtype=torch.float32, device=dev)
+                work = torch.empty(
+                    (plan.blocks // tiling.det_parts(plan, rows), rows,
+                     width), dtype=torch.float32, device=dev)
             fn = build.function("countsketch_update",
                                 "worp_countsketch_update_det", _DET_ARGTYPES)
             err = fn(vals.data_ptr(), seeds32.data_ptr(), tseeds32.data_ptr(),
@@ -94,8 +96,8 @@ def _launch(values, rows, width, seeds, p, scheme, transform_seeds,
                      None if ends is None else ends.data_ptr(),
                      None if work is None else work.data_ptr(),
                      delta.data_ptr(), B, n, rows, width, plan.chunk,
-                     *transform, plan.blocks, plan.threads, plan.smem_bytes,
-                     stream)
+                     *transform, plan.row_group, plan.ranges, plan.blocks,
+                     plan.threads, plan.smem_bytes, stream)
         elif plan.variant == "smem":
             ends = None if plan.one_per_stream \
                 else tiling.block_ends(lens32, plan.chunk)

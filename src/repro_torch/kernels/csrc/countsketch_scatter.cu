@@ -23,12 +23,14 @@
 //     slot, the mask, the transform once, then rows global atomicAdds into
 //     a zeroed delta.
 //   * worp_countsketch_scatter_det, under
-//     torch.use_deterministic_algorithms(True) where the table and two
-//     256-slot stages fit a block: one block per stream, producer warps
+//     torch.use_deterministic_algorithms(True): one block per stream where
+//     the table and two 256-slot stages fit a block, producer warps
 //     hashing each stage once and one walker warp a row adding it, each
 //     cell summed in an order fixed by the slot indices
 //     (smem_table.cuh det_table_block), so every run gives the same bits.
-//     A larger table has no deterministic variant: the wrapper raises.
+//     A larger table is split (tiling.det_split): a block for each row
+//     group of a stream, or for each bucket range of a row where one row
+//     does not fit, each with the bits one whole-table block would give.
 // The first two sum in an order that changes from run to run, so the
 // result matches the plain version within float tolerance, not bit for
 // bit; so does the third (its order is fixed, but not the plain
@@ -105,35 +107,65 @@ __global__ void __launch_bounds__(worp::kTableThreads, 3)
   worp::table_block(worp::SparseSlots{keys, values}, args, table);
 }
 
-// Entry: a row's staged bucket and sign, 16 bits where width <= 2**15.
-template <class Entry>
+// Entry: a row's staged bucket and sign, 16 bits where a block's rows span
+// at most 2**15 buckets; kSplit: a block owns the whole table
+// (worp::kDetWhole), a row group (kDetRows) or a bucket range of one row
+// (kDetRanges).
+template <class Entry, int kSplit>
 __global__ void __launch_bounds__(worp::kTableThreads, 3)
     countsketch_scatter_det(const int32_t* __restrict__ keys,
                             const float* __restrict__ values,
                             worp::TableArgs args) {
   extern __shared__ float table[];
-  worp::det_table_block<worp::SparseSlots, Entry>(
+  worp::det_table_block<worp::SparseSlots, Entry, kSplit>(
       worp::SparseSlots{keys, values}, args, table);
 }
 
-// The det kernel's instantiation for a table `width` buckets wide.
-void (*det_kernel(int width))(const int32_t*, const float*, worp::TableArgs) {
-  if (width <= (1 << 15)) return countsketch_scatter_det<uint16_t>;
-  return countsketch_scatter_det<uint32_t>;
+using DetKernel = void (*)(const int32_t*, const float*, worp::TableArgs);
+
+template <class Entry>
+DetKernel det_kernel_of(int split) {
+  if (split == worp::kDetRanges) {
+    return countsketch_scatter_det<Entry, worp::kDetRanges>;
+  }
+  if (split == worp::kDetRows) {
+    return countsketch_scatter_det<Entry, worp::kDetRows>;
+  }
+  return countsketch_scatter_det<Entry, worp::kDetWhole>;
+}
+
+// The det kernel's instantiation for blocks whose rows span `span` buckets
+// (the width, or a bucket range's) and own a part of the table `split`.
+DetKernel det_kernel(int span, int split) {
+  return span <= (1 << 15) ? det_kernel_of<uint16_t>(split)
+                           : det_kernel_of<uint32_t>(split);
+}
+
+// The split of a launch: bucket ranges, row groups, or none.
+int det_split(int row_group, int ranges) {
+  return ranges > 1       ? worp::kDetRanges
+         : row_group > 0 ? worp::kDetRows
+                         : worp::kDetWhole;
 }
 
 }  // namespace
 
-// The deterministic variant: one block of `threads` (32 x (8 producer
-// warps + min(rows, 8) walkers)) per stream, `smem_bytes`
-// (worp::det_smem_bytes) of dynamic shared memory, the delta written whole.
+// The deterministic variant: `blocks` blocks of `threads` (32 x (8
+// producer warps + min(rows of a block, 8) walkers)), `smem_bytes`
+// (tiling.det_smem_bytes of a block's rows) of dynamic shared memory: B
+// blocks, one a stream, or, split (tiling.det_split), B x parts, each
+// stream's parts row groups of `row_group` rows or, where ranges > 1,
+// `ranges` bucket ranges of each row.  The delta is written whole.
 // Launches on `stream`; returns a CUDA error code (0 on success).
 extern "C" int worp_countsketch_scatter_det(
     const void* keys, const void* values, const void* seeds,
     const void* tseeds, const void* lengths, void* delta, int B, int n,
-    int rows, int width, int has_p, float neg_inv_p, int scheme, int threads,
-    int smem_bytes, void* stream) {
-  const auto kernel = det_kernel(width);
+    int rows, int width, int has_p, float neg_inv_p, int scheme,
+    int row_group, int ranges, int blocks, int threads, int smem_bytes,
+    void* stream) {
+  const auto kernel = det_kernel(
+      ranges > 1 ? (width + ranges - 1) / ranges : width,
+      det_split(row_group, ranges));
   const int err = worp::prepare_table_kernel(kernel, smem_bytes);
   if (err) return err;
   const worp::TableArgs args{
@@ -142,8 +174,9 @@ extern "C" int worp_countsketch_scatter_det(
       static_cast<const int32_t*>(lengths),
       nullptr,
       static_cast<float*>(delta), B, n, rows, width, 0, has_p, scheme,
-      neg_inv_p};
-  kernel<<<B, threads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      neg_inv_p, row_group, ranges};
+  kernel<<<blocks, threads, smem_bytes,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(keys), static_cast<const float*>(values),
       args);
   return static_cast<int>(cudaGetLastError());
@@ -179,11 +212,13 @@ extern "C" int worp_countsketch_scatter_smem(
 
 // Registers, static shared memory, blocks per SM and dynamic shared memory
 // (worp::kernel_info) of variant 0 (global atomics), 1 (shared memory), 2
-// (deterministic, width <= 2**15) or 3 (deterministic, 32-bit entries).
+// (deterministic, width <= 2**15), 3 (deterministic, 32-bit entries), 4
+// or 5 (the same owning row groups), 6 or 7 (owning bucket ranges).
 extern "C" int worp_countsketch_scatter_info(int variant, int threads,
                                              int smem_bytes, int* out) {
   if (variant >= 2) {
-    const auto kernel = det_kernel(variant == 2 ? 1 : (1 << 15) + 1);
+    const auto kernel = det_kernel(variant % 2 == 0 ? 1 : (1 << 15) + 1,
+                                   (variant - 2) / 2);
     const int err = worp::prepare_table_kernel(kernel, smem_bytes);
     if (err) return err;
     return worp::kernel_info(kernel, threads, smem_bytes, out);

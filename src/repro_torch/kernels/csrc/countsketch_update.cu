@@ -30,11 +30,12 @@
 // Both sum in an order that changes from run to run, so the result matches
 // the plain version within float tolerance, not bit for bit.
 //   * worp_countsketch_update_det, under
-//     torch.use_deterministic_algorithms(True) where the table and two
-//     stages fit a block (tiling.det_dense_fits): every cell summed in an
+//     torch.use_deterministic_algorithms(True): every cell summed in an
 //     order fixed by the slot indices and the plan's chunk, the same bits
-//     on every run.  A larger table has no deterministic variant: the
-//     wrapper raises.
+//     on every run.  A table whose block does not fit (tiling.
+//     det_dense_fits) is split (tiling.det_split): each chunk gets a block
+//     a row group, or a bucket range of a row where one row does not fit,
+//     each with the bits one whole-table block would give.
 //
 // The det variant.  Its block body is the dense update's own
 // (smem_table.cuh det_dense_block): a warp a row hashes its row's buckets
@@ -120,13 +121,27 @@ __global__ void __launch_bounds__(worp::kTableThreads, 3)
 }
 
 // 224 threads for rows 7, so 3 blocks (64,512 B of shared memory each) an
-// SM: at most 85 registers a thread keep them resident.
+// SM: at most 85 registers a thread keep them resident.  kSplit: a block
+// owns the whole table (worp::kDetWhole), a row group (kDetRows) or a
+// bucket range of one row (kDetRanges).
+template <int kSplit>
 __global__ void __launch_bounds__(32 * worp::kDenseMaxWarps, 3)
     countsketch_update_det(const float* __restrict__ values,
                            const int32_t* __restrict__ base_keys,
                            worp::TableArgs args) {
   extern __shared__ float table[];
-  worp::det_dense_block(values, base_keys, args, table);
+  worp::det_dense_block<kSplit>(values, base_keys, args, table);
+}
+
+using DetKernel = void (*)(const float*, const int32_t*, worp::TableArgs);
+
+// The det kernel of a split (worp::kDetWhole, kDetRows or kDetRanges).
+DetKernel det_kernel(int split) {
+  if (split == worp::kDetRanges) {
+    return countsketch_update_det<worp::kDetRanges>;
+  }
+  if (split == worp::kDetRows) return countsketch_update_det<worp::kDetRows>;
+  return countsketch_update_det<worp::kDetWhole>;
 }
 
 // The det variant's second pass: delta[b, c] = ((0 + ws[g0, c]) + ws[g0 +
@@ -152,21 +167,27 @@ __global__ void countsketch_chunk_sum(const float* __restrict__ ws,
 
 }  // namespace
 
-// The deterministic variant: `blocks` blocks of `threads` (32 x min(rows,
-// 8): a warp a row) and `smem_bytes` (tiling.det_dense_smem_bytes: the
-// table and two stages) of dynamic shared memory.  With block_ends null
-// each stream is one block and writes its delta row; else block g takes
-// the chunk that block_ends (the (B,) inclusive prefix sum of chunk counts)
-// gives it, writes its table to workspace row g, and the second pass sums
-// them into the delta.  Launches on `stream`; returns a CUDA error code (0
-// on success).
+// The deterministic variant: `blocks` blocks of `threads` (32 x min(rows
+// of a block, 8): a warp a row) and `smem_bytes` (tiling.
+// det_dense_smem_bytes of a block's rows: the table and two stages) of
+// dynamic shared memory, `blocks` / parts chunks of parts blocks each
+// (split, tiling.det_split: row groups of `row_group` rows or, where
+// ranges > 1, `ranges` bucket ranges of each row; unsplit, 1).  With
+// block_ends null each stream is one chunk and writes its delta row; else
+// chunk g is the one that block_ends (the (B,) inclusive prefix sum of
+// chunk counts) gives it, writes its table to workspace row g, and the
+// second pass sums them into the delta.  Launches on `stream`; returns a
+// CUDA error code (0 on success).
 extern "C" int worp_countsketch_update_det(
     const void* values, const void* seeds, const void* tseeds,
     const void* base_keys, const void* lengths, const void* block_ends,
     void* workspace, void* delta, int B, int n, int rows, int width,
-    int chunk, int has_p, float neg_inv_p, int scheme, int blocks,
-    int threads, int smem_bytes, void* stream) {
-  int err = worp::prepare_table_kernel(countsketch_update_det, smem_bytes);
+    int chunk, int has_p, float neg_inv_p, int scheme, int row_group,
+    int ranges, int blocks, int threads, int smem_bytes, void* stream) {
+  const auto kernel = det_kernel(ranges > 1       ? worp::kDetRanges
+                                 : row_group > 0 ? worp::kDetRows
+                                                 : worp::kDetWhole);
+  int err = worp::prepare_table_kernel(kernel, smem_bytes);
   if (err) return err;
   const auto ends = static_cast<const int32_t*>(block_ends);
   const worp::TableArgs args{
@@ -175,9 +196,9 @@ extern "C" int worp_countsketch_update_det(
       static_cast<const int32_t*>(lengths),
       ends,
       static_cast<float*>(ends == nullptr ? delta : workspace), B, n, rows,
-      width, chunk, has_p, scheme, neg_inv_p};
+      width, chunk, has_p, scheme, neg_inv_p, row_group, ranges};
   const auto s = static_cast<cudaStream_t>(stream);
-  countsketch_update_det<<<blocks, threads, smem_bytes, s>>>(
+  kernel<<<blocks, threads, smem_bytes, s>>>(
       static_cast<const float*>(values),
       static_cast<const int32_t*>(base_keys), args);
   err = static_cast<int>(cudaGetLastError());
@@ -221,16 +242,16 @@ extern "C" int worp_countsketch_update_smem(
 }
 
 // Registers, static shared memory, blocks per SM and dynamic shared memory
-// (worp::kernel_info) of variant 0 (global atomics), 1 (shared memory) or 2
-// (deterministic).
+// (worp::kernel_info) of variant 0 (global atomics), 1 (shared memory), 2
+// (deterministic), 3 (deterministic, owning row groups) or 4 (owning bucket
+// ranges).
 extern "C" int worp_countsketch_update_info(int variant, int threads,
                                             int smem_bytes, int* out) {
-  if (variant == 2) {
-    const int err = worp::prepare_table_kernel(countsketch_update_det,
-                                               smem_bytes);
+  if (variant >= 2) {
+    const auto kernel = det_kernel(variant - 2);
+    const int err = worp::prepare_table_kernel(kernel, smem_bytes);
     if (err) return err;
-    return worp::kernel_info(countsketch_update_det, threads, smem_bytes,
-                             out);
+    return worp::kernel_info(kernel, threads, smem_bytes, out);
   }
   if (variant == 1) {
     const int err = worp::prepare_table_kernel(countsketch_update_smem,

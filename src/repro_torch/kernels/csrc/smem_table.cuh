@@ -62,6 +62,10 @@ struct TableArgs {
   float* delta;               // (B, rows, width)
   int B, n, rows, width, chunk, has_p, scheme;
   float neg_inv_p;
+  // the det kernels' split of a table too large for one block
+  // (kernels/tiling.py det_split): row_group rows a block (0: all), or,
+  // where ranges > 1, one bucket range of one row a block
+  int row_group, ranges;
 };
 
 // Slot (b, i) of a sparse stream: key and value loaded, key -1 is padding.
@@ -157,19 +161,20 @@ __device__ __forceinline__ bool combine_lanes(uint32_t key, bool live,
   return ordered_combine(peers, live, v);
 }
 
-// The stream b and slot range [begin, end) of this block (kernels/tiling.py
+// The stream b and slot range [begin, end) of block `blk` (kernels/tiling.py
 // plan_blocks): with block_ends, the chunk of `chunk` slots that the binary
-// search over the chunk counts finds; without, the whole stream blockIdx.x
-// (cut at `chunk` where it is positive).
-__device__ __forceinline__ void block_range(const TableArgs& a, int& b,
-                                            int64_t& begin, int64_t& end) {
-  b = blockIdx.x;
+// search over the chunk counts finds; without, the whole stream blk (cut
+// at `chunk` where it is positive).
+__device__ __forceinline__ void block_range(const TableArgs& a, int blk,
+                                            int& b, int64_t& begin,
+                                            int64_t& end) {
+  b = blk;
   begin = 0;
   if (a.block_ends != nullptr) {
     int lo = 0, hi = a.B - 1;  // the first stream with block_ends[b] > blk
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
-      if (a.block_ends[mid] > static_cast<int>(blockIdx.x)) {
+      if (a.block_ends[mid] > blk) {
         hi = mid;
       } else {
         lo = mid + 1;
@@ -177,7 +182,7 @@ __device__ __forceinline__ void block_range(const TableArgs& a, int& b,
     }
     b = lo;
     const int first = b == 0 ? 0 : a.block_ends[b - 1];
-    begin = static_cast<int64_t>(blockIdx.x - first) * a.chunk;
+    begin = static_cast<int64_t>(blk - first) * a.chunk;
   }
   const int64_t len = a.lengths[b];
   end = a.chunk > 0 && begin + a.chunk < len ? begin + a.chunk : len;
@@ -189,7 +194,7 @@ __device__ __forceinline__ void table_block(const Slots& slots,
                                             float* table) {
   int b;
   int64_t begin, end;
-  block_range(a, b, begin, end);
+  block_range(a, static_cast<int>(blockIdx.x), b, begin, end);
 
   const int cells = a.rows * a.width;
   for (int c = threadIdx.x; c < cells; c += blockDim.x) table[c] = 0.0f;
@@ -341,9 +346,84 @@ struct DetStage {
   }
 };
 
-template <class Slots, class Entry>
+// The part of the table a det block owns (kernels/tiling.py det_cuts and
+// det_plan_blocks): block g serves part g % parts of stream or chunk g /
+// parts; a part is rows [r0, r1) whole (kDetRows: row groups of row_group
+// rows), or buckets [w0, w0 + wn) of row r0 (kDetRanges: `ranges` equal
+// ranges of `span` buckets, the last narrower).  A block that holds the
+// whole table (kDetWhole) is its stream's or chunk's one part, all of it
+// from the kernel's arguments, so its kernel is the unsplit one.  Its
+// shared table holds its rows' slices, `wn` floats a row, and the stages
+// follow `srows` x `span` floats of it (tiling's smem bytes).
+constexpr int kDetWhole = 0;
+constexpr int kDetRows = 1;
+constexpr int kDetRanges = 2;
+
+struct DetPart {
+  int blk;     // the stream (scatter) or chunk (dense update) block
+  int r0, r1;  // its rows
+  int w0, wn;  // its buckets of each
+  int srows, span;
+};
+
+template <int kSplit>
+__device__ __forceinline__ DetPart det_part(const TableArgs& a) {
+  DetPart d;
+  const int g = static_cast<int>(blockIdx.x);
+  if constexpr (kSplit == kDetWhole) {
+    d.blk = g;
+    d.r0 = 0;
+    d.r1 = a.rows;
+    d.w0 = 0;
+    d.wn = a.width;
+    d.srows = a.rows;
+    d.span = a.width;
+  } else if constexpr (kSplit == kDetRows) {
+    const int parts = (a.rows + a.row_group - 1) / a.row_group;
+    d.blk = g / parts;
+    d.r0 = (g - d.blk * parts) * a.row_group;
+    d.r1 = d.r0 + a.row_group < a.rows ? d.r0 + a.row_group : a.rows;
+    d.w0 = 0;
+    d.wn = a.width;
+    d.srows = a.row_group;
+    d.span = a.width;
+  } else {
+    const int part = g % (a.rows * a.ranges);
+    d.blk = g / (a.rows * a.ranges);
+    d.span = (a.width + a.ranges - 1) / a.ranges;
+    d.srows = 1;
+    d.r0 = part / a.ranges;
+    d.r1 = d.r0 + 1;
+    d.w0 = (part % a.ranges) * d.span;
+    d.wn = a.width - d.w0 < d.span ? a.width - d.w0 : d.span;
+  }
+  return d;
+}
+
+// Writes a det block's table (its rows' slices, d.wn floats each) to its
+// place in the (.., rows, width) output at row `out`: whole rows are one
+// contiguous run of the output, a bucket range one run a row.
+__device__ __forceinline__ void det_flush(const TableArgs& a,
+                                          const DetPart& d, int64_t out,
+                                          const float* table) {
+  float* dst = a.delta + (out * a.rows + d.r0) * a.width + d.w0;
+  const int cells = (d.r1 - d.r0) * d.wn;
+  if (d.wn == a.width) {
+    for (int c = threadIdx.x; c < cells; c += blockDim.x) dst[c] = table[c];
+  } else {
+    for (int c = threadIdx.x; c < cells; c += blockDim.x) {
+      const int r = c / d.wn;
+      dst[static_cast<int64_t>(r) * a.width + (c - r * d.wn)] = table[c];
+    }
+  }
+}
+
+// kSplit (DetPart): kDetRanges, the block owns a bucket range of one row,
+// and a lead whose bucket falls outside it is dead for this block.
+template <class Slots, class Entry, int kSplit>
 __device__ __forceinline__ void det_produce(const Slots& slots,
-                                            const TableArgs& a, float* stages,
+                                            const TableArgs& a,
+                                            const DetPart& d, float* stages,
                                             int b, int64_t begin, int64_t end,
                                             int tiles) {
   constexpr unsigned kAll = 0xFFFFFFFFu;
@@ -354,6 +434,7 @@ __device__ __forceinline__ void det_produce(const Slots& slots,
   const uint32_t seed = static_cast<uint32_t>(a.seeds[b]);
   const uint32_t tseed = static_cast<uint32_t>(a.tseeds[b]);
   const uint32_t width = static_cast<uint32_t>(a.width);
+  const int nrows = d.r1 - d.r0;
   const int64_t row0 = static_cast<int64_t>(b) * a.n;
   const int j = g * 32 + lane;  // this lane's slot in every stage
   // this lane's next two slots, loaded two stages ahead (key -1 loads as
@@ -381,22 +462,30 @@ __device__ __forceinline__ void det_produce(const Slots& slots,
     }
     // a group's slots of one key sum to their lead; dense keys are
     // distinct, so each live dense slot is its own lead
-    const bool lead = Slots::kCombine
-                          ? ordered_combine(__match_any_sync(kAll, key), live,
-                                            v)
-                          : live;
+    bool lead = Slots::kCombine
+                    ? ordered_combine(__match_any_sync(kAll, key), live, v)
+                    : live;
+    if constexpr (kSplit == kDetRanges) {  // the lead's bucket, its one row
+      const uint32_t bucket = bucket_hash(
+          key, row_salt(seed, static_cast<uint32_t>(d.r0)), width);
+      lead = lead && bucket - static_cast<uint32_t>(d.w0) <
+                         static_cast<uint32_t>(d.wn);
+    }
     const unsigned leads = __ballot_sync(kAll, lead);
     const int s = t & 1;
     if (t >= 2) named_sync(kBarFree + s, threads);  // stage t - 2 walked
-    const DetStage<Entry> st(stages, a.rows, s);
+    const DetStage<Entry> st(stages, d.srows, s);
     st.vals[j] = v;
     if (lane == 0) st.live[g] = leads;
     // branch-free and unrolled, so that rows' hash chains interleave
 #pragma unroll 4
-    for (int r = 0; r < a.rows; ++r) {
-      const uint32_t salt = row_salt(seed, static_cast<uint32_t>(r));
-      const uint32_t e =
-          bucket_hash(key, salt, width) | (sign_bit(key, salt) << kShift);
+    for (int r = 0; r < nrows; ++r) {
+      const uint32_t salt = row_salt(seed, static_cast<uint32_t>(d.r0 + r));
+      uint32_t bucket = bucket_hash(key, salt, width);
+      if constexpr (kSplit == kDetRanges) {
+        bucket -= static_cast<uint32_t>(d.w0);
+      }
+      const uint32_t e = bucket | (sign_bit(key, salt) << kShift);
       st.ent[r * kDetStage + j] = static_cast<Entry>(lead ? e : 0u);
     }
     named_arrive(kBarFull + s, threads);
@@ -404,7 +493,8 @@ __device__ __forceinline__ void det_produce(const Slots& slots,
 }
 
 template <class Entry>
-__device__ __forceinline__ void det_walk(const TableArgs& a, float* table,
+__device__ __forceinline__ void det_walk(const TableArgs& a,
+                                         const DetPart& d, float* table,
                                          float* stages, int walker,
                                          int walkers, int tiles) {
   constexpr unsigned kAll = 0xFFFFFFFFu;
@@ -412,13 +502,14 @@ __device__ __forceinline__ void det_walk(const TableArgs& a, float* table,
   constexpr uint32_t kBucket = (1u << kShift) - 1u;
   const int lane = static_cast<int>(threadIdx.x & 31);
   const int threads = static_cast<int>(blockDim.x);
+  const int nrows = d.r1 - d.r0;
   const uint32_t tag = kTag | static_cast<uint32_t>(lane);
   for (int t = 0; t < tiles; ++t) {
     const int s = t & 1;
     named_sync(kBarFull + s, threads);  // stage t hashed
-    const DetStage<Entry> st(stages, a.rows, s);
-    for (int r = walker; r < a.rows; r += walkers) {
-      float* row = table + static_cast<int64_t>(r) * a.width;
+    const DetStage<Entry> st(stages, d.srows, s);
+    for (int r = walker; r < nrows; r += walkers) {
+      float* row = table + static_cast<int64_t>(r) * d.wn;
       const Entry* ent = st.ent + r * kDetStage;
       // the stage's row, loaded ahead of the ordered adds
       unsigned leads[kDetGroups];
@@ -445,10 +536,10 @@ __device__ __forceinline__ void det_walk(const TableArgs& a, float* table,
         __syncwarp();
         const bool shared = live && __float_as_uint(*cell) != tag;
         if (__any_sync(kAll, shared)) {  // two distinct keys, one bucket
-          float d = v;
+          float sum = v;
           const unsigned peers =
               __match_any_sync(kAll, live ? bucket : 0x80000000u | lane);
-          if (ordered_combine(peers, live, d)) *cell = __fadd_rn(old, d);
+          if (ordered_combine(peers, live, sum)) *cell = __fadd_rn(old, sum);
         } else if (live) {
           *cell = __fadd_rn(old, v);
         }
@@ -460,18 +551,25 @@ __device__ __forceinline__ void det_walk(const TableArgs& a, float* table,
 }
 
 // The block takes its range as table_block does: the scatter's det launch
-// gives each stream one block (block_ends null, chunk 0) and the delta row
-// b.  (The dense update's det variant has a block body of its own,
-// det_dense_block below.)
-template <class Slots, class Entry>
+// gives each stream one block (block_ends null, chunk 0), or, for a table
+// too large for a block, one block a part of it (det_part: a row group, or
+// a bucket range of one row), and the block writes its part of delta row
+// b.  The producers of every part load, transform and match every slot of
+// the stream; they stage only their part's rows (each with its own row's
+// salt), and in a bucket range only the leads that fall in it.  A cell's
+// terms, their lead sums and their order are those of one whole-table
+// block, so a split table has its bits.  (The dense update's det variant
+// has a block body of its own, det_dense_block below.)
+template <class Slots, class Entry, int kSplit>
 __device__ __forceinline__ void det_table_block(const Slots& slots,
                                                 const TableArgs& a,
                                                 float* table) {
+  const DetPart d = det_part<kSplit>(a);
   int b;
   int64_t begin, end;
-  block_range(a, b, begin, end);
-  const int cells = a.rows * a.width;
-  float* stages = table + cells;
+  block_range(a, d.blk, b, begin, end);
+  const int cells = (d.r1 - d.r0) * d.wn;
+  float* stages = table + d.srows * d.span;
   for (int c = threadIdx.x; c < cells; c += blockDim.x) table[c] = 0.0f;
   __syncthreads();
   const int tiles =
@@ -479,15 +577,15 @@ __device__ __forceinline__ void det_table_block(const Slots& slots,
                   : 0;
   const int warp = static_cast<int>(threadIdx.x >> 5);
   if (warp < kDetProducers) {
-    det_produce<Slots, Entry>(slots, a, stages, b, begin, end, tiles);
+    det_produce<Slots, Entry, kSplit>(slots, a, d, stages, b, begin, end,
+                                      tiles);
   } else {
-    det_walk<Entry>(a, table, stages, warp - kDetProducers,
-                    a.rows < kDetMaxWalkers ? a.rows : kDetMaxWalkers, tiles);
+    det_walk<Entry>(a, d, table, stages, warp - kDetProducers,
+                    d.srows < kDetMaxWalkers ? d.srows : kDetMaxWalkers,
+                    tiles);
   }
   __syncthreads();
-
-  float* dst = a.delta + static_cast<int64_t>(b) * cells;
-  for (int c = threadIdx.x; c < cells; c += blockDim.x) dst[c] = table[c];
+  det_flush(a, d, b, table);
 }
 
 // ---------------------------------------------------------------------------
@@ -597,9 +695,12 @@ __device__ __forceinline__ void det_dense_fill(
 // Warp-owned rows over one stage: `count` live slots from slot s0, their
 // (transformed) values in buf.  kFull: the stage is full (count is the
 // stage), so every lane is live and no group check is needed; only a
-// chunk's last stage takes the ragged walk.
-template <bool kFull>
+// chunk's last stage takes the ragged walk.  The warps own the block's rows
+// (DetPart); kSplit kDetRanges: its bucket range of one row, a slot whose
+// bucket falls outside it dead for this block.
+template <bool kFull, int kSplit>
 __device__ __forceinline__ void det_dense_walk(const TableArgs& a,
+                                               const DetPart& d,
                                                float* table, const float* buf,
                                                uint32_t base, uint32_t seed,
                                                int64_t s0, int count) {
@@ -609,9 +710,9 @@ __device__ __forceinline__ void det_dense_walk(const TableArgs& a,
   const uint32_t width = static_cast<uint32_t>(a.width);
   const uint32_t tag = kTag | static_cast<uint32_t>(lane);
   const uint32_t key0 = base + static_cast<uint32_t>(s0) + lane;
-  for (int r = warp; r < a.rows; r += warps) {
+  for (int r = d.r0 + warp; r < d.r1; r += warps) {
     const uint32_t salt = row_salt(seed, static_cast<uint32_t>(r));
-    float* row = table + static_cast<int64_t>(r) * a.width;
+    float* row = table + static_cast<int64_t>(r - d.r0) * d.wn;
     for (int g0 = 0; g0 * 32 < count; g0 += kDenseAhead) {
       uint32_t bucket[kDenseAhead];
       float term[kDenseAhead];
@@ -620,6 +721,9 @@ __device__ __forceinline__ void det_dense_walk(const TableArgs& a,
         const int j = (g0 + q) * 32 + lane;
         const uint32_t key = key0 + static_cast<uint32_t>((g0 + q) * 32);
         bucket[q] = bucket_hash(key, salt, width);
+        if constexpr (kSplit == kDetRanges) {
+          bucket[q] -= static_cast<uint32_t>(d.w0);
+        }
         const float v = buf[j];
         term[q] = __uint_as_float(__float_as_uint(v) ^ sign_mask(key, salt));
       }
@@ -627,8 +731,11 @@ __device__ __forceinline__ void det_dense_walk(const TableArgs& a,
       for (int q = 0; q < kDenseAhead; ++q) {
         const int g = g0 + q;
         if (!kFull && g * 32 >= count) break;  // warp-uniform
-        det_add_group(row, bucket[q], term[q],
-                      kFull || g * 32 + lane < count, tag);
+        bool live = kFull || g * 32 + lane < count;
+        if constexpr (kSplit == kDetRanges) {
+          live = live && bucket[q] < static_cast<uint32_t>(d.wn);
+        }
+        det_add_group(row, bucket[q], term[q], live, tag);
       }
     }
   }
@@ -636,21 +743,28 @@ __device__ __forceinline__ void det_dense_walk(const TableArgs& a,
 
 // The block takes its range as table_block does (a chunk of stream b, or
 // the whole stream where block_ends is null) and writes its table whole:
-// to delta row b where each stream is one block, else to row blockIdx.x of
-// the (blocks, rows, width) workspace that countsketch_chunk_sum sums in
-// chunk order.  The stage is kDenseSlotsPerThread x blockDim.x slots, a
-// multiple of kDenseAhead groups (blockDim.x a multiple of 32), so a
-// stage's hashed-ahead reads stay in its buffer; chunks start at multiples
-// of 32, so the groups still count from slot 0.
+// to delta row b where each stream is one block, else to row `chunk` of
+// the (chunks, rows, width) workspace that countsketch_chunk_sum sums in
+// chunk order.  A table too large for one block is split as the scatter's
+// (det_part): each chunk gets a block a row group, or a bucket range of
+// one row, whose warps own its rows; every part of a chunk loads and
+// transforms all of its slots, and writes its part of the chunk's row.  A
+// cell's terms and their order are those of one whole-table block, so a
+// split table has its bits.  The stage is kDenseSlotsPerThread x
+// blockDim.x slots, a multiple of kDenseAhead groups (blockDim.x a
+// multiple of 32), so a stage's hashed-ahead reads stay in its buffer;
+// chunks start at multiples of 32, so the groups still count from slot 0.
+template <int kSplit>
 __device__ __forceinline__ void det_dense_block(
     const float* __restrict__ values, const int32_t* __restrict__ base_keys,
     const TableArgs& a, float* table) {
+  const DetPart d = det_part<kSplit>(a);
   int b;
   int64_t begin, end;
-  block_range(a, b, begin, end);
-  const int cells = a.rows * a.width;
+  block_range(a, d.blk, b, begin, end);
+  const int cells = (d.r1 - d.r0) * d.wn;
   const int stage = kDenseSlotsPerThread * static_cast<int>(blockDim.x);
-  float* stages = table + cells;
+  float* stages = table + d.srows * d.span;
   const uint32_t base = static_cast<uint32_t>(base_keys[b]);
   const uint32_t seed = static_cast<uint32_t>(a.seeds[b]);
   const uint32_t tseed = static_cast<uint32_t>(a.tseeds[b]);
@@ -669,11 +783,11 @@ __device__ __forceinline__ void det_dense_block(
     const int64_t s0 = begin + static_cast<int64_t>(t) * stage;
     const int64_t left = end - s0;
     if (left >= stage) {
-      det_dense_walk<true>(a, table, stages + (t & 1) * stage, base, seed,
-                           s0, stage);
+      det_dense_walk<true, kSplit>(a, d, table, stages + (t & 1) * stage,
+                                   base, seed, s0, stage);
     } else {
-      det_dense_walk<false>(a, table, stages + (t & 1) * stage, base, seed,
-                            s0, static_cast<int>(left));
+      det_dense_walk<false, kSplit>(a, d, table, stages + (t & 1) * stage,
+                                    base, seed, s0, static_cast<int>(left));
     }
     if (t + 1 < tiles) {  // stage t - 1's buffer: every warp is past it
       det_dense_fill(a, base, tseed, s0 + stage, end, raw,
@@ -684,10 +798,7 @@ __device__ __forceinline__ void det_dense_block(
     }
     __syncthreads();  // stage t walked everywhere, stage t + 1 filled
   }
-
-  const int64_t out = a.block_ends == nullptr ? b : blockIdx.x;
-  float* dst = a.delta + out * cells;
-  for (int c = threadIdx.x; c < cells; c += blockDim.x) dst[c] = table[c];
+  det_flush(a, d, a.block_ends == nullptr ? b : d.blk, table);
 }
 
 // Opt a table kernel in to `smem_bytes` of dynamic shared memory (and the

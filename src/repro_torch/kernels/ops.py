@@ -15,8 +15,13 @@ from .countsketch_query import (countsketch_estimate,
                                 countsketch_query, countsketch_query_batched)
 from .countsketch_scatter import countsketch_scatter_batched
 from .countsketch_update import countsketch_update, countsketch_update_batched
+from . import ref  # noqa: F401  (public re-export, as the reference's)
 from .ppswor_transform import ppswor_transform
 from .segment_sum import segment_sum as _segment_sum
+# the host-side padding arithmetic, re-exported so that callers (the
+# packing layer of data.ingest_pipeline) size their buffers to the shapes
+# the kernels run; the reference's TPU block constants have no counterpart
+from .tiling import packed_span, pad_to  # noqa: F401  (public re-exports)
 
 
 def sketch_dense_vector(values, rows: int, width: int, seed,

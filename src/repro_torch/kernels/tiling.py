@@ -19,6 +19,7 @@ import torch
 # latency of the scatter/gather while keeping register use per block low.
 THREADS_PER_BLOCK = 256
 MAX_GRID_X = 2**31 - 1
+_INT_MAX = 2**31 - 1
 # The shared-memory table kernels: 16 warps a block, so that the 4 blocks
 # whose 57 KB tables fit in an SM's 228 KB bring its full 2048 threads
 # (csrc/smem_table.cuh).
@@ -80,6 +81,29 @@ def grid_1d(items: int, threads: int = THREADS_PER_BLOCK) -> int:
     return blocks
 
 
+# The row read (csrc/countsketch_query.cu): threads an SM holds (H100:
+# 2048); reads within one wave of the card's threads take a lane each.
+THREADS_PER_SM = 2048
+ROW_READ_LANES, ROW_READ_KEYS = 1, 0  # its two layouts
+
+
+def row_read_launch(B: int, rows: int, k: int,
+                    sm_count: int) -> tuple[int, int, int]:
+    """(blocks, threads, layout) of the row read of B streams' k keys in
+    ``rows`` rows.  Where the B x rows x k reads fit one wave of the
+    card's threads, ``ROW_READ_LANES``, a lane a read: a block a stream's
+    tile of 32 keys, a warp a row (32 warps at most; more rows loop).
+    Past it, ``ROW_READ_KEYS``, a lane a key, its rows' loads in flight
+    together, 256 threads a block."""
+    if B * rows * k <= sm_count * THREADS_PER_SM:
+        blocks = B * (-(-k // 32))
+        if blocks > MAX_GRID_X:
+            raise ValueError(f"the row read of {B} x {k} keys needs {blocks} "
+                             f"blocks, above the grid limit {MAX_GRID_X}")
+        return blocks, 32 * min(rows, 32), ROW_READ_LANES
+    return grid_1d(B * k), THREADS_PER_BLOCK, ROW_READ_KEYS
+
+
 def lengths_arg(lengths, B: int, n: int, device) -> torch.Tensor:
     """A kernel's (B,) int32 stream lengths, clamped to [0, n] (None means
     n).  A scalar is filled on the device, so no blocking host-to-device
@@ -111,13 +135,20 @@ class TablePlan(NamedTuple):
     ``DET_STAGE`` slots and a warp a row adds them.  The dense update's is
     cut into chunks as "smem" is, each block a warp a row that hashes and
     adds its row (``det_dense_threads``), each chunk's table summed into
-    the delta in chunk order by a second pass unless ``one_per_stream``."""
+    the delta in chunk order by a second pass unless ``one_per_stream``.
+    A "det" table too large for one block is split (``det_split``): each
+    stream (scatter) or chunk (dense) gets ``det_parts`` blocks, each
+    owning ``row_group`` consecutive rows, or, where ``ranges`` > 1, one
+    bucket range of one row; ``blocks`` counts them all (0 and 1: one
+    block holds the whole table)."""
     variant: str
     blocks: int
     threads: int
     chunk: int = 0
     one_per_stream: bool = False
     smem_bytes: int = 0
+    row_group: int = 0
+    ranges: int = 1
 
 
 def table_fits(rows: int, width: int) -> bool:
@@ -147,7 +178,8 @@ def det_smem_bytes(rows: int, width: int) -> int:
 
 
 def det_fits(rows: int, width: int) -> bool:
-    """Whether the deterministic scatter has a variant for this table."""
+    """Whether one deterministic scatter block holds this whole table (a
+    larger one is split, ``det_split``)."""
     return det_smem_bytes(rows, width) <= SMEM_PER_BLOCK_OPTIN
 
 
@@ -170,11 +202,81 @@ def det_dense_smem_bytes(rows: int, width: int) -> int:
 
 
 def det_dense_fits(rows: int, width: int) -> bool:
-    """Whether the deterministic dense update has a variant for this table:
-    rows x width x 4 B plus 2,048 B a row-owning warp within a block's
-    232,448 B, so width <= 8,045 at rows 7 (8,301 for the shared-memory
-    atomics) and <= 57,856 at rows 1."""
+    """Whether one deterministic dense-update block holds this whole
+    table: rows x width x 4 B plus 2,048 B a row-owning warp within a
+    block's 232,448 B, so width <= 8,045 at rows 7 (8,301 for the
+    shared-memory atomics) and <= 57,856 at rows 1; a larger table is
+    split (``det_split``)."""
     return det_dense_smem_bytes(rows, width) <= SMEM_PER_BLOCK_OPTIN
+
+
+def det_split(rows: int, width: int, smem_bytes) -> tuple[int, int]:
+    """How a deterministic kernel splits a rows x width table whose block
+    needs ``smem_bytes(rows, width)`` of shared memory: (0, 1) where one
+    block holds it; else (g, 1), row groups of the most consecutive rows
+    ``g`` whose table slice and stages fit a block; else, where one row
+    does not fit, (1, q), each row cut into ``q`` equal bucket ranges of
+    ``det_span`` buckets, as few as fit.  The order fixes a cell's terms
+    only within its row, and every lead of one bucket falls in one range,
+    so a split table holds the bits that one block would give."""
+    if smem_bytes(rows, width) <= SMEM_PER_BLOCK_OPTIN:
+        return 0, 1
+    group = max((g for g in range(1, rows) if smem_bytes(g, width)
+                 <= SMEM_PER_BLOCK_OPTIN), default=0)
+    if group:
+        return group, 1
+    ranges = 2
+    while smem_bytes(1, -(-width // ranges)) > SMEM_PER_BLOCK_OPTIN:
+        ranges += 1
+    return 1, ranges
+
+
+def det_span(plan: TablePlan, width: int) -> int:
+    """Buckets a row slice of a "det" block spans: ``width``, or a bucket
+    range's (the last range may be narrower)."""
+    return -(-width // plan.ranges) if plan.ranges > 1 else width
+
+
+def det_parts(plan: TablePlan, rows: int) -> int:
+    """Blocks a "det" plan gives each stream (scatter) or chunk (dense)."""
+    if plan.ranges > 1:
+        return rows * plan.ranges
+    return -(-rows // plan.row_group) if plan.row_group else 1
+
+
+def det_cuts(plan: TablePlan, rows: int, width: int) -> np.ndarray:
+    """The (parts, 4) [first row, end row, first bucket, end bucket) of
+    each block of one stream or chunk of a "det" plan, as the kernel
+    derives them from ``blockIdx.x % parts`` (csrc/smem_table.cuh
+    det_part)."""
+    if plan.ranges > 1:
+        span = det_span(plan, width)
+        part = np.arange(rows * plan.ranges)
+        r0, w0 = part // plan.ranges, part % plan.ranges * span
+        return np.stack([r0, r0 + 1, w0, np.minimum(w0 + span, width)], 1)
+    group = plan.row_group or rows
+    r0 = np.arange(0, rows, group)
+    return np.stack([r0, np.minimum(r0 + group, rows),
+                     np.zeros_like(r0), np.full_like(r0, width)], 1)
+
+
+def det_plan_blocks(plan: TablePlan, lengths, rows: int,
+                    width: int) -> np.ndarray:
+    """The (blocks, 7) [stream, first slot, end slot, first row, end row,
+    first bucket, end bucket) of a "det" plan: block g serves part ``g %
+    parts`` (``det_cuts``) of stream or chunk ``g // parts``, whose slots
+    are as ``plan_blocks`` gives them (a whole stream where each stream is
+    one block)."""
+    parts = det_parts(plan, rows)
+    lens = np.asarray(lengths, np.int64)
+    if plan.one_per_stream:
+        spans = np.stack([np.arange(len(lens)), np.zeros_like(lens), lens],
+                         1)
+    else:
+        spans = plan_blocks(plan._replace(blocks=plan.blocks // parts), lens)
+    cuts = det_cuts(plan, rows, width)
+    return np.concatenate([np.repeat(spans, parts, 0),
+                           np.tile(cuts, (len(spans), 1))], 1)
 
 
 def host_lengths(lengths, B: int, n: int) -> np.ndarray:
@@ -235,6 +337,29 @@ def _chunked_plan(variant: str, B: int, lengths, rows: int, width: int,
     return TablePlan(variant, blocks, threads, chunk, False, smem)
 
 
+def _det_plan(plan: TablePlan, rows: int, width: int, threads,
+              smem_bytes) -> TablePlan:
+    """``plan`` (one block a stream or chunk holding the whole table) split
+    by ``det_split`` where the table does not fit a block: each block's
+    threads and shared memory those of its row group (a bucket range: one
+    row of ``det_span`` buckets), the blocks multiplied by the parts."""
+    if rows * width > _INT_MAX:
+        raise ValueError(f"deterministic mode: a {rows} x {width} table has "
+                         f"more cells than the kernels index ({_INT_MAX})")
+    group, ranges = det_split(rows, width, smem_bytes)
+    if not group:
+        return plan
+    plan = plan._replace(row_group=group, ranges=ranges)
+    blocks = plan.blocks * det_parts(plan, rows)
+    if blocks > MAX_GRID_X:
+        raise ValueError(f"deterministic mode: the {rows} x {width} table "
+                         f"split {det_parts(plan, rows)} ways needs {blocks} "
+                         f"blocks, above the grid limit {MAX_GRID_X}")
+    srows, span = group, det_span(plan, width)
+    return plan._replace(blocks=blocks, threads=threads(srows),
+                         smem_bytes=smem_bytes(srows, span))
+
+
 def table_plan(B: int, n: int, lengths, rows: int, width: int,
                sm_count: int, variant: str | None = None,
                deterministic: bool = False,
@@ -245,16 +370,17 @@ def table_plan(B: int, n: int, lengths, rows: int, width: int,
 
     The variant follows from the mode and the shape: "det" when
     ``deterministic`` (a summing kernel under PyTorch's deterministic mode;
-    a table too large for it raises, naming the shape: there is no
-    deterministic fallback), else "smem" exactly when the rows x width
-    float32 table fits a block's shared memory, else "global"; ``variant``
-    forces one (forcing "smem" or "det" on a table that does not fit
+    a table too large for one block is split across blocks by rows or
+    bucket ranges, ``det_split``), else "smem" exactly when the rows x
+    width float32 table fits a block's shared memory, else "global";
+    ``variant`` forces one (forcing "smem" on a table that does not fit
     raises).  "det" is one block a stream, or with ``det_chunks`` (the
     dense update) cut into chunks as "smem" is, and then ``lengths`` is
     read.  The chunk is the live slots over ``TABLE_BLOCKS_PER_SM`` x
     ``sm_count`` blocks, and a multiple of the block's threads (the dense
     "det": over ``DET_DENSE_BLOCKS_PER_SM`` x ``sm_count`` blocks, and a
-    multiple of its stage).  It is at
+    multiple of its stage; both of the whole table's shape, split or not).
+    It is at
     least four tables' cells (so a block's flush, one add a cell, is under
     4 % of its rows adds a slot), unless that would leave SMs without a
     block: then at least the live slots over ``sm_count``.  Where one chunk
@@ -265,31 +391,18 @@ def table_plan(B: int, n: int, lengths, rows: int, width: int,
     if variant == "global":  # ``lengths`` is not read (it may be None)
         return TablePlan("global", grid_1d(B * n), THREADS_PER_BLOCK)
     if variant == "det" and det_chunks:
-        if not det_dense_fits(rows, width):
-            raise ValueError(
-                f"deterministic mode: the {rows} x {width} float32 table and "
-                f"its two {det_dense_stage(rows)}-slot stages "
-                f"({det_dense_smem_bytes(rows, width)} B) do not fit the "
-                f"{SMEM_PER_BLOCK_OPTIN} B of shared memory of a block, and "
-                f"the deterministic dense update has no variant for a "
-                f"larger table")
-        return _chunked_plan("det", B, lengths, rows, width, sm_count,
+        plan = _chunked_plan("det", B, lengths, rows, width, sm_count,
                              det_dense_threads(rows),
                              det_dense_smem_bytes(rows, width),
                              DET_DENSE_BLOCKS_PER_SM, det_dense_stage(rows))
+        return _det_plan(plan, rows, width, det_dense_threads,
+                         det_dense_smem_bytes)
     if variant == "det":
-        if not det_fits(rows, width):
-            raise ValueError(
-                f"deterministic mode: the {rows} x {width} float32 table and "
-                f"its two {DET_STAGE}-slot stages "
-                f"({det_smem_bytes(rows, width)} B) do not fit the "
-                f"{SMEM_PER_BLOCK_OPTIN} B of shared memory of a block, and "
-                f"the deterministic kernels have no variant for a larger "
-                f"table")
         if B > MAX_GRID_X:  # ``lengths`` is not read: each stream is a block
             raise ValueError(f"{B} blocks exceed the grid limit {MAX_GRID_X}")
-        return TablePlan("det", B, det_threads(rows), DET_STAGE, True,
+        plan = TablePlan("det", B, det_threads(rows), DET_STAGE, True,
                          det_smem_bytes(rows, width))
+        return _det_plan(plan, rows, width, det_threads, det_smem_bytes)
     if variant != "smem":
         raise ValueError(f"unknown kernel variant {variant!r}")
     if not fits:

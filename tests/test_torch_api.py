@@ -1,7 +1,8 @@
 """The port's public names against the JAX package's, on the CPU.
 
-Every public name of ``repro.core`` and ``repro.engine`` exists in its
-``repro_torch`` twin; ``repro_torch.engine.batched_ops`` and
+Every public name of every module that ``pkgutil.walk_packages`` finds
+under ``repro`` exists in its ``repro_torch`` twin, but for an allow-list
+of the TPU's block constants; ``repro_torch.engine.batched_ops`` and
 ``onepass_update_batched`` give the reference's states and samples; the
 single-stream ``countsketch_scatter`` gives the reference's table (its
 Pallas kernel in interpret mode).  Inputs are made with numpy from a seed
@@ -13,12 +14,17 @@ and atol 2e-5 * max(1, max|want|), since ``-log``/``pow`` differ by a few
 ulps between the two CPU math libraries), and for the scatter rtol and
 atol 2e-5, the reference kernel tests' own.
 """
+import importlib
+import pkgutil
+import types
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
 
+import repro
 import repro.core as jcore
 import repro.engine as jengine_pkg
 from repro.engine import EngineConfig as JCfg
@@ -40,6 +46,79 @@ def _t(x):
 
 def _public(module):
     return sorted(n for n in dir(module) if not n.startswith("_"))
+
+
+# Names of the reference that the port leaves out on purpose, each with its
+# reason: the Pallas grids' TPU tiling ((8, 128) vector registers, VMEM
+# block sizes).  The port's kernels plan their launches for the H100 in
+# ``repro_torch.kernels.tiling`` (``table_plan``, ``grid_1d``), and its
+# host packing keeps ``pad_to`` and ``packed_span``.
+_TPU_TILING = ("the TPU's block tiling, no counterpart on the card")
+_LEFT_OUT = {
+    "repro.kernels.tiling": dict.fromkeys(
+        ("BLOCK_B", "BLOCK_N", "BLOCK_W", "LANE", "SUBLANE",
+         "SINGLE_BLOCK_N", "SINGLE_BLOCK_W", "TRANSFORM_BLOCK_N",
+         "fit_block"), _TPU_TILING),
+    "repro.kernels.ops": dict.fromkeys(
+        ("BLOCK_B", "BLOCK_N", "BLOCK_W", "LANE", "SUBLANE", "fit_block"),
+        _TPU_TILING),
+}
+_MODULES = sorted(m.name for m in pkgutil.walk_packages(repro.__path__,
+                                                        "repro."))
+
+
+def _own_names(module):
+    """The public names of a ``repro`` module that belong to the package:
+    its ``repro`` submodules, the functions and classes defined in
+    ``repro``, and its constants (imported third-party modules, functions
+    and classes left out)."""
+    names = []
+    for name in _public(module):
+        value = getattr(module, name)
+        if isinstance(value, types.ModuleType):
+            if value.__name__.startswith("repro."):
+                names.append(name)
+            continue
+        home = getattr(value, "__module__", None)
+        if home is None or home.startswith("repro.") or home == "repro":
+            names.append(name)
+    return names
+
+
+@pytest.mark.parametrize("module", _MODULES)
+def test_every_module_has_the_references_public_names(module):
+    """Each module of the JAX package has its twin in the port, which holds
+    every one of its public names (a ``repro`` submodule as the port's own
+    twin), but for the allow-list ``_LEFT_OUT``, whose names indeed stay
+    out of the port."""
+    ref_mod = importlib.import_module(module)
+    twin = importlib.import_module("repro_torch" + module[len("repro"):])
+    left_out = _LEFT_OUT.get(module, {})
+    missing = [n for n in _own_names(ref_mod)
+               if n not in left_out and not hasattr(twin, n)]
+    assert not missing, f"{twin.__name__} lacks {missing}"
+    assert set(left_out) <= set(_own_names(ref_mod))
+    assert not [n for n in left_out if hasattr(twin, n)]
+    for name in _own_names(ref_mod):
+        if isinstance(getattr(ref_mod, name), types.ModuleType):
+            got = getattr(twin, name)
+            assert isinstance(got, types.ModuleType)
+            assert got.__name__ == "repro_torch" + getattr(
+                ref_mod, name).__name__[len("repro"):]
+
+
+def test_kernel_ops_reexports_the_padding_and_ref():
+    """``repro_torch.kernels.ops`` re-exports ``pad_to``, ``packed_span``
+    and the ``ref`` module, as ``repro.kernels.ops`` does; ``engine.planes``
+    holds ``batched_ops``, the engine's."""
+    from repro_torch.engine import engine as teng
+    from repro_torch.engine import planes as tplanes
+    from repro_torch.kernels import ops, ref as tref, tiling
+
+    assert (ops.pad_to, ops.packed_span, ops.ref) == (
+        tiling.pad_to, tiling.packed_span, tref)
+    assert ops.pad_to(1025, 1024) == 2048 and ops.packed_span(1) == 1024
+    assert tplanes.batched_ops is teng.batched_ops
 
 
 @pytest.mark.parametrize("name", _public(jcore))

@@ -172,6 +172,37 @@ def test_cuda_single_stream_scatter_counts_its_launches(variant):
     assert bool(((got - want).abs() <= tol[0]).all())
 
 
+@pytest.mark.parametrize("B,rows,k", [(2, 7, 512), (1, 7, 512),
+                                     (4096, 7, 512), (4096, 17, 512)])
+def test_cuda_row_read_at_timed_shapes_bitwise(B, rows, k):
+    """The row read (a thread a (stream, row, key) read) at the shapes
+    ``chip_smoke.py`` times it: ``query_rows_batched``'s B = 2, k = 512,
+    one table (``countsketch_query``, #5), and the flush's B = 4096 x 512
+    candidates at rows 7 and at 17 (the estimate's fallback): bit for bit
+    the plain version's, one launch each."""
+    _need_card()
+    g = torch.Generator().manual_seed(B + rows)
+    tables = torch.randn((B, rows, 2048), generator=g).cuda()
+    keys = torch.randint(-2**31, 2**31 - 1, (B, k), generator=g,
+                         dtype=torch.int64).to(torch.int32).cuda()
+    seeds = torch.randint(0, 2**32, (B,), generator=g).cuda()
+    want = ref.countsketch_query_batched_ref(tables, keys, seeds)
+    before = (tq.launches, tq.single_launches)
+    if B == 1:
+        got = tq.countsketch_query(tables[0], keys[0], seeds[0])[None]
+        assert (tq.launches, tq.single_launches) == (before[0],
+                                                     before[1] + 1)
+    else:
+        got = tq.countsketch_query_batched(tables, keys, seeds)
+        assert (tq.launches, tq.single_launches) == (before[0] + 1,
+                                                     before[1])
+    assert _same_bits(got, want)
+    if not tq.fuses(rows):
+        assert _same_bits(tq.countsketch_estimate_batched(tables, keys,
+                                                          seeds),
+                          countsketch.median(want, 1))
+
+
 @pytest.mark.parametrize("rows,width,k", [(5, 384, 37), (7, 2048, 1),
                                           (6, 1000, 5632)])
 def test_cuda_query_bitwise_equals_plain(rows, width, k):
@@ -943,19 +974,68 @@ def test_cuda_det_scatter_wide_table_equals_order_model_bitwise(width):
         assert not outs[0][1].any() and not outs[0][2].any()
 
 
+def _det_split_scatter(rows, width, seed):
+    """The det scatter on a table too large for one block (split by
+    ``tiling.det_split``): Zipf keys with a hot key, a padding stream and
+    lengths; three launches give the same bits, each counted as one det
+    launch, which without the transform are the order model's bit for bit
+    and with it lie within the rounding bound of the plain version."""
+    rng = np.random.default_rng(seed)
+    keys = torch.from_numpy(np.minimum(rng.zipf(1.2, (6, 3000)) - 1,
+                                       2**20).astype(np.int32))
+    keys[:, ::5] = 4242
+    keys[1] = -1
+    vals = torch.from_numpy(rng.normal(size=(6, 3000)).astype(np.float32))
+    seeds = torch.from_numpy(rng.integers(0, 2**32, 6, dtype=np.int64))
+    tseeds = torch.from_numpy(rng.integers(0, 2**32, 6, dtype=np.int64))
+    lengths = torch.tensor([3000, 3000, 0, 1, 257, 2999])
+    plan = tiling.table_plan(6, 3000, None, rows, width, 132,
+                             deterministic=True)
+    assert plan.row_group and tiling.det_parts(plan, rows) > 1
+    for p in (None, 1.0):
+        opts = dict(p=p, transform_seeds=tseeds, lengths=lengths)
+        outs = []
+        with _deterministic():
+            for _ in range(3):
+                before = dict(ts.variant_launches)
+                outs.append(ts.countsketch_scatter_batched(
+                    keys.cuda(), vals.cuda(), rows, width, seeds.cuda(),
+                    transform_seeds=tseeds.cuda(), lengths=lengths.cuda(),
+                    p=p).cpu())
+                assert {v: ts.variant_launches[v] - before[v]
+                        for v in before} == {"smem": 0, "global": 0,
+                                             "det": 1}
+        assert all(_same_bits(o, outs[0]) for o in outs[1:])
+        if p is None:
+            assert _same_bits(outs[0], ref.countsketch_scatter_det_ref(
+                keys, vals, rows, width, seeds, **opts))
+        else:
+            dev = [t.cuda() for t in (keys, vals, seeds, tseeds, lengths)]
+            kw = dict(p=p, transform_seeds=dev[3], lengths=dev[4])
+            _check_sum(outs[0], ref.countsketch_scatter_batched_ref(
+                *dev[:2], rows, width, dev[2], **kw).cpu(),
+                [t.cpu() for t in ref.countsketch_scatter_mass_ref(
+                    *dev[:2], rows, width, dev[2], **kw)])
+        assert not outs[0][1].any() and not outs[0][2].any()
+
+
 def test_cuda_det_scatter_table_too_large_raises():
-    """No deterministic variant for a table past a block's shared memory:
-    the mode raises, naming the shape, and launches nothing."""
+    """A table past a block's shared memory (7 x 16,384, three row groups
+    of 3, 3 and 1 rows) no longer raises in the mode: its split det launch
+    gives the order model's bits (``_det_split_scatter``)."""
     _need_card()
-    keys, vals, seeds, tseeds = _streams(2, 300, seed=22)
-    before = ts.launches
-    with _deterministic(), pytest.raises(ValueError,
-                                         match="deterministic mode.*7 x "
-                                               "16384"):
-        ts.countsketch_scatter_batched(keys.cuda(), vals.cuda(), 7, 16384,
-                                       seeds.cuda(), p=1.0,
-                                       transform_seeds=tseeds.cuda())
-    assert ts.launches == before
+    _det_split_scatter(7, 16_384, seed=22)
+
+
+@pytest.mark.parametrize("rows,width", [(5, 12_400), (1, 57_856),
+                                        (1, 100_000)])
+def test_cuda_det_scatter_split_table_equals_order_model_bitwise(rows,
+                                                                 width):
+    """Split det scatters (``_det_split_scatter``): two row groups at 5 x
+    12,400 (``fleet_serve --verify --topk 400``'s table); two bucket ranges
+    of a row at 1 x 57,856 (16-bit entries) and 1 x 100,000 (32-bit)."""
+    _need_card()
+    _det_split_scatter(rows, width, seed=rows + width)
 
 
 def _same_bits(a, b):
@@ -988,6 +1068,14 @@ DET_UPDATE_CASES = {
     "bfloat16": (3, 80_000, [80_000, 40_001, 2048], [4, 2**32 - 100, 0], 7,
                  2048, torch.bfloat16),
     "one_segment": (1, 300_000, [300_000], [11], 7, 2048, torch.float32),
+    # tables too large for one block, split (tiling.det_split): row groups
+    # of 3, 3, 1 and of 4, 1 rows; two bucket ranges of one row
+    "split_rows7_16384": (2, 150_000, [150_000, 77_777], [3, 2**32 - 60_000],
+                          7, 16_384, torch.float32),
+    "split_rows5_12400": (3, 100_000, [100_000, 0, 4097], [0, 5, 2**31],
+                          5, 12_400, torch.float32),
+    "split_rows1_100000": (2, 400_000, [400_000, 123_457], [9, 2**32 - 1],
+                           1, 100_000, torch.float32),
 }
 
 
@@ -1044,9 +1132,11 @@ def test_cuda_det_update_same_bits_and_order_model(case):
     plan = tiling.table_plan(B, n, lengths.numpy(), rows, width,
                              tiling.sm_count(torch.device("cuda")), "det",
                              det_chunks=True)
+    group = plan.row_group or rows
     assert (plan.threads, plan.smem_bytes) == (
-        tiling.det_dense_threads(rows),
-        tiling.det_dense_smem_bytes(rows, width))
+        tiling.det_dense_threads(group),
+        tiling.det_dense_smem_bytes(group, tiling.det_span(plan, width)))
+    assert bool(plan.row_group) is case.startswith("split")
     assert plan.one_per_stream is (case == "one_block_a_stream")
     kw = dict(transform_seeds=tseeds, base_keys=base, lengths=lengths)
     for p in (None, 1.0):
@@ -1111,16 +1201,24 @@ def test_cuda_det_update_single_segment_and_dense_entry_points():
 
 
 def test_cuda_det_update_table_too_large_raises():
-    """No deterministic dense update for a table past a block's shared
-    memory: the mode raises, naming the shape, and launches nothing."""
+    """A dense table past a block's shared memory (7 x 16,384) no longer
+    raises in the mode: one 300-slot segment a block split into three row
+    groups, launched once, gives the order model's bits every time."""
     _need_card()
     before = tu.launches
-    with _deterministic(), pytest.raises(ValueError,
-                                         match="deterministic mode.*7 x "
-                                               "16384"):
-        tu.countsketch_update_batched(torch.ones((2, 300), device="cuda"),
-                                      7, 16384, 5, p=1.0)
-    assert tu.launches == before
+    vals = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(2, 300)).astype(np.float32))
+    with _deterministic():
+        outs = [tu.countsketch_update_batched(vals.cuda(), 7, 16384, 5)
+                .cpu() for _ in range(3)]
+    assert tu.launches == before + 3
+    plan = tiling.table_plan(2, 300, np.array([300, 300]), 7, 16384,
+                             tiling.sm_count(torch.device("cuda")), "det",
+                             det_chunks=True)
+    assert plan.one_per_stream and plan.row_group == 3
+    assert all(_same_bits(o, outs[0]) for o in outs[1:])
+    assert _same_bits(outs[0], ref.countsketch_update_det_ref(
+        vals, 7, 16384, 5, chunk=plan.chunk))
 
 
 def test_scatter_add_and_index_add_deterministic_at_flush_shapes():

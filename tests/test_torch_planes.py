@@ -637,8 +637,9 @@ def test_det_plan_by_mode_and_shape():
     """The deterministic scatter: one block per stream of 8 producer warps
     and a walker warp a row (at most 8), the table and two 256-slot stages
     (each slot's value and 7 two-byte bucket-and-sign entries, and 8 live
-    masks) in shared memory; a table past a block's shared memory raises,
-    naming the shape (no fallback to atomics)."""
+    masks) in shared memory; a table past a block's shared memory is split
+    into row groups of as many rows as fit, a block each (no fallback to
+    atomics)."""
     plan = tiling.table_plan(4096, 5120, None, 7, 2048, 132,
                              deterministic=True)
     stage = 256 * 4 + 8 * 4 + 7 * 256 * 2
@@ -661,8 +662,11 @@ def test_det_plan_by_mode_and_shape():
     assert tiling.PACK_QUANTUM == 1024
     assert tiling.PACK_QUANTUM % tiling.DET_STAGE == 0
     assert tiling.PACK_QUANTUM % tiling.TABLE_THREADS == 0
-    with pytest.raises(ValueError, match="deterministic mode.*7 x 16384"):
-        tiling.table_plan(2, 300, None, 7, 16384, 132, deterministic=True)
+    wide = tiling.table_plan(2, 300, None, 7, 16384, 132,
+                             deterministic=True)
+    assert wide == tiling.TablePlan("det", 2 * 3, 32 * (8 + 3),
+                                    tiling.DET_STAGE, True,
+                                    tiling.det_smem_bytes(3, 16384), 3, 1)
 
 
 def _det_streams(seed, B, n, hot=False):

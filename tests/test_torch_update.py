@@ -164,7 +164,8 @@ def test_det_plan_cuts_the_dense_update_into_chunks():
     values) over chunks cut for 9 blocks an SM, each a multiple of the
     stage; at the gemma2_2b layer's 11 leaves (77.9 M live slots) that is
     1,183 blocks of 66,304 slots, and a segment that one chunk holds is one
-    block that writes its delta row."""
+    block that writes its delta row; a table too large for one block is
+    split by row groups, its chunk still the whole table's."""
     from repro_torch.kernels import tiling
 
     d, ff = 2304, 9216
@@ -181,9 +182,11 @@ def test_det_plan_cuts_the_dense_update_into_chunks():
                               deterministic=True, det_chunks=True)
     assert (small.variant, small.blocks, small.one_per_stream) == (
         "det", 3, True)
-    with pytest.raises(ValueError, match="deterministic mode.*7 x 16384"):
-        tiling.table_plan(2, 300, np.array([300, 3]), 7, 16384, 132,
-                          deterministic=True, det_chunks=True)
+    wide = tiling.table_plan(2, 300, np.array([300, 3]), 7, 16384, 132,
+                             deterministic=True, det_chunks=True)
+    assert wide == tiling.TablePlan("det", 2 * 3, 32 * 3, 896, True,
+                                    tiling.det_dense_smem_bytes(3, 16384),
+                                    3, 1)
 
 
 @pytest.mark.parametrize("rows,widest", [(1, 57_856), (5, 11_366),
@@ -191,8 +194,9 @@ def test_det_plan_cuts_the_dense_update_into_chunks():
 def test_det_dense_plan_threads_bytes_and_widest_table(rows, widest):
     """The dense det block's geometry (csrc/smem_table.cuh det_dense_block):
     32 x min(rows, 8) threads, a stage of 4 values a thread, the table and
-    two stages of shared memory; the widest table it admits fills the
-    232,448 B of a block, and one bucket more raises.  One 21.2 M segment
+    two stages of shared memory; the widest table one block holds fills
+    the 232,448 B of a block, and one bucket more is split across blocks
+    (row groups, or at rows 1 two bucket ranges).  One 21.2 M segment
     (#4) is 371 blocks of 57,344 slots (four tables' cells) at rows 7."""
     from repro_torch.kernels import tiling
 
@@ -209,10 +213,17 @@ def test_det_dense_plan_threads_bytes_and_widest_table(rows, widest):
     assert plan.smem_bytes <= tiling.SMEM_PER_BLOCK_OPTIN \
         < tiling.det_dense_smem_bytes(rows, widest + 1)
     assert plan.chunk % (4 * threads) == 0 and plan.chunk % 32 == 0
-    with pytest.raises(ValueError, match=f"deterministic mode.*{rows} x "
-                                         f"{widest + 1}"):
-        tiling.table_plan(3, 300_000, lens, rows, widest + 1, 132,
-                          deterministic=True, det_chunks=True)
+    assert (plan.row_group, plan.ranges) == (0, 1)
+    split = tiling.table_plan(3, 300_000, lens, rows, widest + 1, 132,
+                              deterministic=True, det_chunks=True)
+    group, ranges = tiling.det_split(rows, widest + 1,
+                                     tiling.det_dense_smem_bytes)
+    assert (split.row_group, split.ranges) == (group, ranges) != (0, 1)
+    assert split.chunk == tiling.table_plan(
+        3, 300_000, lens, rows, widest + 1, 132, "det", det_chunks=True,
+        deterministic=True).chunk
+    assert split.smem_bytes <= tiling.SMEM_PER_BLOCK_OPTIN
+    assert split.blocks == plan.blocks * tiling.det_parts(split, rows)
     if rows == 7:
         one = tiling.table_plan(1, 2304 * 9216, np.array([2304 * 9216]), 7,
                                 2048, 132, deterministic=True,
@@ -455,6 +466,6 @@ def test_c_signatures_pass_pointers_as_void_p():
     assert tu._SMEM_ARGTYPES[-1] is ctypes.c_void_p
     assert tu._DET_ARGTYPES[:8] == [ctypes.c_void_p] * 8
     assert tu._DET_ARGTYPES[-1] is ctypes.c_void_p
-    assert len(tu._DET_ARGTYPES) == 20
+    assert len(tu._DET_ARGTYPES) == 22
     assert tt._ARGTYPES[:3] == [ctypes.c_void_p] * 3
     assert tt._ARGTYPES[-1] is ctypes.c_void_p
