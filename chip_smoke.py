@@ -329,9 +329,13 @@ phase's card steps and prints their records.
 ``python3 chip_smoke.py --det-parent DIR [DIR ...]`` runs only the dense
 update's det kernel of the checkouts at DIR (e.g. a ``git archive`` of the
 parent commit) beside this tree's, checks each against its order model
-and times them in turns; then the det scatter at the flush shape (every
-checkout's bits equal) and the row read at B = 2 and 1 x 512 keys and
-4096 x 512 at rows 7 and 17, beside the gather yardstick.
+and times them in turns; then the same on tables too large for one det
+block (the layer at 7 x 16,384, one segment at 1 x 100,000; this tree's
+thread block clusters); then the det scatter at the flush shape and on
+its split tables (5 x 12,400 and 7 x 16,384 at the flush, 1 x 100,000 on
+64 streams; every checkout's bits equal, beside the wrapper, the atomics
+and the index_add_ yardstick), and the row read at B = 2 and 1 x 512 keys
+and 4096 x 512 at rows 7 and 17, beside the gather yardstick.
 ``python3 chip_smoke.py --sass`` instead builds the transform factor alone,
 as it was (``-logf`` then ``powf``) and as it is, and prints the static
 SASS instruction counts of each (``cuobjdump -sass``); it needs the CUDA
@@ -757,7 +761,8 @@ def report_occupancy(tag):
              dense_det.smem_bytes),
             *((f"countsketch_{kind}", det_info_variant(kind, plan, width),
                f"det split {rows} x {width}", plan.threads, plan.smem_bytes)
-              for (kind, rows, width), plan in split.items()),
+              for (kind, rows, width), plan in split.items()
+              if not plan.cluster),
             ("countsketch_query", 2, "a lane a read", 32 * ROWS, 0),
             ("countsketch_query", 0, "a lane a key",
              tiling.THREADS_PER_BLOCK, 0),
@@ -780,6 +785,26 @@ def report_occupancy(tag):
             f"static smem {info['static_smem']} B, dynamic smem {smem} B "
             f"(limit {info['max_dynamic_smem']} B), {info['blocks_per_sm']} "
             f"blocks per SM {tag}")
+    # the split tables' thread block clusters (tiling.det_cluster)
+    for (kind, rows, width), plan in split.items():
+        if plan.cluster:
+            name = f"countsketch_{kind}"
+            info = build.cluster_info(name, plan, width)
+            info.update(threads=plan.threads, dynamic_smem=plan.smem_bytes,
+                        cluster=plan.cluster)
+            OCCUPANCY[(name, f"det split {rows} x {width}")] = info
+            log(f"[occupancy] {name} det split {rows} x {width}: "
+                + cluster_occupancy(info, plan) + f" {tag}")
+
+
+def cluster_occupancy(info, plan) -> str:
+    """The ``[occupancy]`` text of a det cluster plan's kernel."""
+    part = "a bucket range of a row" if plan.ranges > 1 \
+        else f"{plan.row_group} row{'s' if plan.row_group > 1 else ''}"
+    return (f"{info['registers']} registers a thread, {plan.threads} "
+            f"threads, dynamic smem {plan.smem_bytes} B, clusters of "
+            f"{plan.cluster} CTAs ({part} a CTA), {info['blocks_per_sm']} "
+            f"CTAs an SM, {info['active_clusters']} clusters active at once")
 
 
 # ``--sass``: the transform factor alone, as it was (-logf, then powf
@@ -2864,7 +2889,6 @@ def det_split_scatter(torch, keys, vals, seeds, tseeds, tag) -> dict:
     its rounding bound of the plain version.  Times of the det variant and
     of the global atomics (the default mode's variant at these widths),
     through the wrapper by CUDA events, beside the bound."""
-    from repro_torch.core import transforms
     from repro_torch.kernels import countsketch_scatter as s
     from repro_torch.kernels import ref, tiling
 
@@ -2938,14 +2962,8 @@ def det_split_scatter(torch, keys, vals, seeds, tseeds, tag) -> dict:
         rec["plain_ms"] = cuda_ms(
             torch, lambda: ref.countsketch_scatter_batched_ref(
                 k, v, rows, width, sd, **kw), 1, warmup=0)
-        # the index_add_ yardstick (memory half only), as phase 4's
-        tv = transforms.transform_values(k, v, P, td[:, None])
-        idx, sign = row_index(torch, k, sd, width, rows)
-        idx, sv = idx.reshape(-1), (sign * tv.repeat(1, rows)).reshape(-1)
-        flat = torch.zeros(Bs * rows * width, device=k.device)
-        rec["library_ms"] = cuda_ms(
-            torch, lambda: flat.zero_().index_add_(0, idx, sv), 5)
-        del tv, idx, sign, sv, flat
+        rec["library_ms"] = scatter_library_ms(torch, k, v, sd, td, rows,
+                                               width)
         live = int((k != -1).sum())
         rec["bound_ms"], rec["bound_by"] = bound(
             k.numel() * 8 + Bs * rows * width * 4, live * slot_ops(rows))
@@ -2962,6 +2980,21 @@ def det_split_scatter(torch, keys, vals, seeds, tseeds, tag) -> dict:
         out[what] = rec
         torch.cuda.empty_cache()
     return out
+
+
+def scatter_library_ms(torch, k, v, sd, td, rows, width) -> float:
+    """The scatter's index_add_ yardstick (memory half only), as phase 4's:
+    the (B, n) keys' flat (stream, row, bucket) indices and signed
+    transformed values precomputed, one ``index_add_`` into zeroed
+    rows x width tables, timed by CUDA events."""
+    from repro_torch.core import transforms
+
+    tv = transforms.transform_values(k, v, P, td[:, None])
+    idx, sign = row_index(torch, k, sd, width, rows)
+    idx, sv = idx.reshape(-1), (sign * tv.repeat(1, rows)).reshape(-1)
+    del tv, sign
+    flat = torch.zeros(k.shape[0] * rows * width, device=k.device)
+    return cuda_ms(torch, lambda: flat.zero_().index_add_(0, idx, sv), 5)
 
 
 def segment_sum_shape(torch, what, rows, tag):
@@ -5155,11 +5188,15 @@ def raw_update(torch, vals, seeds, tseeds, lens, p, variant, plan_mod=None,
                                variant, det_chunks=True)
     split = () if variant != "det" or not hasattr(plan, "row_group") \
         else (plan.row_group, plan.ranges)
+    cluster = getattr(plan, "cluster", 0) if variant == "det" else 0
+    if cluster:  # a thread block cluster a chunk: its own entry
+        split += (cluster, tiling.det_clash_bits(plan, width))
     if fn is None:
-        fn = build.function("countsketch_update",
-                            f"worp_countsketch_update_{variant}",
-                            u._DET_ARGTYPES if variant == "det"
-                            else u._SMEM_ARGTYPES)
+        fn = build.function(
+            "countsketch_update", f"worp_countsketch_update_{variant}"
+            + ("_cluster" if cluster else ""),
+            u._DET_CLUSTER_ARGTYPES if cluster
+            else u._DET_ARGTYPES if variant == "det" else u._SMEM_ARGTYPES)
     s32, t32 = hashing.int32_arg(seeds, B, dev), hashing.int32_arg(tseeds, B,
                                                                    dev)
     base32 = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -5355,6 +5392,10 @@ def det_parent_ab(torch, others: list, seed: int) -> int:
         log(f"[det-ab] {shape}: shared-memory atomics {rec['atomics_ms']:.4f}"
             f" ms at p={P} {tag}")
         report[shape] = rec
+    ok = split_update_ab(torch, others_libs, mods, order, report, tag, v0,
+                         seeds, tseeds, sizes) and ok
+    del v0
+    torch.cuda.empty_cache()
     for label, (mod, _, info) in versions.items():
         plan = mod.table_plan(L, n_max, np.asarray(sizes), ROWS, WIDTH, 132,
                               "det", det_chunks=True)
@@ -5372,6 +5413,294 @@ def det_parent_ab(torch, others: list, seed: int) -> int:
     sq_ok = scatter_query_ab(torch, others_libs, mods, order, report, tag)
     log("[det-ab] " + json.dumps(report))
     return 0 if ok and sq_ok else 1
+
+
+def raw_scatter(torch, lib_path, mod, keys, vals, s32, t32, lens32, rows,
+                width, p):
+    """The det plan of the checkout whose ``tiling`` is ``mod`` and a
+    closure that launches its det scatter (library ``lib_path``) once,
+    raw through its C entry, into one ``torch.empty`` delta: the cluster
+    entry where the plan is a cluster's, else the det entry (without the
+    split's arguments for a checkout that has none)."""
+    import ctypes
+
+    from repro_torch.kernels import countsketch_scatter as s
+    from repro_torch.kernels import tiling
+
+    B, n = keys.shape
+    plan = mod.table_plan(B, n, None, rows, width,
+                          tiling.sm_count(keys.device), "det")
+    lib = ctypes.CDLL(str(lib_path))
+    if getattr(plan, "cluster", 0):
+        fn = lib.worp_countsketch_scatter_det_cluster
+        fn.argtypes = s._DET_CLUSTER_ARGTYPES
+        split = (plan.row_group, plan.ranges, plan.cluster,
+                 tiling.det_clash_bits(plan, width), plan.blocks)
+    elif splits(mod):
+        fn = lib.worp_countsketch_scatter_det
+        fn.argtypes = s._DET_ARGTYPES
+        split = (plan.row_group, plan.ranges, plan.blocks)
+    else:
+        fn = lib.worp_countsketch_scatter_det
+        fn.argtypes = s._DET_ARGTYPES[:13] + s._DET_ARGTYPES[16:]
+        split = ()
+    fn.restype = ctypes.c_int
+    delta = torch.empty((B, rows, width), device=keys.device)
+    args = (keys.data_ptr(), vals.data_ptr(), s32.data_ptr(), t32.data_ptr(),
+            lens32.data_ptr(), delta.data_ptr(), B, n, rows, width,
+            int(p is not None), -1.0 / p if p is not None else 0.0, 0, *split,
+            plan.threads, plan.smem_bytes,
+            torch.cuda.current_stream().cuda_stream)
+
+    def go(owners=(keys, vals, s32, t32, lens32)):
+        err = fn(*args)
+        if err:
+            raise RuntimeError(f"det scatter {rows} x {width}: CUDA error "
+                               f"{err}")
+        return delta
+    return plan, go
+
+
+def det_occupancy(torch, kind, lib_path, plan, width) -> dict:
+    """Registers, CTAs an SM and, for a cluster plan, its clusters active at
+    once, of the det kernel that ``plan`` (a checkout's) launches from
+    library ``lib_path`` (its ``worp_countsketch_<kind>_info`` or
+    ``_cluster_info``)."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(lib_path))
+    buf = (ctypes.c_int * 5)()
+    if getattr(plan, "cluster", 0):
+        from repro_torch.kernels import tiling
+        fn = getattr(lib, f"worp_countsketch_{kind}_cluster_info")
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        args = (tiling.det_span(plan, width), 2 if plan.ranges > 1 else 1,
+                plan.cluster, plan.threads, plan.smem_bytes)
+    else:
+        fn = getattr(lib, f"worp_countsketch_{kind}_info")
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        args = (det_info_variant(kind, plan, width), plan.threads,
+                plan.smem_bytes)
+    fn.restype = ctypes.c_int
+    if fn(*args, ctypes.addressof(buf)):
+        raise RuntimeError(f"{kind} det kernel info failed")
+    info = dict(zip(("registers", "static_smem", "blocks_per_sm",
+                     "max_dynamic_smem"), buf[:4]), threads=plan.threads,
+                dynamic_smem=plan.smem_bytes)
+    if getattr(plan, "cluster", 0):
+        info.update(cluster=plan.cluster, active_clusters=buf[4])
+    return info
+
+
+def occupancy_text(info, plan) -> str:
+    """The ``[occupancy]`` text of a det plan's kernel, a cluster's or a
+    block's."""
+    if getattr(plan, "cluster", 0):
+        return cluster_occupancy(info, plan)
+    return (f"{info['registers']} registers a thread, {plan.threads} "
+            f"threads, dynamic smem {plan.smem_bytes} B, "
+            f"{info['blocks_per_sm']} blocks an SM")
+
+
+def split_scatter_ab(torch, libs, mods, order, report, tag, keys, vals, seeds,
+                     tseeds) -> bool:
+    """``--det-parent`` on the tables too large for one det block
+    (``SPLIT_TABLES``: the flush's B streams at 5 x 12,400 and 7 x 16,384,
+    ``WIDE_STREAMS`` of them at 1 x 100,000): each checkout's det scatter,
+    launched raw through its C entry with its own plan, gives the same bits
+    as every other checkout and on three launches, and (without the
+    transform) on the first ``WIDE_STREAMS`` streams the order model's
+    (``ref.countsketch_scatter_det_ref``, on the card); times in turns
+    (``order``, 10 launches a turn), beside this tree's wrapper (the
+    mode's NaN fill of the delta included), the ``global`` atomics through
+    the wrapper (their zeroing included), the ``index_add_`` yardstick and
+    the bound.  Returns whether every check held."""
+    from repro_torch.core import hashing
+    from repro_torch.kernels import countsketch_scatter as s
+    from repro_torch.kernels import ref, tiling
+
+    dev = keys.device
+    ok = True
+    for rows, width, streams in SPLIT_TABLES:
+        k = keys if streams is None else keys[:streams].contiguous()
+        v = vals if streams is None else vals[:streams].contiguous()
+        Bs, n = k.shape
+        sd, td = seeds[:Bs], tseeds[:Bs]
+        s32, t32 = (hashing.int32_arg(x, Bs, dev) for x in (sd, td))
+        lens32 = tiling.lengths_arg(None, Bs, n, dev)
+        what = f"{rows} x {width}"
+        rec = {"streams": Bs, "n": n}
+        gos, first, same = {}, {}, {}
+        m = min(Bs, WIDE_STREAMS)
+        model = ref.countsketch_scatter_det_ref(k[:m], v[:m], rows, width,
+                                                sd[:m])
+        for label, mod in mods.items():
+            if not splits(mod):
+                continue  # a checkout without the split raises here
+            lib = libs[label]["countsketch_scatter"]
+            plan, go0 = raw_scatter(torch, lib, mod, k, v, s32, t32, lens32,
+                                    rows, width, None)
+            got = go0()
+            torch.cuda.synchronize()
+            equal = same_bits(torch, got[:m], model)
+            del got, go0
+            plan, go = raw_scatter(torch, lib, mod, k, v, s32, t32, lens32,
+                                   rows, width, P)
+            outs = [go().clone() for _ in range(3)]
+            torch.cuda.synchronize()
+            same[label] = all(same_bits(torch, o, outs[0]) for o in outs[1:])
+            first[label] = outs[0]
+            del outs
+            gos[label] = go
+            info = det_occupancy(torch, "scatter", lib, plan, width)
+            rec[f"{label}_plan"] = plan._asdict()
+            rec[f"{label}_occupancy"] = info
+            rec[f"{label}_equals_order_model"] = equal
+            ok = ok and same[label] and equal
+            log(f"[det-ab] scatter {what} B={Bs} {label}: plan {tuple(plan)};"
+                f" 3 launches identical: {same[label]}; the first {m} "
+                f"streams the order model's bits (p=None): {equal} {tag}")
+            log(f"[occupancy] countsketch_scatter det split {what} ({label}):"
+                f" {occupancy_text(info, plan)} {tag}")
+        equal = all(same_bits(torch, o, first["this"])
+                    for o in first.values())
+        ok = ok and equal
+        del first
+        torch.cuda.empty_cache()
+        labs = [lab for lab in order if lab in gos]
+        turns = [(lab, cuda_ms(torch, gos[lab], 10)) for lab in labs]
+        kw = dict(p=P, transform_seeds=td)
+        with deterministic_mode(torch):
+            rec["wrapper_ms"] = cuda_ms(
+                torch, lambda: s.countsketch_scatter_batched(
+                    k, v, rows, width, sd, **kw), 10)
+        rec["atomics_ms"] = cuda_ms(
+            torch, lambda: s.countsketch_scatter_batched(
+                k, v, rows, width, sd, _variant="global", **kw), 10)
+        rec["library_ms"] = scatter_library_ms(torch, k, v, sd, td, rows,
+                                               width)
+        live = int((k != -1).sum())
+        rec["bound_ms"], rec["bound_by"] = bound(
+            k.numel() * 8 + Bs * rows * width * 4, live * slot_ops(rows))
+        rec["bits_equal_across_checkouts"] = equal
+        for label in gos:
+            rec[f"{label}_ms"] = [t for lab, t in turns if lab == label]
+        report[f"scatter_split_{rows}x{width}"] = rec
+        log(f"[det-ab] scatter {what} B={Bs} p={P}: the checkouts' bits "
+            f"equal: {equal}; " + ", ".join(f"{lab} {t:.4f} ms"
+                                            for lab, t in turns)
+            + f" raw; this tree through the wrapper {rec['wrapper_ms']:.4f} "
+            f"ms (the mode's NaN fill included), global atomics "
+            f"{rec['atomics_ms']:.4f} ms (their zeroing included), "
+            f"index_add_ yardstick {rec['library_ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms by {rec['bound_by']} {tag}")
+        del gos, k, v
+        torch.cuda.empty_cache()
+    return ok
+
+
+def split_update_ab(torch, libs, mods, order, report, tag, v0, seeds, tseeds,
+                    sizes) -> bool:
+    """``--det-parent`` on the dense update's tables too large for one det
+    block (``SPLIT_DENSE``: the gemma2_2b layer at 7 x 16,384, the wg
+    leaf's 21.2 M segment at 1 x 100,000): each checkout's det kernel,
+    launched raw through its C entry with its own plan (``raw_update``),
+    gives on three launches the same bits, without the transform the
+    order model's (``ref.countsketch_update_det_ref`` at the plan's
+    chunk), with it every other checkout's; times in turns (``order``, 10
+    launches a turn) beside the ``global`` atomics through the wrapper,
+    the ``index_add_`` yardstick and the bound.  Returns whether every
+    check held."""
+    import ctypes
+
+    import numpy as np
+    from repro_torch.kernels import countsketch_update as u
+    from repro_torch.kernels import ref
+
+    dev = v0.device
+    ok = True
+    b_wg = [name for name, _ in LEAVES].index("wg")
+    for rows, width, shape in SPLIT_DENSE:
+        if shape == "layer":
+            vals, sd, td, lens = v0, seeds, tseeds, np.asarray(sizes)
+        else:
+            vals, sd, td = (x[b_wg:b_wg + 1] for x in (v0, seeds, tseeds))
+            lens = np.asarray([sizes[b_wg]])
+        what = f"{shape} {rows} x {width}"
+        lengths = torch.from_numpy(lens).to(dev)
+        rec = {"live": int(lens.sum())}
+        gos, first, models = {}, {}, {}
+        for label, mod in mods.items():
+            if not splits(mod):
+                continue
+            lib = ctypes.CDLL(str(libs[label]["countsketch_update"]))
+            plan = mod.table_plan(vals.shape[0], vals.shape[1], lens, rows,
+                                  width, 132, "det", det_chunks=True)
+            if getattr(plan, "cluster", 0):
+                fn = lib.worp_countsketch_update_det_cluster
+                fn.argtypes = u._DET_CLUSTER_ARGTYPES
+            else:
+                fn = lib.worp_countsketch_update_det
+                fn.argtypes = u._DET_ARGTYPES
+            fn.restype = ctypes.c_int
+            plan, go0 = raw_update(torch, vals, sd, td, lens, None, "det",
+                                   mod, fn, rows=rows, width=width)
+            got = go0().clone()
+            if plan.chunk not in models:
+                models[plan.chunk] = ref.countsketch_update_det_ref(
+                    vals, rows, width, sd, lengths=lengths, chunk=plan.chunk)
+            equal = same_bits(torch, got, models[plan.chunk])
+            del got, go0
+            plan, go = raw_update(torch, vals, sd, td, lens, P, "det", mod,
+                                  fn, rows=rows, width=width)
+            outs = [go().clone() for _ in range(3)]
+            torch.cuda.synchronize()
+            same = all(same_bits(torch, o, outs[0]) for o in outs[1:])
+            first[label] = outs[0]
+            del outs
+            gos[label] = go
+            info = det_occupancy(torch, "update",
+                                 libs[label]["countsketch_update"], plan,
+                                 width)
+            rec[f"{label}_plan"] = plan._asdict()
+            rec[f"{label}_occupancy"] = info
+            rec[f"{label}_equals_order_model"] = equal
+            ok = ok and same and equal
+            log(f"[det-ab] update {what} {label}: plan {tuple(plan)}; 3 "
+                f"launches identical: {same}; the order model's bits "
+                f"(p=None, chunk {plan.chunk}): {equal} {tag}")
+            log(f"[occupancy] countsketch_update det split {rows} x {width} "
+                f"({label}): {occupancy_text(info, plan)} {tag}")
+        del models
+        equal = all(same_bits(torch, o, first["this"])
+                    for o in first.values())
+        ok = ok and equal
+        del first
+        torch.cuda.empty_cache()
+        labs = [lab for lab in order if lab in gos]
+        turns = [(lab, cuda_ms(torch, gos[lab], 10)) for lab in labs]
+        rec["atomics_ms"] = cuda_ms(
+            torch, lambda: u.countsketch_update_batched(
+                vals, rows, width, sd, p=P, transform_seeds=td,
+                lengths=lengths, _variant="global"), 10)
+        rec["library_ms"] = dense_library_ms(torch, vals, sd, td, list(lens),
+                                             rows, width)
+        rec["bound_ms"], rec["bound_by"] = bound(
+            rec["live"] * 4 + vals.shape[0] * rows * width * 4,
+            rec["live"] * slot_ops(rows))
+        rec["bits_equal_across_checkouts"] = equal
+        for label in gos:
+            rec[f"{label}_ms"] = [t for lab, t in turns if lab == label]
+        report[f"update_split_{shape}"] = rec
+        log(f"[det-ab] update {what} p={P}: the checkouts' bits equal: "
+            f"{equal}; " + ", ".join(f"{lab} {t:.4f} ms" for lab, t in turns)
+            + f" raw; global atomics {rec['atomics_ms']:.4f} ms (their "
+            f"zeroing included), index_add_ yardstick "
+            f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by "
+            f"{rec['bound_by']} {tag}")
+        del gos
+        torch.cuda.empty_cache()
+    return ok
 
 
 def splits(tiling_mod) -> bool:
@@ -5404,7 +5733,6 @@ def scatter_query_ab(torch, libs, mods, order, report, tag) -> bool:
     from repro_torch.data.pipeline import TurnstileZipfStream
     from repro_torch.engine import EngineConfig, derive_stream_seeds
     from repro_torch.kernels import countsketch_query as q
-    from repro_torch.kernels import countsketch_scatter as s
     from repro_torch.kernels import ref, tiling
 
     dev = torch.device(DEVICE)
@@ -5424,26 +5752,8 @@ def scatter_query_ab(torch, libs, mods, order, report, tag) -> bool:
     stream_ptr = torch.cuda.current_stream().cuda_stream
     gos, outs = {}, {}
     for label, mod in mods.items():
-        fn = ctypes.CDLL(str(libs[label]["countsketch_scatter"])) \
-            .worp_countsketch_scatter_det
-        new = splits(mod)
-        fn.argtypes = s._DET_ARGTYPES if new \
-            else s._DET_ARGTYPES[:13] + s._DET_ARGTYPES[16:]
-        fn.restype = ctypes.c_int
-        plan = mod.table_plan(Bs, n, None, ROWS, WIDTH, tiling.sm_count(dev),
-                              "det")
-        delta = torch.empty((Bs, ROWS, WIDTH), device=dev)
-        head = (keys.data_ptr(), vals.data_ptr(), s32.data_ptr(),
-                t32.data_ptr(), lens32.data_ptr(), delta.data_ptr(), Bs, n,
-                ROWS, WIDTH, 1, -1.0 / P, 0)
-        args = (*head, *((plan.row_group, plan.ranges, plan.blocks) if new
-                         else ()), plan.threads, plan.smem_bytes, stream_ptr)
-
-        def go(fn=fn, args=args, delta=delta):
-            err = fn(*args)
-            if err:
-                raise RuntimeError(f"det scatter: CUDA error {err}")
-            return delta
+        plan, go = raw_scatter(torch, libs[label]["countsketch_scatter"], mod,
+                               keys, vals, s32, t32, lens32, ROWS, WIDTH, P)
         gos[label] = go
         got = [go().clone() for _ in range(3)]
         torch.cuda.synchronize()
@@ -5467,7 +5777,11 @@ def scatter_query_ab(torch, libs, mods, order, report, tag) -> bool:
         + ", ".join(f"{lab} {t:.4f} ms" for lab, t in turns)
         + f"; bound {b_ms:.4f} ms by {b_by} (raw launches, CUDA events) "
         f"{tag}")
-    del keys, vals, outs, gos, seeds, tseeds, s32, t32, lens32
+    del outs, gos
+    torch.cuda.empty_cache()
+    ok = split_scatter_ab(torch, libs, mods, order, report, tag, keys, vals,
+                          seeds, tseeds) and ok
+    del keys, vals, seeds, tseeds, s32, t32, lens32
     torch.cuda.empty_cache()
 
     fns = {}
@@ -7446,7 +7760,10 @@ def main() -> int:
                   "a row hashes its row's buckets and signs and adds them "
                   "in slot order over a stage of transformed values that "
                   "every thread fills; countsketch_chunk_sum adds the chunk "
-                  "tables in chunk order",
+                  "tables in chunk order; a table too large for one block "
+                  "goes to det_cluster_block, a thread block cluster a "
+                  "chunk whose producer warps hash each slot once and push "
+                  "it to the CTA that owns its cell",
         **{key: det_update[key] for key in (
             "max_abs_err", "worst_err_over_bound", "vs_atomics_max_abs_err",
             "vs_atomics_worst_err_over_bound", "ms", "plain_ms", "bound_ms",

@@ -116,3 +116,23 @@ def kernel_info(name: str, variant: int, threads: int,
         raise RuntimeError(f"{name} kernel info failed: CUDA error {err}")
     return dict(zip(("registers", "static_smem", "blocks_per_sm",
                      "max_dynamic_smem"), out))
+
+
+def cluster_info(name: str, plan, width: int) -> dict:
+    """``kernel_info`` of the det cluster kernel of source ``name``
+    ("countsketch_scatter" or "countsketch_update") that a cluster plan
+    (``tiling.TablePlan`` with ``cluster`` > 0) of a table ``width`` wide
+    launches, with ``active_clusters``: the clusters of ``plan.cluster``
+    CTAs the card holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    fn = function(name, f"worp_{name}_cluster_info",
+                  [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    out = (ctypes.c_int * 5)()
+    split = 2 if plan.ranges > 1 else 1
+    span = -(-width // plan.ranges)
+    err = fn(span, split, plan.cluster, plan.threads, plan.smem_bytes,
+             ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"{name} cluster info failed: CUDA error {err}")
+    return dict(zip(("registers", "static_smem", "blocks_per_sm",
+                     "max_dynamic_smem", "active_clusters"), out))
+

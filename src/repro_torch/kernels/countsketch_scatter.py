@@ -8,8 +8,9 @@ hand-written kernel (or raises); a CPU tensor takes the plain version in
 the launch (``tiling.table_plan``): under
 ``torch.use_deterministic_algorithms(True)`` the deterministic variant
 ("det": every cell summed in an order fixed by slot index, the same bits on
-every run; a table too large for one block split across blocks by rows or
-bucket ranges, with the same bits), else the shared-memory table
+every run; a table too large for one block spread over a thread block
+cluster, or split across blocks by rows or bucket ranges, with the same
+bits), else the shared-memory table
 where rows x width fits a block, else global atomics.  ``launches``
 (batched) and ``single_launches`` (one stream) count kernel launches, and
 nothing else; ``variant_launches`` splits all of them by variant.
@@ -36,6 +37,10 @@ _SMEM_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                   + [ctypes.c_void_p])
 _DET_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                  + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+# the cluster entry: the det entry's, with the cluster size and the clash
+# bitmaps' bits after ranges
+_DET_CLUSTER_ARGTYPES = _DET_ARGTYPES[:15] + [ctypes.c_int] * 2 \
+    + _DET_ARGTYPES[15:]
 SCHEMES = {transforms.PPSWOR: 0, transforms.PRIORITY: 1}
 _INT_MAX = 2**31 - 1
 
@@ -137,14 +142,21 @@ def _launch(keys, values, rows, width, seeds, p, scheme, transform_seeds,
                      *transform, plan.blocks, plan.threads, plan.smem_bytes,
                      stream)
         elif plan.variant == "det":
-            fn = build.function("countsketch_scatter",
-                                "worp_countsketch_scatter_det",
-                                _DET_ARGTYPES)
+            split = (plan.row_group, plan.ranges)
+            if plan.cluster:
+                fn = build.function("countsketch_scatter",
+                                    "worp_countsketch_scatter_det_cluster",
+                                    _DET_CLUSTER_ARGTYPES)
+                split += (plan.cluster, tiling.det_clash_bits(plan, width))
+            else:
+                fn = build.function("countsketch_scatter",
+                                    "worp_countsketch_scatter_det",
+                                    _DET_ARGTYPES)
             err = fn(keys.data_ptr(), values.data_ptr(), seeds32.data_ptr(),
                      tseeds32.data_ptr(), lens32.data_ptr(),
                      delta.data_ptr(), B, n, rows, width, *transform,
-                     plan.row_group, plan.ranges, plan.blocks, plan.threads,
-                     plan.smem_bytes, stream)
+                     *split, plan.blocks, plan.threads, plan.smem_bytes,
+                     stream)
         else:
             fn = build.function("countsketch_scatter",
                                 "worp_countsketch_scatter", _ARGTYPES)

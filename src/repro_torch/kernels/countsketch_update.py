@@ -10,10 +10,11 @@ kernel's variant follows from the mode and the shape before the launch
 the deterministic variant ("det": each chunk of a segment summed in an
 order fixed by slot index, the chunks then in chunk order, the same bits
 on every run, ``ref.countsketch_update_det_ref``'s; a table too large for
-one block split across blocks by rows or bucket ranges, with the same
-bits), else the shared-memory table where rows x width fits a block,
-else global atomics.  ``launches`` (batched) and ``single_launches``
-(one segment) count kernel launches, and nothing else;
+one block spread over a thread block cluster, or split across blocks by
+rows or bucket ranges, with the same bits), else the shared-memory table
+where rows x width fits a block, else global atomics.  ``launches``
+(batched) and ``single_launches`` (one segment) count kernel launches,
+and nothing else;
 ``variant_launches`` splits all of them by variant.
 """
 from __future__ import annotations
@@ -39,6 +40,10 @@ _SMEM_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
 _DET_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                  + [ctypes.c_float] + [ctypes.c_int] * 6
                  + [ctypes.c_void_p])
+# the cluster entry: the det entry's, with the cluster size and the clash
+# bitmaps' bits after ranges
+_DET_CLUSTER_ARGTYPES = _DET_ARGTYPES[:18] + [ctypes.c_int] * 2 \
+    + _DET_ARGTYPES[18:]
 SCHEMES = {transforms.PPSWOR: 0, transforms.PRIORITY: 1}
 _VALUE_DTYPES = (torch.float32, torch.bfloat16)
 _INT_MAX = 2**31 - 1
@@ -89,15 +94,23 @@ def _launch(values, rows, width, seeds, p, scheme, transform_seeds,
                 work = torch.empty(
                     (plan.blocks // tiling.det_parts(plan, rows), rows,
                      width), dtype=torch.float32, device=dev)
-            fn = build.function("countsketch_update",
-                                "worp_countsketch_update_det", _DET_ARGTYPES)
+            split = (plan.row_group, plan.ranges)
+            if plan.cluster:
+                fn = build.function("countsketch_update",
+                                    "worp_countsketch_update_det_cluster",
+                                    _DET_CLUSTER_ARGTYPES)
+                split += (plan.cluster, tiling.det_clash_bits(plan, width))
+            else:
+                fn = build.function("countsketch_update",
+                                    "worp_countsketch_update_det",
+                                    _DET_ARGTYPES)
             err = fn(vals.data_ptr(), seeds32.data_ptr(), tseeds32.data_ptr(),
                      base32.data_ptr(), lens32.data_ptr(),
                      None if ends is None else ends.data_ptr(),
                      None if work is None else work.data_ptr(),
                      delta.data_ptr(), B, n, rows, width, plan.chunk,
-                     *transform, plan.row_group, plan.ranges, plan.blocks,
-                     plan.threads, plan.smem_bytes, stream)
+                     *transform, *split, plan.blocks, plan.threads,
+                     plan.smem_bytes, stream)
         elif plan.variant == "smem":
             ends = None if plan.one_per_stream \
                 else tiling.block_ends(lens32, plan.chunk)

@@ -31,6 +31,18 @@
 //     A larger table is split (tiling.det_split): a block for each row
 //     group of a stream, or for each bucket range of a row where one row
 //     does not fit, each with the bits one whole-table block would give.
+//   * worp_countsketch_scatter_det_cluster, the same mode on a table whose
+//     row groups of one row fit three CTAs an SM (tiling.det_cluster, e.g.
+//     fleet_serve --topk 400's 5 x 12,400): a thread block cluster a
+//     stream, each CTA a row, the stream's slots hashed once a cluster
+//     and pushed to the CTAs that own their cells (smem_table.cuh
+//     det_cluster_block), the same bits.  At the flush's 4096 streams
+//     it takes 1.633-1.635 ms raw where the blocks took 1.879-1.881 ms
+//     (2.026 ms through the wrapper, the mode's NaN fill of the 1.0 GB
+//     delta included); at 7 x 16,384 (two CTAs an SM) 3.018-3.019 ms
+//     against the blocks' 2.775-2.776, and at 1 x 100,000 on 64 streams
+//     (bucket ranges) 0.0475-0.0477 against 0.0438-0.0440, so those keep
+//     the blocks (chip_smoke.py --det-parent, H100 80GB HBM3, 700.00 W).
 // The first two sum in an order that changes from run to run, so the
 // result matches the plain version within float tolerance, not bit for
 // bit; so does the third (its order is fixed, but not the plain
@@ -121,7 +133,37 @@ __global__ void __launch_bounds__(worp::kTableThreads, 3)
       worp::SparseSlots{keys, values}, args, table);
 }
 
+// A CTA of a det cluster (tiling.det_cluster): a table too large for one
+// block spread over the cluster's shared memory, each slot hashed once.
+// Bucket: 16 bits where a CTA's rows span at most 2**16 buckets; kSplit:
+// the CTA owns a row group (worp::kDetRows) or a bucket range of one row
+// (kDetRanges).
+template <class Bucket, int kSplit>
+__global__ void __launch_bounds__(worp::kTableThreads, 2)
+    countsketch_scatter_det_cluster(const int32_t* __restrict__ keys,
+                                    const float* __restrict__ values,
+                                    worp::TableArgs args, int clash_bits) {
+  extern __shared__ float table[];
+  worp::det_cluster_block<worp::SparseSlots, Bucket, kSplit>(
+      worp::SparseSlots{keys, values}, args, clash_bits, table);
+}
+
 using DetKernel = void (*)(const int32_t*, const float*, worp::TableArgs);
+using ClusterKernel = void (*)(const int32_t*, const float*,
+                               worp::TableArgs, int);
+
+// The cluster kernel of CTAs owning `split` (row groups or bucket ranges)
+// whose rows span `span` buckets.
+ClusterKernel det_cluster_kernel(int span, int split) {
+  if (span <= (1 << 16)) {
+    return split == worp::kDetRanges
+               ? countsketch_scatter_det_cluster<uint16_t, worp::kDetRanges>
+               : countsketch_scatter_det_cluster<uint16_t, worp::kDetRows>;
+  }
+  return split == worp::kDetRanges
+             ? countsketch_scatter_det_cluster<uint32_t, worp::kDetRanges>
+             : countsketch_scatter_det_cluster<uint32_t, worp::kDetRows>;
+}
 
 template <class Entry>
 DetKernel det_kernel_of(int split) {
@@ -180,6 +222,47 @@ extern "C" int worp_countsketch_scatter_det(
       static_cast<const int32_t*>(keys), static_cast<const float*>(values),
       args);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The deterministic variant over thread block clusters (tiling.
+// det_cluster): `blocks` CTAs of `threads` (32 x (8 producer warps +
+// min(rows of a CTA, 8) walkers)) and `smem_bytes` (tiling.
+// det_cluster_smem_bytes), in clusters of `cluster` CTAs, one a stream;
+// each CTA owns a row group of `row_group` rows or, where ranges > 1, one
+// of `ranges` bucket ranges of a row, its producer warps' clash bitmaps
+// `clash_bits` bits each (tiling.det_clash_bits).  The delta is written
+// whole.  Launches on `stream`; returns a CUDA error code (0 on success).
+extern "C" int worp_countsketch_scatter_det_cluster(
+    const void* keys, const void* values, const void* seeds,
+    const void* tseeds, const void* lengths, void* delta, int B, int n,
+    int rows, int width, int has_p, float neg_inv_p, int scheme,
+    int row_group, int ranges, int cluster, int clash_bits, int blocks,
+    int threads, int smem_bytes, void* stream) {
+  const worp::TableArgs args{
+      static_cast<const int32_t*>(seeds),
+      static_cast<const int32_t*>(tseeds),
+      static_cast<const int32_t*>(lengths),
+      nullptr,
+      static_cast<float*>(delta), B, n, rows, width, 0, has_p, scheme,
+      neg_inv_p, row_group, ranges};
+  return worp::launch_cluster(
+      det_cluster_kernel(ranges > 1 ? (width + ranges - 1) / ranges : width,
+                         det_split(row_group, ranges)),
+      blocks, threads, smem_bytes, cluster,
+      static_cast<cudaStream_t>(stream), static_cast<const int32_t*>(keys),
+      static_cast<const float*>(values), args, clash_bits);
+}
+
+// Registers, static shared memory, blocks per SM, dynamic shared memory
+// and active clusters (worp::cluster_info) of the cluster kernel whose
+// CTAs own row groups (split 1) or bucket ranges (2) `span` buckets wide.
+extern "C" int worp_countsketch_scatter_cluster_info(int span, int split,
+                                                     int cluster,
+                                                     int threads,
+                                                     int smem_bytes,
+                                                     int* out) {
+  return worp::cluster_info(det_cluster_kernel(span, split), threads,
+                            smem_bytes, cluster, out);
 }
 
 // The shared-memory variant: `blocks` blocks of `threads` threads and

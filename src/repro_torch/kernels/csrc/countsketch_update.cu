@@ -33,9 +33,14 @@
 //     torch.use_deterministic_algorithms(True): every cell summed in an
 //     order fixed by the slot indices and the plan's chunk, the same bits
 //     on every run.  A table whose block does not fit (tiling.
-//     det_dense_fits) is split (tiling.det_split): each chunk gets a block
-//     a row group, or a bucket range of a row where one row does not fit,
-//     each with the bits one whole-table block would give.
+//     det_dense_fits) goes to worp_countsketch_update_det_cluster: a
+//     thread block cluster a chunk (tiling.det_cluster), each CTA a row
+//     group or a bucket range of a row, the chunk's slots loaded,
+//     transformed and hashed once a cluster and pushed to the CTAs that
+//     own their cells (smem_table.cuh det_cluster_block); past what a
+//     cluster holds, it is split (tiling.det_split): each chunk gets a
+//     block a row group, or a bucket range of a row where one row does
+//     not fit.  Either has the bits one whole-table block would give.
 //
 // The det variant.  Its block body is the dense update's own
 // (smem_table.cuh det_dense_block): a warp a row hashes its row's buckets
@@ -71,7 +76,12 @@
 // 80GB HBM3, 700.00 W).  The det variant runs the layer in 2.30-2.32 ms
 // (72 %) and the segment in 0.711-0.719 ms (63-64 %), 1.22x faster than
 // the det_table_block body it replaced, launched in the same processes
-// (chip_smoke.py --det-parent, H100 80GB HBM3, 700.00 W).
+// (chip_smoke.py --det-parent, H100 80GB HBM3, 700.00 W).  Past one
+// block, the cluster runs the layer at 7 x 16,384 in 7.08-7.09 ms (24 %
+// of the bound; the block split it replaced 11.97-11.98 ms, the global
+// atomics 6.80 ms with their zeroing) and one segment at 1 x 100,000 in
+// 1.084-1.085 ms (4.79-4.81 ms), raw, in turns (chip_smoke.py
+// --det-parent, H100 80GB HBM3, 700.00 W).
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -133,7 +143,38 @@ __global__ void __launch_bounds__(32 * worp::kDenseMaxWarps, 3)
   worp::det_dense_block<kSplit>(values, base_keys, args, table);
 }
 
+// A CTA of a det cluster (tiling.det_cluster): a chunk's table too large
+// for one block spread over the cluster's shared memory, the scatter's
+// producer/walker body (smem_table.cuh det_cluster_block) on dense slots,
+// each slot loaded and transformed once.  Bucket: 16 bits where a CTA's
+// rows span at most 2**16 buckets; kSplit: row groups (worp::kDetRows) or
+// bucket ranges of one row (kDetRanges).
+template <class Bucket, int kSplit>
+__global__ void __launch_bounds__(worp::kTableThreads, 2)
+    countsketch_update_det_cluster(const float* __restrict__ values,
+                                   const int32_t* __restrict__ base_keys,
+                                   worp::TableArgs args, int clash_bits) {
+  extern __shared__ float table[];
+  worp::det_cluster_block<worp::DenseSlots, Bucket, kSplit>(
+      worp::DenseSlots{values, base_keys}, args, clash_bits, table);
+}
+
 using DetKernel = void (*)(const float*, const int32_t*, worp::TableArgs);
+using ClusterKernel = void (*)(const float*, const int32_t*,
+                               worp::TableArgs, int);
+
+// The cluster kernel of CTAs owning `split` (row groups or bucket ranges)
+// whose rows span `span` buckets.
+ClusterKernel det_cluster_kernel(int span, int split) {
+  if (span <= (1 << 16)) {
+    return split == worp::kDetRanges
+               ? countsketch_update_det_cluster<uint16_t, worp::kDetRanges>
+               : countsketch_update_det_cluster<uint16_t, worp::kDetRows>;
+  }
+  return split == worp::kDetRanges
+             ? countsketch_update_det_cluster<uint32_t, worp::kDetRanges>
+             : countsketch_update_det_cluster<uint32_t, worp::kDetRows>;
+}
 
 // The det kernel of a split (worp::kDetWhole, kDetRows or kDetRanges).
 DetKernel det_kernel(int split) {
@@ -163,6 +204,19 @@ __global__ void countsketch_chunk_sum(const float* __restrict__ ws,
     acc = __fadd_rn(acc, ws[static_cast<int64_t>(g) * cells + c]);
   }
   delta[idx] = acc;
+}
+
+// Launches the second pass over B streams' rows x width chunk tables.
+int chunk_sum(const void* workspace, const int32_t* ends, void* delta,
+              int B, int rows, int width, cudaStream_t s) {
+  const int cells = rows * width;
+  const int64_t total = static_cast<int64_t>(B) * cells;
+  const int sum_blocks =
+      static_cast<int>((total + kChunkSumThreads - 1) / kChunkSumThreads);
+  countsketch_chunk_sum<<<sum_blocks, kChunkSumThreads, 0, s>>>(
+      static_cast<const float*>(workspace), ends, static_cast<float*>(delta),
+      B, cells);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -203,14 +257,55 @@ extern "C" int worp_countsketch_update_det(
       static_cast<const int32_t*>(base_keys), args);
   err = static_cast<int>(cudaGetLastError());
   if (err || ends == nullptr) return err;
-  const int cells = rows * width;
-  const int64_t total = static_cast<int64_t>(B) * cells;
-  const int sum_blocks =
-      static_cast<int>((total + kChunkSumThreads - 1) / kChunkSumThreads);
-  countsketch_chunk_sum<<<sum_blocks, kChunkSumThreads, 0, s>>>(
-      static_cast<const float*>(workspace), ends, static_cast<float*>(delta),
-      B, cells);
-  return static_cast<int>(cudaGetLastError());
+  return chunk_sum(workspace, ends, delta, B, rows, width, s);
+}
+
+// The deterministic variant over thread block clusters (tiling.
+// det_cluster): `blocks` CTAs of `threads` (32 x (8 producer warps +
+// min(rows of a CTA, 8) walkers)) and `smem_bytes` (tiling.
+// det_cluster_smem_bytes), in clusters of `cluster` CTAs, one a chunk
+// (block_ends null: one a stream, which writes its delta row); each CTA
+// owns a row group of `row_group` rows or, where ranges > 1, one of
+// `ranges` bucket ranges of a row, its producer warps' clash bitmaps
+// `clash_bits` bits each (tiling.det_clash_bits).  Chunk tables go to the
+// workspace and the second pass sums them, as
+// worp_countsketch_update_det's.  Launches on `stream`; returns a CUDA
+// error code (0 on success).
+extern "C" int worp_countsketch_update_det_cluster(
+    const void* values, const void* seeds, const void* tseeds,
+    const void* base_keys, const void* lengths, const void* block_ends,
+    void* workspace, void* delta, int B, int n, int rows, int width,
+    int chunk, int has_p, float neg_inv_p, int scheme, int row_group,
+    int ranges, int cluster, int clash_bits, int blocks, int threads,
+    int smem_bytes, void* stream) {
+  const auto ends = static_cast<const int32_t*>(block_ends);
+  const worp::TableArgs args{
+      static_cast<const int32_t*>(seeds),
+      static_cast<const int32_t*>(tseeds),
+      static_cast<const int32_t*>(lengths),
+      ends,
+      static_cast<float*>(ends == nullptr ? delta : workspace), B, n, rows,
+      width, chunk, has_p, scheme, neg_inv_p, row_group, ranges};
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int err = worp::launch_cluster(
+      det_cluster_kernel(ranges > 1 ? (width + ranges - 1) / ranges : width,
+                         ranges > 1 ? worp::kDetRanges : worp::kDetRows),
+      blocks, threads, smem_bytes, cluster, s,
+      static_cast<const float*>(values),
+      static_cast<const int32_t*>(base_keys), args, clash_bits);
+  if (err || ends == nullptr) return err;
+  return chunk_sum(workspace, ends, delta, B, rows, width, s);
+}
+
+// Registers, static shared memory, blocks per SM, dynamic shared memory
+// and active clusters (worp::cluster_info) of the cluster kernel whose
+// CTAs own row groups (split 1) or bucket ranges (2) `span` buckets wide.
+extern "C" int worp_countsketch_update_cluster_info(int span, int split,
+                                                    int cluster, int threads,
+                                                    int smem_bytes,
+                                                    int* out) {
+  return worp::cluster_info(det_cluster_kernel(span, split), threads,
+                            smem_bytes, cluster, out);
 }
 
 // The shared-memory variant: `blocks` blocks of `threads` threads and

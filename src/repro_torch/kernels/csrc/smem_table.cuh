@@ -29,7 +29,10 @@
 // the order: producer warps hash a stage of slots once, and one warp a row
 // then adds the staged terms to its row in slot order.  The dense update's
 // deterministic variant (det_dense_block) keeps that order with a warp a
-// row that hashes its own row.
+// row that hashes its own row.  A det table too large for one block is
+// spread over a thread block cluster (det_cluster_block), each CTA a
+// slice of it, the slots hashed once a cluster; past what a cluster
+// holds, over blocks that each hash every slot (det_part).
 //
 // Shared memory: rows x width x 4 B, 57,344 B at the defaults (7 x 2048).
 // Above 48 KB a block needs the opt-in attribute, which prepare_table_kernel
@@ -48,6 +51,7 @@
 #include <cuda_runtime.h>
 
 #include "hashing.cuh"
+#include "kernel_info.cuh"
 
 namespace worp {
 
@@ -558,8 +562,10 @@ __device__ __forceinline__ void det_walk(const TableArgs& a,
 // the stream; they stage only their part's rows (each with its own row's
 // salt), and in a bucket range only the leads that fall in it.  A cell's
 // terms, their lead sums and their order are those of one whole-table
-// block, so a split table has its bits.  (The dense update's det variant
-// has a block body of its own, det_dense_block below.)
+// block, so a split table has its bits.  Where a thread block cluster
+// holds the table and measured faster (kernels/tiling.py det_cluster),
+// the scatter takes det_cluster_block instead.  (The dense update's det
+// variant has a block body of its own, det_dense_block below.)
 template <class Slots, class Entry, int kSplit>
 __device__ __forceinline__ void det_table_block(const Slots& slots,
                                                 const TableArgs& a,
@@ -745,12 +751,13 @@ __device__ __forceinline__ void det_dense_walk(const TableArgs& a,
 // the whole stream where block_ends is null) and writes its table whole:
 // to delta row b where each stream is one block, else to row `chunk` of
 // the (chunks, rows, width) workspace that countsketch_chunk_sum sums in
-// chunk order.  A table too large for one block is split as the scatter's
-// (det_part): each chunk gets a block a row group, or a bucket range of
-// one row, whose warps own its rows; every part of a chunk loads and
-// transforms all of its slots, and writes its part of the chunk's row.  A
-// cell's terms and their order are those of one whole-table block, so a
-// split table has its bits.  The stage is kDenseSlotsPerThread x
+// chunk order.  A table too large for one block goes to a cluster
+// (det_cluster_block); past what a cluster holds it is split as the
+// scatter's (det_part): each chunk gets a block a row group, or a bucket
+// range of one row, whose warps own its rows; every part of a chunk loads
+// and transforms all of its slots, and writes its part of the chunk's
+// row.  A cell's terms and their order are those of one whole-table
+// block, so a split table has its bits.  The stage is kDenseSlotsPerThread x
 // blockDim.x slots, a multiple of kDenseAhead groups (blockDim.x a
 // multiple of 32), so a stage's hashed-ahead reads stay in its buffer;
 // chunks start at multiples of 32, so the groups still count from slot 0.
@@ -801,6 +808,331 @@ __device__ __forceinline__ void det_dense_block(
   det_flush(a, d, a.block_ends == nullptr ? b : d.blk, table);
 }
 
+// ---------------------------------------------------------------------------
+// The det body of a table too large for one block, over a thread block
+// cluster (kernels/tiling.py det_cluster; the scatter's
+// countsketch_scatter_det_cluster and the dense update's
+// countsketch_update_det_cluster): one cluster a stream (scatter) or a
+// chunk (dense update), its C <= 8 CTAs each owning a slice of the
+// table, a row group (kDetRows) or a bucket range of one row
+// (kDetRanges), sized so that two or more CTAs fit an SM.  The order is
+// det_table_block's (and, for dense slots, det_dense_block's): a cell
+// takes its group sums in slot order, each group's leads in one bucket
+// summed in slot order first.  Only which CTA holds a cell changes, so a
+// cluster gives one whole-table block's bits.
+//
+// A cluster stage is C x kDetStage slots: CTA q's 8 producer warps take
+// its q-th kDetStage slots (one 32-slot group a warp), load, transform
+// and key-match each slot once, and hash every row.  Per row a producer
+// finds the leads that share a bucket (a bitmap a warp, clash_lanes) and,
+// where any do, sums their terms in slot order to the lowest of them
+// (ordered_combine); then it pushes each adding lane's term and bucket,
+// and the group's mask of adding lanes, into the owning CTA's inbox with
+// st.shared::cluster (a bucket range's owner gets only the leads that
+// fall in it).  Each CTA's walker warps (one a row of its slice, at most
+// 8) read only their own inbox, CTA by CTA in rank order, which is slot
+// order, and add a group in one step: no two of its lanes name one cell,
+// so each takes cell + d with a load, an add and a store.
+//
+// What design trials on the card showed (H100 80GB HBM3, 700.00 W; not
+// kept as measurements): walkers that pulled the stages from the
+// producers' CTAs (ld.shared::cluster) waited on the network at every
+// stage, where stores do not wait; a __match_any_sync a row, or ballots
+// over 14 bucket bits, for the clash test cost the producers far more
+// than the bitmap; the tag test in the walker (det_add_group) on the few
+// groups that clash slowed the walk more than the producers' sums cost
+// them; and a producer warp is latency-bound, so four warps of two
+// groups each (which would let a walker add a pair of groups in one
+// step) were slower than eight warps of one.
+//
+// One cluster barrier a stage (arrive.release, wait.acquire, every
+// thread of the cluster) hands the two inbox buffers over: stage t + 1 is
+// pushed while stage t is walked.  The first barrier comes before any
+// store to another CTA (all resident, the tables zeroed); the last after
+// the last walk, so each CTA then writes its slice and exits with
+// nothing in flight to it.
+//
+// Budget: at the gemma2_2b layer's 7 x 16,384 table a CTA is one row,
+// 65,536 B, two inbox stages of 7 x 1,568 B and 8 bitmaps of 16,384 bits:
+// 103,872 B, so 2 CTAs of 9 warps an SM at 48 registers, 32 clusters of
+// 7 active at once; one row of 100,000 is 8 CTAs of 12,500 buckets,
+// 76,112 B, 3 an SM, 45 clusters active.  Times there: 7.08-7.09 ms (the
+// block split it replaced 11.97-11.98 ms) and 1.084-1.085 ms (4.79-4.81
+// ms), raw, in turns (chip_smoke.py --det-parent, H100 80GB HBM3, 700.00
+// W).  The walk, a warp a row stepping group after group, and the
+// producers take about as long as each other; with two CTAs an SM only
+// two rows are walked at once, which bounds the layer.
+
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// The shared::cluster address, in CTA `rank` of this cluster, of what lies
+// at `p` in this CTA's shared memory.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  const uint32_t local = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(remote)
+               : "r"(local), "r"(rank));
+  return remote;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;" ::"r"(addr), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, uint16_t v) {
+  asm volatile("st.shared::cluster.u16 [%0], %1;" ::"r"(addr), "h"(v)
+               : "memory");
+}
+
+// Bytes of one stage of a cluster CTA's inbox: for each of its `srows`
+// rows and each of the cluster's `parts` CTAs' kDetStage slots, a live
+// mask a group, a term and a bucket a slot (kernels/tiling.py
+// det_cluster_smem_bytes).
+__host__ __device__ constexpr int det_inbox_bytes(int parts, int srows,
+                                                  int bucket_bytes) {
+  return parts * srows *
+         (kDetGroups * 4 + kDetStage * 4 + kDetStage * bucket_bytes);
+}
+
+// One stage of a cluster CTA's inbox; the same offsets in every CTA.  Row
+// rr's stage of CTA q is item rr x parts + q.
+template <class Bucket>
+struct Inbox {
+  uint32_t* live;  // items x kDetGroups: the lanes that add, a bit a lane
+  float* term;     // items x kDetStage: the sum a lane adds to its cell
+  Bucket* bucket;  // items x kDetStage: its cell, from the slice's first
+
+  __device__ __forceinline__ Inbox(float* stages, int parts, int srows,
+                                   int s) {
+    char* base = reinterpret_cast<char*>(stages) +
+                 s * det_inbox_bytes(parts, srows,
+                                     static_cast<int>(sizeof(Bucket)));
+    const int items = parts * srows;
+    live = reinterpret_cast<uint32_t*>(base);
+    term = reinterpret_cast<float*>(live + items * kDetGroups);
+    bucket = reinterpret_cast<Bucket*>(term + items * kDetStage);
+  }
+};
+
+// The leads that share, or may share, a bucket with a lead before them:
+// each lead sets its bucket's bit in its warp's bitmap of `bits` (a power
+// of two) with atomicOr, and one that finds it set already is marked;
+// then the bits are cleared.  Two leads of one bucket mark the later;
+// leads whose buckets differ but agree below `bits` may mark one too,
+// which costs a __match_any_sync and changes no bit.
+__device__ __forceinline__ unsigned clash_lanes(uint32_t bucket, bool lead,
+                                                uint32_t* bitmap,
+                                                uint32_t bits) {
+  constexpr unsigned kAll = 0xFFFFFFFFu;
+  const uint32_t h = bucket & (bits - 1u);
+  bool hit = false;
+  if (lead) {
+    const uint32_t bit = 1u << (h & 31u);
+    hit = (atomicOr(bitmap + (h >> 5), bit) & bit) != 0u;
+  }
+  const unsigned clash = __ballot_sync(kAll, hit);  // every lane's atomicOr
+  if (lead) bitmap[h >> 5] = 0u;
+  __syncwarp();  // cleared before the next row's atomicOr
+  return clash;
+}
+
+// The producers of CTA `rank`: its share of each cluster stage (slots
+// begin + t x step + rank x kDetStage + [0, kDetStage)), a 32-slot group
+// a warp.  For each row a lead's term is sign * its key's sum; where
+// leads of the group share the row's bucket (clash_lanes, then
+// __match_any_sync), they sum their terms in slot order to the lowest of
+// them (ordered_combine), so each cell is named by one lane of the group,
+// which then adds cell + d as the order has it.  The adding lanes' terms
+// and buckets (counted from the owner's first) and their mask go to the
+// owning CTA's inbox.  `tiles` + 1 cluster barriers, the walkers' count.
+template <class Slots, class Bucket, int kSplit>
+__device__ __forceinline__ void det_cluster_produce(
+    const Slots& slots, const TableArgs& a, const DetPart& d, float* stages,
+    uint32_t* bitmap, uint32_t bits, int rank, int parts, int b,
+    int64_t begin, int64_t end, int tiles) {
+  constexpr unsigned kAll = 0xFFFFFFFFu;
+  const int g = static_cast<int>(threadIdx.x >> 5);
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const uint32_t seed = static_cast<uint32_t>(a.seeds[b]);
+  const uint32_t tseed = static_cast<uint32_t>(a.tseeds[b]);
+  const uint32_t width = static_cast<uint32_t>(a.width);
+  const uint32_t span = static_cast<uint32_t>(d.span);
+  const int64_t row0 = static_cast<int64_t>(b) * a.n;
+  const int64_t step = static_cast<int64_t>(parts) * kDetStage;
+  const int slot = rank * kDetStage + g * 32 + lane;  // in a cluster stage
+  const int group = rank * kDetGroups + g;
+  int64_t i = begin + slot;
+  // this lane's next slot, loaded a stage ahead (key -1 loads as kDeadKey)
+  uint32_t key1 = kDeadKey;
+  float v1 = 0.0f;
+  if (i < end) slots(b, i, row0 + i, key1, v1);
+  for (int t = 0; t <= tiles; ++t, i += step) {
+    if (t < tiles) {
+      const uint32_t key = key1;
+      float v = v1;
+      key1 = kDeadKey;
+      if (i + step < end) slots(b, i + step, row0 + i + step, key1, v1);
+      const bool live = Slots::kCombine ? key != kDeadKey : i < end;
+      if (live && a.has_p) {
+        v = transform_value(v, key, tseed, a.scheme, a.neg_inv_p);
+      }
+      const bool lead = Slots::kCombine
+                            ? ordered_combine(__match_any_sync(kAll, key),
+                                              live, v)
+                            : live;
+      const Inbox<Bucket> box(stages, parts, d.srows, t & 1);
+      int c = 0, rr = 0;  // kDetRows: row r is row rr of CTA c
+      for (int r = 0; r < a.rows; ++r) {
+        const uint32_t salt = row_salt(seed, static_cast<uint32_t>(r));
+        uint32_t bucket = bucket_hash(key, salt, width);
+        float term = sign_bit(key, salt) ? -v : v;
+        bool adds = lead;
+        if (clash_lanes(bucket, lead, bitmap, bits) != 0u) {  // rare
+          const unsigned peers =
+              __match_any_sync(kAll, lead ? bucket : 0x80000000u | lane);
+          adds = ordered_combine(peers, lead, term);
+        }
+        int item = rr * parts + rank;  // row rr of CTA c, from this CTA
+        if constexpr (kSplit == kDetRanges) {  // the range of the bucket
+          const uint32_t k = bucket / span;
+          bucket -= k * span;
+          c = r * a.ranges + static_cast<int>(k);
+          item = rank;
+          for (int q = 0; q < a.ranges; ++q) {
+            const unsigned mine = __ballot_sync(kAll, adds && k == q);
+            if (lane == 0) {
+              st_cluster(cluster_addr(box.live + group, r * a.ranges + q),
+                         mine);
+            }
+          }
+        } else {
+          const unsigned mask = __ballot_sync(kAll, adds);
+          if (lane == 0) {
+            st_cluster(cluster_addr(box.live + (item * kDetGroups + g), c),
+                       mask);
+          }
+        }
+        if (adds) {
+          const int at = item * kDetStage + g * 32 + lane;
+          st_cluster(cluster_addr(box.term + at, c), term);
+          st_cluster(cluster_addr(box.bucket + at, c),
+                     static_cast<Bucket>(bucket));
+        }
+        if constexpr (kSplit == kDetRows) {
+          if (++rr == a.row_group) {
+            rr = 0;
+            ++c;
+          }
+        }
+      }
+    }
+    cluster_barrier();  // stage t pushed, stage t - 1 walked everywhere
+  }
+}
+
+// Walker `walker` of `walkers` of a CTA that owns DetPart d: after each
+// cluster barrier, stage t - 1 of its inbox, CTA by CTA (slot order), each
+// of its rows' adding lanes taking cell + d, one group after another: no
+// two lanes of a group name one cell.  A stage's 8 groups of a row are
+// loaded ahead into registers.
+template <class Bucket>
+__device__ __forceinline__ void det_cluster_walk(const DetPart& d,
+                                                 float* table, float* stages,
+                                                 int parts, int walker,
+                                                 int walkers, int tiles) {
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int nrows = d.r1 - d.r0;
+  for (int t = 0; t <= tiles; ++t) {
+    if (t > 0) {
+      const Inbox<Bucket> box(stages, parts, d.srows, (t - 1) & 1);
+      for (int rr = walker; rr < nrows; rr += walkers) {
+        float* row = table + static_cast<int64_t>(rr) * d.wn;
+        for (int q = 0; q < parts; ++q) {
+          const int item = rr * parts + q;  // row rr's stage of CTA q
+          unsigned live[kDetGroups];
+          uint32_t bucket[kDetGroups];
+          float term[kDetGroups];
+#pragma unroll
+          for (int g = 0; g < kDetGroups; ++g) {
+            live[g] = box.live[item * kDetGroups + g];
+            bucket[g] = box.bucket[item * kDetStage + g * 32 + lane];
+            term[g] = box.term[item * kDetStage + g * 32 + lane];
+          }
+#pragma unroll
+          for (int g = 0; g < kDetGroups; ++g) {
+            if (live[g] == 0u) continue;  // warp-uniform
+            if ((live[g] >> lane) & 1u) {
+              row[bucket[g]] = __fadd_rn(row[bucket[g]], term[g]);
+            }
+            __syncwarp();  // this group's adds before the next's reads
+          }
+        }
+      }
+    }
+    cluster_barrier();
+  }
+}
+
+// A CTA of a det cluster: block g is CTA g % parts (its rank) of the
+// cluster of stream or chunk g / parts, as det_part gives it, and writes
+// its slice to delta row b (one cluster a stream) or to workspace row
+// g / parts (a chunk's table, summed in chunk order by the second pass).
+// Its inbox holds buckets counted from its slice's first (Bucket: 16 bits
+// where its rows span at most 2**16 buckets).
+template <class Slots, class Bucket, int kSplit>
+__device__ __forceinline__ void det_cluster_block(const Slots& slots,
+                                                  const TableArgs& a,
+                                                  int clash_bits,
+                                                  float* table) {
+  const DetPart d = det_part<kSplit>(a);
+  const int parts = kSplit == kDetRanges
+                        ? a.rows * a.ranges
+                        : (a.rows + a.row_group - 1) / a.row_group;
+  const int rank = static_cast<int>(blockIdx.x) - d.blk * parts;
+  int b;
+  int64_t begin, end;
+  block_range(a, d.blk, b, begin, end);
+  const int cells = (d.r1 - d.r0) * d.wn;
+  float* stages = table + d.srows * d.span;
+  // after the two inbox stages, a producer warp's clash bitmap each
+  uint32_t* bitmaps = reinterpret_cast<uint32_t*>(
+      reinterpret_cast<char*>(stages) +
+      2 * det_inbox_bytes(parts, d.srows,
+                          static_cast<int>(sizeof(Bucket))));
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) table[c] = 0.0f;
+  for (int c = threadIdx.x; c < kDetProducers * clash_bits / 32;
+       c += blockDim.x) {
+    bitmaps[c] = 0u;
+  }
+  const int64_t step = static_cast<int64_t>(parts) * kDetStage;
+  const int tiles =
+      end > begin ? static_cast<int>((end - begin + step - 1) / step) : 0;
+  cluster_barrier();  // the cluster resident, every table zeroed
+  const int warp = static_cast<int>(threadIdx.x >> 5);
+  if (warp < kDetProducers) {
+    det_cluster_produce<Slots, Bucket, kSplit>(
+        slots, a, d, stages, bitmaps + warp * (clash_bits / 32),
+        static_cast<uint32_t>(clash_bits), rank, parts, b, begin, end,
+        tiles);
+  } else {
+    det_cluster_walk<Bucket>(
+        d, table, stages, parts, warp - kDetProducers,
+        d.srows < kDetMaxWalkers ? d.srows : kDetMaxWalkers, tiles);
+  }
+  det_flush(a, d, a.block_ends == nullptr ? b : d.blk, table);
+}
+
 // Opt a table kernel in to `smem_bytes` of dynamic shared memory (and the
 // carveout that gives shared memory the most of the SM).  Returns a CUDA
 // error code (0 on success).
@@ -813,6 +1145,54 @@ int prepare_table_kernel(Kernel* kernel, int smem_bytes) {
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   return static_cast<int>(err);
+}
+
+// Launches `kernel` on `blocks` blocks of `threads` in clusters of
+// `cluster` CTAs (blocks a multiple of it), with `smem_bytes` of dynamic
+// shared memory (opted in first) on `stream`.  Returns a CUDA error code.
+template <class... Params, class... Args>
+int launch_cluster(void (*kernel)(Params...), int blocks, int threads,
+                   int smem_bytes, int cluster, cudaStream_t stream,
+                   Args... args) {
+  int err = prepare_table_kernel(kernel, smem_bytes);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
+}
+
+// kernel_info of a cluster kernel (out[0..3]) and, in out[4], the
+// clusters of `cluster` CTAs the card holds at once
+// (cudaOccupancyMaxActiveClusters).
+template <class Kernel>
+int cluster_info(Kernel* kernel, int threads, int smem_bytes, int cluster,
+                 int* out) {
+  int err = prepare_table_kernel(kernel, smem_bytes);
+  if (!err) err = kernel_info(kernel, threads, smem_bytes, out);
+  if (err) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(cluster));
+  cfg.blockDim = dim3(static_cast<unsigned>(threads));
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem_bytes);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(out + 4, kernel, &cfg));
 }
 
 }  // namespace worp

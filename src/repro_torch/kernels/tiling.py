@@ -47,6 +47,20 @@ DET_MAX_WALKERS = 8
 DENSE_MAX_WARPS = 8
 DENSE_SLOTS_PER_THREAD = 4
 DET_DENSE_BLOCKS_PER_SM = 9
+# A det table too large for one block is spread over a thread block
+# cluster (csrc/smem_table.cuh det_cluster_block): at most
+# DET_MAX_CLUSTER CTAs (the portable limit), each a slice small enough
+# that two of them, with the 1 KB the card reserves a block, fit an SM's
+# shared memory.
+DET_MAX_CLUSTER = 8
+SMEM_PER_SM = 233_472
+SMEM_RESERVED_PER_BLOCK = 1_024
+# A cluster CTA has DET_PRODUCERS producer warps (a 32-slot group of its
+# DET_STAGE slots each) and a walker warp a row; each producer tests each
+# row's leads for a shared bucket in a bitmap of DET_CLASH_BITS bits at
+# most (exact up to that many buckets), at least DET_CLASH_MIN_BITS.
+DET_CLASH_BITS = 16_384
+DET_CLASH_MIN_BITS = 1_024
 # The quantum of a packed host block (``data.ingest_pipeline.PackedBatcher``):
 # a whole number of the shared-memory scatter's passes (``TABLE_THREADS``
 # slots; every chunk of ``table_plan`` is a multiple of it) and of the
@@ -140,7 +154,10 @@ class TablePlan(NamedTuple):
     stream (scatter) or chunk (dense) gets ``det_parts`` blocks, each
     owning ``row_group`` consecutive rows, or, where ``ranges`` > 1, one
     bucket range of one row; ``blocks`` counts them all (0 and 1: one
-    block holds the whole table)."""
+    block holds the whole table).  Where ``cluster`` > 0 those parts are
+    the CTAs of one thread block cluster (``det_cluster``), which hash
+    each slot once for all of them; 0: each part a block of its own that
+    hashes every slot."""
     variant: str
     blocks: int
     threads: int
@@ -149,6 +166,7 @@ class TablePlan(NamedTuple):
     smem_bytes: int = 0
     row_group: int = 0
     ranges: int = 1
+    cluster: int = 0
 
 
 def table_fits(rows: int, width: int) -> bool:
@@ -229,6 +247,82 @@ def det_split(rows: int, width: int, smem_bytes) -> tuple[int, int]:
     while smem_bytes(1, -(-width // ranges)) > SMEM_PER_BLOCK_OPTIN:
         ranges += 1
     return 1, ranges
+
+
+def det_cluster_smem_bytes(parts: int, srows: int, span: int,
+                           clash_bits: int = DET_CLASH_MIN_BITS) -> int:
+    """Shared memory of a CTA of a ``parts``-CTA det cluster: its slice,
+    ``srows`` rows of ``span`` buckets; two inbox stages, which hold for
+    each of its rows and every CTA's ``DET_STAGE`` slots a live mask a
+    group, a float32 term and a bucket a slot
+    (``det_bucket_bytes``: counted from the slice's first; csrc/
+    smem_table.cuh det_inbox_bytes); and a bitmap of ``clash_bits`` bits
+    a producer warp."""
+    inbox = parts * srows * (DET_PRODUCERS * 4 + DET_STAGE * 4
+                             + DET_STAGE * det_bucket_bytes(span))
+    return srows * span * 4 + 2 * inbox + DET_PRODUCERS * clash_bits // 8
+
+
+def det_bucket_bytes(span: int) -> int:
+    """Bytes of a bucket in a det cluster CTA's inbox: 16 bits where its
+    slice spans at most 2**16 buckets, else 32."""
+    return 2 if span <= 2**16 else 4
+
+
+def _cluster_ctas_per_sm(smem: int) -> int:
+    return SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK)
+
+
+def det_cluster(rows: int, width: int,
+                scatter: bool = False) -> tuple[int, int]:
+    """How a thread block cluster holds a rows x width det table too large
+    for one block: (g, 1), each CTA a row group of ``g`` rows, the fewest
+    that keep the cluster within ``DET_MAX_CLUSTER`` CTAs; else, where one
+    row per CTA does not fit, (1, q), each of the rows cut into ``q =
+    DET_MAX_CLUSTER // rows`` equal bucket ranges; (0, 1) where neither
+    keeps two CTAs an SM (such a table takes ``det_split``'s blocks).  A
+    CTA's slice, inbox and least bitmaps fit twice in ``SMEM_PER_SM``
+    with the reserve of each.
+
+    The scatter (``scatter``), whose streams are a few cluster stages
+    long, takes a cluster only of row groups that fit three CTAs an SM:
+    on the card its clusters of two CTAs an SM (7 x 16,384) and of bucket
+    ranges (1 x 100,000) were slower than ``det_split``'s blocks, which
+    it keeps there (``chip_smoke.py --det-parent``, PERF.md)."""
+    least = 3 if scatter else 2
+
+    def fits(parts, srows, span):
+        return _cluster_ctas_per_sm(
+            det_cluster_smem_bytes(parts, srows, span)) >= least
+
+    group = -(-rows // DET_MAX_CLUSTER)
+    if fits(-(-rows // group), group, width):
+        return group, 1
+    ranges = DET_MAX_CLUSTER // rows
+    if not scatter and group == 1 and ranges > 1 and fits(
+            rows * ranges, 1, -(-width // ranges)):
+        return 1, ranges
+    return 0, 1
+
+
+def _clash_bits(parts: int, srows: int, span: int, width: int) -> int:
+    """The bits of a cluster CTA's producer bitmaps: the most, up to
+    ``DET_CLASH_BITS`` and the power of two that covers ``width``, that
+    keep as many CTAs an SM as the least do."""
+    least = _cluster_ctas_per_sm(det_cluster_smem_bytes(parts, srows, span))
+    bits = DET_CLASH_BITS
+    while bits > DET_CLASH_MIN_BITS and (
+            bits >= 2 * width or _cluster_ctas_per_sm(
+                det_cluster_smem_bytes(parts, srows, span, bits)) < least):
+        bits //= 2
+    return bits
+
+
+def det_clash_bits(plan: TablePlan, width: int) -> int:
+    """The clash bitmaps' bits of a cluster plan's CTAs (``_clash_bits``;
+    the kernel's argument, and part of ``plan.smem_bytes``)."""
+    return _clash_bits(plan.cluster, plan.row_group, det_span(plan, width),
+                       width)
 
 
 def det_span(plan: TablePlan, width: int) -> int:
@@ -338,24 +432,37 @@ def _chunked_plan(variant: str, B: int, lengths, rows: int, width: int,
 
 
 def _det_plan(plan: TablePlan, rows: int, width: int, threads,
-              smem_bytes) -> TablePlan:
+              smem_bytes, scatter: bool) -> TablePlan:
     """``plan`` (one block a stream or chunk holding the whole table) split
-    by ``det_split`` where the table does not fit a block: each block's
-    threads and shared memory those of its row group (a bucket range: one
-    row of ``det_span`` buckets), the blocks multiplied by the parts."""
+    where the table does not fit a block: over a thread block cluster
+    (``det_cluster``), each CTA a producer-and-walker block
+    (``det_threads``) with its slice, inbox and bitmaps; past a cluster,
+    by ``det_split``, each block's threads and shared memory those of its
+    row group (a bucket range: one row of ``det_span`` buckets).  The
+    blocks are multiplied by the parts."""
     if rows * width > _INT_MAX:
         raise ValueError(f"deterministic mode: a {rows} x {width} table has "
                          f"more cells than the kernels index ({_INT_MAX})")
     group, ranges = det_split(rows, width, smem_bytes)
     if not group:
         return plan
+    cgroup, cranges = det_cluster(rows, width, scatter)
+    if cgroup:
+        group, ranges = cgroup, cranges
     plan = plan._replace(row_group=group, ranges=ranges)
-    blocks = plan.blocks * det_parts(plan, rows)
+    parts = det_parts(plan, rows)
+    blocks = plan.blocks * parts
     if blocks > MAX_GRID_X:
         raise ValueError(f"deterministic mode: the {rows} x {width} table "
-                         f"split {det_parts(plan, rows)} ways needs {blocks} "
-                         f"blocks, above the grid limit {MAX_GRID_X}")
+                         f"split {parts} ways needs {blocks} blocks, above "
+                         f"the grid limit {MAX_GRID_X}")
     srows, span = group, det_span(plan, width)
+    if cgroup:
+        return plan._replace(blocks=blocks, threads=det_threads(srows),
+                             smem_bytes=det_cluster_smem_bytes(
+                                 parts, srows, span, _clash_bits(
+                                     parts, srows, span, width)),
+                             cluster=parts)
     return plan._replace(blocks=blocks, threads=threads(srows),
                          smem_bytes=smem_bytes(srows, span))
 
@@ -396,13 +503,14 @@ def table_plan(B: int, n: int, lengths, rows: int, width: int,
                              det_dense_smem_bytes(rows, width),
                              DET_DENSE_BLOCKS_PER_SM, det_dense_stage(rows))
         return _det_plan(plan, rows, width, det_dense_threads,
-                         det_dense_smem_bytes)
+                         det_dense_smem_bytes, scatter=False)
     if variant == "det":
         if B > MAX_GRID_X:  # ``lengths`` is not read: each stream is a block
             raise ValueError(f"{B} blocks exceed the grid limit {MAX_GRID_X}")
         plan = TablePlan("det", B, det_threads(rows), DET_STAGE, True,
                          det_smem_bytes(rows, width))
-        return _det_plan(plan, rows, width, det_threads, det_smem_bytes)
+        return _det_plan(plan, rows, width, det_threads, det_smem_bytes,
+                         scatter=True)
     if variant != "smem":
         raise ValueError(f"unknown kernel variant {variant!r}")
     if not fits:

@@ -1028,14 +1028,47 @@ def test_cuda_det_scatter_table_too_large_raises():
 
 
 @pytest.mark.parametrize("rows,width", [(5, 12_400), (1, 57_856),
-                                        (1, 100_000)])
+                                        (1, 100_000), (7, 100_000)])
 def test_cuda_det_scatter_split_table_equals_order_model_bitwise(rows,
                                                                  width):
-    """Split det scatters (``_det_split_scatter``): two row groups at 5 x
-    12,400 (``fleet_serve --verify --topk 400``'s table); two bucket ranges
-    of a row at 1 x 57,856 (16-bit entries) and 1 x 100,000 (32-bit)."""
+    """Split det scatters (``_det_split_scatter``): a cluster of five
+    one-row CTAs a stream at 5 x 12,400 (``fleet_serve --verify --topk
+    400``'s table); blocks of two bucket ranges of a row at 1 x 57,856
+    (16-bit entries) and 1 x 100,000 (32-bit), and of each row at
+    7 x 100,000."""
     _need_card()
     _det_split_scatter(rows, width, seed=rows + width)
+
+
+@pytest.mark.parametrize("rows,width", [(7, 16_384), (5, 12_400),
+                                        (1, 100_000), (7, 100_000)])
+def test_cuda_det_scatter_split_single_stream_equals_order_model(rows,
+                                                                width):
+    """One stream (``countsketch_scatter``, B = 1) on a split table: over
+    a cluster of five one-row CTAs (5 x 12,400), else over blocks that
+    each hash every slot (row groups at 7 x 16,384, bucket ranges at
+    1 x 100,000 and 7 x 100,000).  Three launches give the same bits,
+    each a single-stream det launch, the order model's bit for bit; a hot
+    key and padding included."""
+    _need_card()
+    rng = np.random.default_rng(rows * width)
+    keys = torch.from_numpy(np.minimum(rng.zipf(1.2, 4999) - 1,
+                                       2**20).astype(np.int32))
+    keys[::7] = 4242
+    keys[3::11] = -1
+    vals = torch.from_numpy(rng.normal(size=4999).astype(np.float32))
+    plan = tiling.table_plan(1, 4999, None, rows, width, 132,
+                             deterministic=True)
+    assert plan.row_group and bool(plan.cluster) is (width == 12_400)
+    with _deterministic():
+        before = (ts.single_launches, ts.variant_launches["det"])
+        outs = [ts.countsketch_scatter(keys.cuda(), vals.cuda(), rows,
+                                       width, 31).cpu() for _ in range(3)]
+        assert (ts.single_launches - before[0],
+                ts.variant_launches["det"] - before[1]) == (3, 3)
+    assert all(_same_bits(o, outs[0]) for o in outs[1:])
+    assert _same_bits(outs[0], ref.countsketch_scatter_det_ref(
+        keys[None], vals[None], rows, width, 31)[0])
 
 
 def _same_bits(a, b):
@@ -1076,6 +1109,15 @@ DET_UPDATE_CASES = {
                           5, 12_400, torch.float32),
     "split_rows1_100000": (2, 400_000, [400_000, 123_457], [9, 2**32 - 1],
                            1, 100_000, torch.float32),
+    # one segment (B = 1) over a cluster of 7 row CTAs, 8 bucket-range CTAs
+    "split_rows7_16384_one_segment": (1, 700_001, [700_001], [2**32 - 3], 7,
+                                      16_384, torch.float32),
+    "split_rows1_100000_one_segment": (1, 500_000, [499_999], [77], 1,
+                                       100_000, torch.float32),
+    # past what a cluster holds (7 x 100,000): the split of blocks that each
+    # hash every slot, two bucket ranges of each row
+    "split_rows7_100000_blocks": (2, 50_000, [50_000, 777], [1, 2**31 + 9],
+                                  7, 100_000, torch.float32),
 }
 
 
@@ -1133,10 +1175,19 @@ def test_cuda_det_update_same_bits_and_order_model(case):
                              tiling.sm_count(torch.device("cuda")), "det",
                              det_chunks=True)
     group = plan.row_group or rows
-    assert (plan.threads, plan.smem_bytes) == (
-        tiling.det_dense_threads(group),
-        tiling.det_dense_smem_bytes(group, tiling.det_span(plan, width)))
+    if plan.cluster:  # a cluster's CTAs: producers and walkers
+        assert plan.cluster == tiling.det_parts(plan, rows) <= 8
+        assert (plan.threads, plan.smem_bytes) == (
+            tiling.det_threads(group), tiling.det_cluster_smem_bytes(
+                plan.cluster, group, tiling.det_span(plan, width),
+                tiling.det_clash_bits(plan, width)))
+    else:
+        assert (plan.threads, plan.smem_bytes) == (
+            tiling.det_dense_threads(group),
+            tiling.det_dense_smem_bytes(group, tiling.det_span(plan, width)))
     assert bool(plan.row_group) is case.startswith("split")
+    assert bool(plan.cluster) is (case.startswith("split")
+                                  and not case.endswith("blocks"))
     assert plan.one_per_stream is (case == "one_block_a_stream")
     kw = dict(transform_seeds=tseeds, base_keys=base, lengths=lengths)
     for p in (None, 1.0):
@@ -1202,8 +1253,8 @@ def test_cuda_det_update_single_segment_and_dense_entry_points():
 
 def test_cuda_det_update_table_too_large_raises():
     """A dense table past a block's shared memory (7 x 16,384) no longer
-    raises in the mode: one 300-slot segment a block split into three row
-    groups, launched once, gives the order model's bits every time."""
+    raises in the mode: one 300-slot segment a cluster of seven one-row
+    CTAs, launched once, gives the order model's bits every time."""
     _need_card()
     before = tu.launches
     vals = torch.from_numpy(np.random.default_rng(8).normal(
@@ -1215,7 +1266,7 @@ def test_cuda_det_update_table_too_large_raises():
     plan = tiling.table_plan(2, 300, np.array([300, 300]), 7, 16384,
                              tiling.sm_count(torch.device("cuda")), "det",
                              det_chunks=True)
-    assert plan.one_per_stream and plan.row_group == 3
+    assert plan.one_per_stream and (plan.row_group, plan.cluster) == (1, 7)
     assert all(_same_bits(o, outs[0]) for o in outs[1:])
     assert _same_bits(outs[0], ref.countsketch_update_det_ref(
         vals, 7, 16384, 5, chunk=plan.chunk))

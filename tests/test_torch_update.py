@@ -165,7 +165,8 @@ def test_det_plan_cuts_the_dense_update_into_chunks():
     stage; at the gemma2_2b layer's 11 leaves (77.9 M live slots) that is
     1,183 blocks of 66,304 slots, and a segment that one chunk holds is one
     block that writes its delta row; a table too large for one block is
-    split by row groups, its chunk still the whole table's."""
+    spread over a thread block cluster, a CTA a row, its chunk still the
+    whole table's."""
     from repro_torch.kernels import tiling
 
     d, ff = 2304, 9216
@@ -184,9 +185,9 @@ def test_det_plan_cuts_the_dense_update_into_chunks():
         "det", 3, True)
     wide = tiling.table_plan(2, 300, np.array([300, 3]), 7, 16384, 132,
                              deterministic=True, det_chunks=True)
-    assert wide == tiling.TablePlan("det", 2 * 3, 32 * 3, 896, True,
-                                    tiling.det_dense_smem_bytes(3, 16384),
-                                    3, 1)
+    assert wide == tiling.TablePlan("det", 2 * 7, 32 * (8 + 1), 896, True,
+                                    tiling.det_cluster_smem_bytes(
+                                        7, 1, 16384, 16384), 1, 1, 7)
 
 
 @pytest.mark.parametrize("rows,widest", [(1, 57_856), (5, 11_366),
@@ -195,9 +196,10 @@ def test_det_dense_plan_threads_bytes_and_widest_table(rows, widest):
     """The dense det block's geometry (csrc/smem_table.cuh det_dense_block):
     32 x min(rows, 8) threads, a stage of 4 values a thread, the table and
     two stages of shared memory; the widest table one block holds fills
-    the 232,448 B of a block, and one bucket more is split across blocks
-    (row groups, or at rows 1 two bucket ranges).  One 21.2 M segment
-    (#4) is 371 blocks of 57,344 slots (four tables' cells) at rows 7."""
+    the 232,448 B of a block, and one bucket more is spread over a
+    thread block cluster (a CTA a row, or at rows 1 eight bucket ranges).
+    One 21.2 M segment (#4) is 371 blocks of 57,344 slots (four tables'
+    cells) at rows 7."""
     from repro_torch.kernels import tiling
 
     threads = 32 * min(rows, 8)
@@ -216,9 +218,10 @@ def test_det_dense_plan_threads_bytes_and_widest_table(rows, widest):
     assert (plan.row_group, plan.ranges) == (0, 1)
     split = tiling.table_plan(3, 300_000, lens, rows, widest + 1, 132,
                               deterministic=True, det_chunks=True)
-    group, ranges = tiling.det_split(rows, widest + 1,
-                                     tiling.det_dense_smem_bytes)
+    group, ranges = tiling.det_cluster(rows, widest + 1)
     assert (split.row_group, split.ranges) == (group, ranges) != (0, 1)
+    assert split.cluster == tiling.det_parts(split, rows) == (
+        8 if rows == 1 else rows)
     assert split.chunk == tiling.table_plan(
         3, 300_000, lens, rows, widest + 1, 132, "det", det_chunks=True,
         deterministic=True).chunk
