@@ -1191,35 +1191,43 @@ def compare_samples(torch, what, samp, dst, tol, seeds, k, p, bad_streams,
 
 
 def trace_report(prof, ranges, wall_ms, what, tag, top: int = 12):
-    """Print the named ranges (host time, and the device time of the
-    PyTorch ops each launched), device time by kernel, and the device's busy
-    share over ``wall_ms`` of a ``torch.profiler`` trace.  Returns the
-    device items, (ms, count, name), largest first."""
+    """Print the named ranges (host time, and the device time of every
+    activity launched inside them, the kernels launched through ctypes
+    included: ``perfbench.chrometrace`` over the exported trace), device
+    time by kernel, and the device's busy share over ``wall_ms`` of a
+    ``torch.profiler`` trace.  Returns the device items, (ms, count, name),
+    largest first."""
+    import tempfile
+
     from torch.autograd import DeviceType
 
+    from perfbench.chrometrace import Trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        tr = Trace.load(path)
     # device-side activities only (kernels, copies, memsets): the host ops
     # that launched them carry the same device time a second time, and the
     # device-side copies of the named ranges span their kernels
-    rows, stages = [], {}
+    rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))
-        if e.key in ranges:
-            if e.device_type == DeviceType.CPU:
-                incl = getattr(e, "device_time_total",
-                               getattr(e, "cuda_time_total", 0.0))
-                stages[e.key] = (e.count, e.cpu_time_total / 1e3, incl / 1e3)
-        elif dev_us > 0 and e.device_type != DeviceType.CPU:
+        if (e.key not in tr.ranges and dev_us > 0
+                and e.device_type != DeviceType.CPU):
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     for name in ranges:
-        if name not in stages:
+        got = tr.range_device(name)
+        if got is None:
             log(f"[profile] stage {name}: not in the trace")
             continue
-        n, host, dev = stages[name]
+        n, seconds, _ = got
+        host = sum(s.end - s.start for s in tr.spans(name)) * 1e-3
         log(f"[profile] stage {name} x{n}: host {host / n:.3f} ms, device "
-            f"{dev / n:.3f} ms per call, PyTorch's ops only (the kernels "
-            f"launched through ctypes are listed by name) (traced run) {tag}")
+            f"{seconds * 1e3 / n:.3f} ms per call, every activity launched "
+            f"inside it (traced run) {tag}")
     # the profiler's own buffer requests are not the program's work
     busy = sum(r[0] for r in rows if "Activity Buffer" not in r[2])
     if not rows:

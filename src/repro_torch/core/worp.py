@@ -26,6 +26,7 @@ import torch
 from . import countsketch, hashing, transforms
 from .device import resolve_device
 from .perfect import Sample
+from ..trace import span
 
 _EMPTY = -1
 _NEG = float("-inf")
@@ -75,20 +76,24 @@ def _dedup_topc(keys, values, priors, capacity: int):
     """Deduplicate by key (summing values; priorities of equal keys agree),
     then keep the top-``capacity`` entries by priority.  -1 keys are
     padding.  Inputs are (..., n); outputs (..., capacity)."""
-    order = torch.argsort(keys, dim=-1, stable=True)
-    sk = torch.gather(keys, -1, order)
-    sv = torch.gather(values, -1, order)
-    sp = torch.gather(priors, -1, order)
-    first = torch.ones_like(sk, dtype=torch.bool)
-    first[..., 1:] = sk[..., 1:] != sk[..., :-1]
-    seg = torch.cumsum(first.to(torch.int64), -1) - 1
-    vsum = segment_sum(sv, seg)
-    dk = torch.where(first & (sk != _EMPTY), sk, _EMPTY)
-    live = dk != _EMPTY
-    dv = torch.where(live, torch.gather(vsum, -1, seg), 0.0)
-    dp = torch.where(live, sp, _NEG)
-    top_p, top_i = top_k(dp, capacity)
-    return (torch.gather(dk, -1, top_i), torch.gather(dv, -1, top_i), top_p)
+    with span("dedup.sort"):
+        order = torch.argsort(keys, dim=-1, stable=True)
+        sk = torch.gather(keys, -1, order)
+        sv = torch.gather(values, -1, order)
+        sp = torch.gather(priors, -1, order)
+    with span("dedup.segsum"):
+        first = torch.ones_like(sk, dtype=torch.bool)
+        first[..., 1:] = sk[..., 1:] != sk[..., :-1]
+        seg = torch.cumsum(first.to(torch.int64), -1) - 1
+        vsum = segment_sum(sv, seg)
+        dk = torch.where(first & (sk != _EMPTY), sk, _EMPTY)
+        live = dk != _EMPTY
+        dv = torch.where(live, torch.gather(vsum, -1, seg), 0.0)
+    with span("dedup.topc"):
+        dp = torch.where(live, sp, _NEG)
+        top_p, top_i = top_k(dp, capacity)
+        return (torch.gather(dk, -1, top_i), torch.gather(dv, -1, top_i),
+                top_p)
 
 
 class OnePassState(NamedTuple):

@@ -29,7 +29,6 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core import countsketch, hashing, transforms, tv_sampler, worp
 from repro_torch.core import sampler as core_sampler
@@ -37,6 +36,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.perfect import Sample
 from repro_torch.core.sampler import SamplerSpec
 from repro_torch.kernels import ops
+from repro_torch.trace import span
 
 
 class EngineConfig(NamedTuple):
@@ -156,8 +156,9 @@ def _refresh_candidates(sk: countsketch.CountSketch, cand_keys, batch_keys):
     """Batched candidate refresh (the policy of ``worp.refresh_candidates``)
     with the estimates of (old candidates U batch keys) for all B streams
     from one estimate-kernel launch."""
-    all_keys = torch.cat([cand_keys, batch_keys.to(cand_keys.dtype)], 1)
-    est = torch.abs(ops.estimate_batched(sk.table, all_keys, sk.seed))
+    with span("refresh.estimate"):
+        all_keys = torch.cat([cand_keys, batch_keys.to(cand_keys.dtype)], 1)
+        est = torch.abs(ops.estimate_batched(sk.table, all_keys, sk.seed))
     return worp._refresh_from_estimates(all_keys, est, cand_keys.shape[1])
 
 
@@ -185,14 +186,14 @@ def onepass_update_dense(st: worp.OnePassState, values: torch.Tensor,
     dev = st.sketch.table.device
     base = hashing.as_u32(0 if base_keys is None else base_keys,
                           device=dev).expand(B)
-    with record_function("dense.sketch"):
+    with span("dense.sketch"):
         delta = ops.sketch_dense_batch(
             values, st.sketch.rows, st.sketch.width, st.sketch.seed, p=p,
             scheme=scheme, transform_seeds=st.seed_transform,
             base_keys=base, lengths=lengths)
         sk = countsketch.CountSketch(table=st.sketch.table + delta,
                                      seed=st.sketch.seed)
-    with record_function("dense.refresh"):
+    with span("dense.refresh"):
         lengths = torch.as_tensor(n if lengths is None else lengths,
                                   dtype=torch.int64, device=dev).expand(B)
         offs = torch.arange(n, dtype=torch.int64, device=dev)
@@ -219,8 +220,11 @@ def onepass_sample_batched(st: worp.OnePassState, k: int, p: float,
                            scheme: str = transforms.PPSWOR) -> Sample:
     """Per-stream WOR samples (every Sample field grows a leading (B,)
     axis); the candidate estimates come from one estimate-kernel launch."""
-    est = ops.estimate_batched(st.sketch.table, st.cand_keys, st.sketch.seed)
-    return worp.onepass_sample_from_estimates(st, est, k, p, scheme)
+    with span("sample.estimate"):
+        est = ops.estimate_batched(st.sketch.table, st.cand_keys,
+                                   st.sketch.seed)
+    with span("sample.select"):
+        return worp.onepass_sample_from_estimates(st, est, k, p, scheme)
 
 
 # ---------------------------------------------------------------------------
@@ -497,9 +501,10 @@ class SketchEngine:
         """Per-stream WOR samples of an arbitrary batched state of this
         engine's sampler, without touching the engine's own state."""
         route = _SAMPLES.get(self.cfg.sampler)
-        if route is None:
-            return self.spec.sample(state, k)
-        return route(state, k, self.cfg.p, self.cfg.scheme)
+        with span("engine.sample"):
+            if route is None:
+                return self.spec.sample(state, k)
+            return route(state, k, self.cfg.p, self.cfg.scheme)
 
     def estimate(self, keys) -> torch.Tensor:
         """Per-stream transformed-domain estimates for (B, n) keys."""

@@ -67,7 +67,6 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core import countsketch, hashing, transforms, tv_sampler, worp
 from repro_torch.core import sampler as core_sampler
@@ -76,6 +75,7 @@ from repro_torch.distributed import codecs as wire_codecs
 from repro_torch.engine.engine import (  # noqa: F401  (batched_ops: the
     _MERGES, _leaves, _refresh_candidates, batched_ops)  # reference's name)
 from repro_torch.kernels import ops, tiling
+from repro_torch.trace import span
 
 # ---------------------------------------------------------------------------
 # sparse kernel paths by sampler name: a sampler opts into the scatter-kernel
@@ -127,13 +127,13 @@ def onepass_update_sparse(st: worp.OnePassState, keys: torch.Tensor,
     values are deletions); ``keys == -1`` slots are padding.  The same
     result as ``worp.onepass_update`` on the batch, up to float summation
     order."""
-    with record_function("sparse.scatter"):
+    with span("sparse.scatter"):
         delta = ops.sketch_sparse_batch(
             keys, values, st.sketch.rows, st.sketch.width, st.sketch.seed,
             p=p, scheme=scheme, transform_seeds=st.seed_transform)
         sk = countsketch.CountSketch(table=st.sketch.table + delta,
                                      seed=st.sketch.seed)
-    with record_function("sparse.refresh"):
+    with span("sparse.refresh"):
         cand = _refresh_candidates(sk, st.cand_keys, keys)
     return worp.OnePassState(sketch=sk, cand_keys=cand,
                              seed_transform=st.seed_transform)
@@ -152,7 +152,7 @@ def twopass_run_update_sparse(st, keys: torch.Tensor, values: torch.Tensor,
     buffer's online priorities of the batch keys are one more estimate
     launch."""
     p1 = onepass_update_sparse(st.pass1, keys, values, p, scheme)
-    with record_function("sparse.refresh"):
+    with span("sparse.refresh"):
         prio = ops.estimate_batched(p1.sketch.table, keys, p1.sketch.seed)
         p2 = twopass_update_from_priorities_batched(st.pass2, keys, values,
                                                     prio)
@@ -174,13 +174,13 @@ def tv_update_sparse(st: tv_sampler.TVSamplerState, keys: torch.Tensor,
     # stream b feeds all r of its cascade samplers
     keys_f = keys.repeat_interleave(r, 0)
     vals_f = values.repeat_interleave(r, 0)
-    with record_function("sparse.scatter"):
+    with span("sparse.scatter"):
         delta = ops.sketch_sparse_batch(
             keys_f, vals_f, rows, width, flat_seeds, p=p, scheme=scheme,
             transform_seeds=st.transform_seeds.reshape(B * r))
         tables = st.sketches.table.reshape(B * r, rows, width) + delta
         del delta
-    with record_function("sparse.refresh"):
+    with span("sparse.refresh"):
         cand = _refresh_candidates(
             countsketch.CountSketch(table=tables, seed=flat_seeds),
             st.cand_keys.reshape(B * r, C), keys_f)
@@ -353,7 +353,7 @@ class DataPlane:
         return self._buf_bytes
 
     def _concat_buffer(self):
-        with record_function("plane.concat"):
+        with span("plane.concat"):
             return (_concat_rows(self._buf_keys),
                     _concat_rows(self._buf_vals))
 
@@ -366,10 +366,10 @@ class DataPlane:
         """One concatenated batch to the device and through ``_dispatch``:
         the ``plane.h2d`` and ``plane.dispatch`` ranges, on the thread that
         runs them."""
-        with record_function("plane.h2d"):
+        with span("plane.h2d"):
             keys = torch.from_numpy(keys).to(self.device)
             vals = torch.from_numpy(vals).to(self.device)
-        with record_function("plane.dispatch"):
+        with span("plane.dispatch"):
             return self._dispatch(state, keys, vals)
 
     def _flush_buffer(self):

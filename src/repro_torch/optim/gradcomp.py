@@ -45,6 +45,7 @@ from repro_torch.distributed import codecs as wire_codecs
 from repro_torch.distributed import pytree
 from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops as kernel_ops
+from repro_torch.trace import span
 
 _NEG = float("-inf")
 _EMPTY = -1
@@ -418,85 +419,96 @@ def tree_compress_step_engine(grads, error, cc: CompressorConfig,
     """
     from repro_torch.engine import engine as E
 
-    dist, world = _group(group, "tree_compress_step_engine")
-    leaves_g = pytree.leaves(grads)
-    leaves_e = pytree.leaves(error)
-    sizes = [int(np.prod(tuple(x.shape))) for x in leaves_g]
-    L, n_max = len(leaves_g), max(sizes)
-    dev = leaves_g[0].device
+    with span("gradcomp.step"):
+        dist, world = _group(group, "tree_compress_step_engine")
+        leaves_g = pytree.leaves(grads)
+        leaves_e = pytree.leaves(error)
+        sizes = [int(np.prod(tuple(x.shape))) for x in leaves_g]
+        L, n_max = len(leaves_g), max(sizes)
+        dev = leaves_g[0].device
 
-    accs = [g.to(torch.float32).reshape(-1) + e.reshape(-1)
-            for g, e in zip(leaves_g, leaves_e)]
-    # zero past each leaf's length, as the reference's jnp.pad
-    a_pad = torch.zeros((L, n_max), dtype=torch.float32, device=dev)
-    for li, a in enumerate(accs):
-        a_pad[li, :sizes[li]] = a
-    lengths = np.asarray(sizes, np.int32)     # host: the plan reads them
-    t_seeds = torch.tensor([int(_leaf_salt(cc, li)) for li in range(L)],
-                           dtype=torch.int64, device=dev)
-    sk_seeds = t_seeds ^ 1
+        with span("gradcomp.accumulate"):
+            accs = [g.to(torch.float32).reshape(-1) + e.reshape(-1)
+                    for g, e in zip(leaves_g, leaves_e)]
+            # zero past each leaf's length, as the reference's jnp.pad
+            a_pad = torch.zeros((L, n_max), dtype=torch.float32, device=dev)
+            for li, a in enumerate(accs):
+                a_pad[li, :sizes[li]] = a
+            lengths = np.asarray(sizes, np.int32)  # host: the plan reads them
+            t_seeds = torch.tensor(
+                [int(_leaf_salt(cc, li)) for li in range(L)],
+                dtype=torch.int64, device=dev)
+            sk_seeds = t_seeds ^ 1
 
-    # 1. batched sketch of all layers in one kernel launch
-    tables = kernel_ops.sketch_dense_batch(
-        a_pad, cc.rows, cc.width, sk_seeds, p=cc.p, scheme=cc.scheme,
-        transform_seeds=t_seeds, lengths=lengths)              # (L, R, W)
-    # per-layer scale slices (leading axis L): one layer's magnitude never
-    # degrades another's quantization grid
-    tables = wire_codecs.fake_quant(tables, cc.codec)
-    tables = _psum(dist, tables, group)                        # merge shards
+        # 1. batched sketch of all layers in one kernel launch
+        with span("gradcomp.sketch"):
+            tables = kernel_ops.sketch_dense_batch(
+                a_pad, cc.rows, cc.width, sk_seeds, p=cc.p, scheme=cc.scheme,
+                transform_seeds=t_seeds, lengths=lengths)      # (L, R, W)
+            # per-layer scale slices (leading axis L): one layer's magnitude
+            # never degrades another's quantization grid
+            tables = wire_codecs.fake_quant(tables, cc.codec)
+        tables = _psum(dist, tables, group)                    # merge shards
 
-    # 2. per-layer candidate proposals, unioned across workers.  Leaves
-    # shorter than ncand propose padded slots (zero, past the leaf's end):
-    # they decode to 0 and the final scatter drops them.  a_pad is zero
-    # past every length, so no mask is needed before the magnitudes.
-    ncand = min(cand_per_leaf, n_max)
-    _, cand = worp.top_k(torch.abs(a_pad), ncand)
-    cand = _all_gather(dist, cand.to(torch.int32), group, world,
-                       dim=1)                                  # (L, D*ncand)
-    # top_k needs k+1 <= candidate count (D*ncand can be tiny on 1 worker)
-    k_leaf = min(k_per_leaf, cand.shape[1] - 1)
+        # 2. per-layer candidate proposals, unioned across workers.  Leaves
+        # shorter than ncand propose padded slots (zero, past the leaf's
+        # end): they decode to 0 and the final scatter drops them.  a_pad is
+        # zero past every length, so no mask is needed before the magnitudes.
+        with span("gradcomp.candidates"):
+            ncand = min(cand_per_leaf, n_max)
+            _, cand = worp.top_k(torch.abs(a_pad), ncand)
+            cand = _all_gather(dist, cand.to(torch.int32), group, world,
+                               dim=1)                          # (L, D*ncand)
+        # top_k needs k+1 <= candidate count (D*ncand can be tiny on 1 worker)
+        k_leaf = min(k_per_leaf, cand.shape[1] - 1)
 
-    # 3. per-layer decode through the engine's batched one-pass sample
-    si = torch.sort(cand, dim=1, stable=True).values
-    dup = torch.zeros_like(si, dtype=torch.bool)
-    dup[:, 1:] = si[:, 1:] == si[:, :-1]
-    state = worp.OnePassState(
-        sketch=countsketch.CountSketch(table=tables, seed=sk_seeds),
-        cand_keys=torch.where(dup, _EMPTY, si).to(torch.int32),
-        seed_transform=t_seeds)
-    s = E.onepass_sample_batched(state, k_leaf, cc.p, cc.scheme)
-    sel, est_vals, tau = s.keys, s.freqs, s.threshold      # (L, k), (L,)
-    live = sel != _EMPTY  # fewer than k_leaf unique candidates -> -1 slots
+        # 3. per-layer decode through the engine's batched one-pass sample
+        with span("gradcomp.decode"):
+            si = torch.sort(cand, dim=1, stable=True).values
+            dup = torch.zeros_like(si, dtype=torch.bool)
+            dup[:, 1:] = si[:, 1:] == si[:, :-1]
+            state = worp.OnePassState(
+                sketch=countsketch.CountSketch(table=tables, seed=sk_seeds),
+                cand_keys=torch.where(dup, _EMPTY, si).to(torch.int32),
+                seed_transform=t_seeds)
+            s = E.onepass_sample_batched(state, k_leaf, cc.p, cc.scheme)
+            sel, est_vals, tau = s.keys, s.freqs, s.threshold  # (L, k), (L,)
+            # fewer than k_leaf unique candidates -> -1 slots
+            live = sel != _EMPTY
 
-    nworkers = _workers(world, dev)
-    if cc.mode == "twopass":
-        exact_local = torch.gather(
-            a_pad, 1, torch.where(live, sel, 0).to(torch.int64))  # (L, k)
-        vals = _psum(dist, wire_codecs.fake_quant(
-            torch.where(live, exact_local, 0.0), cc.codec),
-            group) / nworkers
-    else:
-        vals = torch.where(live, est_vals, 0.0) / nworkers
+            nworkers = _workers(world, dev)
+            if cc.mode == "twopass":
+                exact_local = torch.gather(
+                    a_pad, 1, torch.where(live, sel, 0).to(torch.int64))
+                vals = _psum(dist, wire_codecs.fake_quant(
+                    torch.where(live, exact_local, 0.0), cc.codec),
+                    group) / nworkers
+            else:
+                vals = torch.where(live, est_vals, 0.0) / nworkers
 
-    sparse_leaves, err_leaves = zip(*(
-        _leaf_update(a, g.shape, sel[li], live[li] & (sel[li] < size),
-                     vals[li])
-        for li, (a, size, g) in enumerate(zip(accs, sizes, leaves_g))))
+        with span("gradcomp.leaf_update"):
+            sparse_leaves, err_leaves = zip(*(
+                _leaf_update(a, g.shape, sel[li], live[li] & (sel[li] < size),
+                             vals[li])
+                for li, (a, size, g) in enumerate(zip(accs, sizes,
+                                                      leaves_g))))
 
-    two = cc.mode == "twopass"
-    stats = {
-        "comm_floats": _f32(
-            L * cc.rows * cc.width + (2 * L * k_leaf if two else 0), dev),
-        "dense_floats": _f32(sum(sizes), dev),
-        "comm_bytes": _f32(_comm_bytes(
-            cc, [(L * cc.rows * cc.width, L)] + ([(L * k_leaf, L)] if two
-                                                 else []),
-            id_count=L * ncand), dev),
-        "dense_bytes": _f32(4 * sum(sizes), dev),
-        "tau": tau,
-    }
-    return (pytree.unflatten(grads, sparse_leaves),
-            pytree.unflatten(grads, err_leaves), stats)
+        with span("gradcomp.stats"):
+            two = cc.mode == "twopass"
+            stats = {
+                "comm_floats": _f32(
+                    L * cc.rows * cc.width + (2 * L * k_leaf if two else 0),
+                    dev),
+                "dense_floats": _f32(sum(sizes), dev),
+                "comm_bytes": _f32(_comm_bytes(
+                    cc, [(L * cc.rows * cc.width, L)]
+                    + ([(L * k_leaf, L)] if two else []),
+                    id_count=L * ncand), dev),
+                "dense_bytes": _f32(4 * sum(sizes), dev),
+                "tau": tau,
+            }
+        return (pytree.unflatten(grads, sparse_leaves),
+                pytree.unflatten(grads, err_leaves), stats)
 
 
 __all__ = [
