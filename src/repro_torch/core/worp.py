@@ -72,28 +72,56 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(values).scatter_add_(-1, seg, values)
 
 
+def _key_sort(keys, *carried):
+    """``keys`` (..., n) sorted along the last axis, equal keys in their
+    order of arrival (a stable sort), and each of ``carried`` gathered
+    into that order."""
+    with span("dedup.sort"):
+        sk, order = torch.sort(keys, dim=-1, stable=True)
+        return (sk,) + tuple(torch.gather(c, -1, order) for c in carried)
+
+
+def _run_starts(sk):
+    """True at the first slot of each run of equal sorted keys."""
+    first = torch.ones_like(sk, dtype=torch.bool)
+    first[..., 1:] = sk[..., 1:] != sk[..., :-1]
+    return first
+
+
+def _top_c(dk, sp, capacity: int, *carried):
+    """The top-``capacity`` run heads ``dk`` (-1 elsewhere) by priority
+    ``sp``: (keys, each of ``carried``, priorities), (..., capacity).
+    Ties break by position, that is by ascending key; NaN ranks first."""
+    with span("dedup.topc"):
+        dp = torch.where(dk != _EMPTY, sp, _NEG)
+        top_p, top_i = top_k(dp, capacity)
+        return (torch.gather(dk, -1, top_i),
+                *(torch.gather(c, -1, top_i) for c in carried), top_p)
+
+
+def _dedup_keys_topc(keys, priors, capacity: int):
+    """``_dedup_topc`` with no values: the kept keys and their priorities
+    alone, with no sum built (the candidate refresh keeps keys only)."""
+    sk, sp = _key_sort(keys, priors)
+    with span("dedup.segsum"):
+        # a padding run's head is -1 itself: where(first, sk, -1) masks it
+        dk = torch.where(_run_starts(sk), sk, _EMPTY)
+    del sk  # not held through the top-C sort
+    return _top_c(dk, sp, capacity)
+
+
 def _dedup_topc(keys, values, priors, capacity: int):
     """Deduplicate by key (summing values; priorities of equal keys agree),
     then keep the top-``capacity`` entries by priority.  -1 keys are
     padding.  Inputs are (..., n); outputs (..., capacity)."""
-    with span("dedup.sort"):
-        order = torch.argsort(keys, dim=-1, stable=True)
-        sk = torch.gather(keys, -1, order)
-        sv = torch.gather(values, -1, order)
-        sp = torch.gather(priors, -1, order)
+    sk, sv, sp = _key_sort(keys, values, priors)
     with span("dedup.segsum"):
-        first = torch.ones_like(sk, dtype=torch.bool)
-        first[..., 1:] = sk[..., 1:] != sk[..., :-1]
+        first = _run_starts(sk)
         seg = torch.cumsum(first.to(torch.int64), -1) - 1
         vsum = segment_sum(sv, seg)
-        dk = torch.where(first & (sk != _EMPTY), sk, _EMPTY)
-        live = dk != _EMPTY
-        dv = torch.where(live, torch.gather(vsum, -1, seg), 0.0)
-    with span("dedup.topc"):
-        dp = torch.where(live, sp, _NEG)
-        top_p, top_i = top_k(dp, capacity)
-        return (torch.gather(dk, -1, top_i), torch.gather(dv, -1, top_i),
-                top_p)
+        dk = torch.where(first, sk, _EMPTY)
+        dv = torch.where(dk != _EMPTY, torch.gather(vsum, -1, seg), 0.0)
+    return _top_c(dk, sp, capacity, dv)
 
 
 class OnePassState(NamedTuple):
@@ -127,7 +155,7 @@ def refresh_candidates(sk: countsketch.CountSketch, cand_keys, keys,
 
 def _refresh_from_estimates(all_keys, est_abs, capacity: int):
     est = torch.where(all_keys == _EMPTY, _NEG, est_abs)
-    return _dedup_topc(all_keys, torch.zeros_like(est), est, capacity)[0]
+    return _dedup_keys_topc(all_keys, est, capacity)[0]
 
 
 def onepass_update(st: OnePassState, keys, values, p: float,

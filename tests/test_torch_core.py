@@ -16,6 +16,8 @@ from repro_torch.core import countsketch as tcs
 from repro_torch.core import sampler as tsampler
 from repro_torch.core import transforms as ttr
 from repro_torch.core import worp as tw
+from repro_torch.engine import EngineConfig
+from repro_torch.engine import engine as tengine
 
 
 def _t(x):
@@ -171,6 +173,99 @@ def test_dedup_topc_matches_reference(case):
         assert tk[b].tolist() == np.asarray(jk).tolist()
         assert np.array_equal(tv[b].numpy(), np.asarray(jv))
         assert np.array_equal(tp[b].numpy(), np.asarray(jp))
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_dedup_keys_topc_matches_reference(case):
+    """The refresh's keys-only dedup keeps the keys, in the order and with
+    the priorities, that the reference's valued dedup keeps on zero values:
+    duplicate keys, -1 padding, a row all padding, tied, -inf and NaN
+    priorities, batched over B; cases 3-5 ask for more slots than there
+    are distinct keys."""
+    rng = np.random.default_rng(100 + case)
+    B, n = 4, 40
+    cap = 12 if case < 3 else 24     # keys -1..14: 15 distinct live keys
+    keys = rng.integers(-1, 15, (B, n)).astype(np.int32)
+    keys[B - 1] = -1
+    prio_of_key = rng.integers(0, 4, 16).astype(np.float32)  # many ties
+    prio_of_key[rng.choice(np.arange(1, 16), 2, replace=False)] = [
+        -np.inf, np.nan]
+    prio = prio_of_key[keys + 1]
+    tk, tp = tw._dedup_keys_topc(_t(keys), _t(prio), cap)
+    assert tk.shape == tp.shape == (B, cap)
+    for b in range(B):
+        jk, _, jp = jw._dedup_topc(jnp.asarray(keys[b]),
+                                   jnp.zeros(n, jnp.float32),
+                                   jnp.asarray(prio[b]), cap)
+        assert tk[b].tolist() == np.asarray(jk).tolist()
+        np.testing.assert_array_equal(tp[b].numpy(), np.asarray(jp))
+    assert tk[B - 1].tolist() == [-1] * cap
+
+
+def _jax_sketch(sk, b):
+    return jcs.CountSketch(jnp.asarray(sk.table[b].numpy()),
+                           jnp.uint32(int(sk.seed[b])))
+
+
+@pytest.mark.parametrize("base,lengths", [
+    ([0, 10, 2**31], [300, 125, 0]),
+    ([2**32 - 100, 7, 2**31 - 5], [300, 299, 40]),
+])
+def test_refresh_candidates_match_reference_at_a_padded_dense_shape(
+        base, lengths):
+    """Two dense steps through ``engine.onepass_update_dense`` (the second
+    over candidates that repeat its keys), and ``worp.refresh_candidates``
+    on the same sketch: the candidate keys equal the reference's
+    ``refresh_candidates`` on that sketch, stream by stream."""
+    cfg = EngineConfig(num_streams=3, rows=5, width=384, candidates=32)
+    st = tengine.onepass_init_batched(cfg, device="cpu")
+    rng = np.random.default_rng(len(base) + lengths[-1])
+    n = 300
+    offs = np.arange(n, dtype=np.int64)
+    dense = np.where(offs < np.array(lengths)[:, None],
+                     ((np.array(base)[:, None] + offs) % 2**32)
+                     .astype(np.uint32).view(np.int32), -1).astype(np.int32)
+    for _ in range(2):
+        vals = rng.normal(size=(3, n)).astype(np.float32)
+        new = tengine.onepass_update_dense(
+            st, _t(vals), 1.0, base_keys=torch.tensor(base),
+            lengths=torch.tensor(lengths))
+        port = tw.refresh_candidates(new.sketch, st.cand_keys, _t(dense))
+        assert torch.equal(port, new.cand_keys)
+        for b in range(3):
+            want = jw.refresh_candidates(_jax_sketch(new.sketch, b),
+                                         jnp.asarray(st.cand_keys[b].numpy()),
+                                         jnp.asarray(dense[b]))
+            assert new.cand_keys[b].tolist() == np.asarray(want).tolist()
+        st = new
+    assert (st.cand_keys != -1).sum(1).tolist() == [min(32, m)
+                                                    for m in lengths]
+
+
+class _Summed(Exception):
+    pass
+
+
+def test_candidate_refresh_sums_nothing(monkeypatch):
+    """The refresh keeps keys alone: with ``worp.segment_sum`` made to
+    raise, a one-pass update, a dense update and both merges run, while
+    pass II, whose values are exact frequencies, still sums."""
+    def segment_sum(values, seg):
+        raise _Summed
+
+    monkeypatch.setattr(tw, "segment_sum", segment_sum)
+    k, v = _stream(3, 200)
+    a = tw.onepass_update(tw.onepass_init(5, 384, 16, 1, 2, device="cpu"),
+                          _t(k), _t(v), 1.0)
+    tw.onepass_merge(a, a)
+    cfg = EngineConfig(num_streams=2, rows=5, width=384, candidates=16)
+    st = tengine.onepass_update_dense(
+        tengine.onepass_init_batched(cfg, device="cpu"),
+        torch.ones(2, 100), 1.0, lengths=[100, 60])
+    tengine.onepass_merge_batched(st, st)
+    with pytest.raises(_Summed):
+        tw.twopass_update(tw.twopass_init(16, 2, device="cpu"), a.sketch,
+                          _t(k), _t(v))
 
 
 def _jax_state(st):

@@ -1389,6 +1389,33 @@ def test_dedup_topc_on_card_equals_cpu_in_deterministic_mode():
     assert all(_same_bits(g.cpu(), w) for g, w in zip(got, want))
 
 
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_dedup_keys_topc_on_card_equals_cpu(deterministic):
+    """The refresh's keys-only dedup launches no segment sum and gives the
+    CPU's keys and priorities bit for bit in either mode, over -1 padding,
+    duplicates, and -inf and NaN priorities; its keys are the valued
+    dedup's."""
+    _need_card()
+    rng = np.random.default_rng(25)
+    keys = torch.from_numpy(np.minimum(rng.zipf(1.2, (512, 5632)) - 1,
+                                       2**20 - 1).astype(np.int32))
+    keys[:, ::7] = -1
+    prio = torch.from_numpy(rng.random(2**20).astype(np.float32))
+    prio[rng.integers(0, 64, 8)] = float("nan")
+    prio[rng.integers(0, 64, 8)] = float("-inf")
+    prio = prio[keys.clamp(min=0).long()]
+    want = worp._dedup_keys_topc(keys, prio, 512)
+    assert torch.equal(want[0], worp._dedup_topc(
+        keys, torch.zeros_like(prio), prio, 512)[0])
+    before = tseg.launches
+    with contextlib.ExitStack() as stack:
+        if deterministic:
+            stack.enter_context(_deterministic())
+        got = worp._dedup_keys_topc(keys.cuda(), prio.cuda(), 512)
+    assert tseg.launches == before
+    assert all(_same_bits(g.cpu(), w) for g, w in zip(got, want))
+
+
 def test_cuda_segment_sum_rejects_what_the_kernel_does_not_take():
     _need_card()
     vals, seg = _runs(2, 10, 0, 5)
@@ -1620,7 +1647,8 @@ def test_fleet_coordinator_on_card_equals_fleet_plane_bitwise():
 def test_fleet_replica_inherits_the_deterministic_mode():
     """A spawned replica starts with the parent's mode: off by default
     (its scatters take the shared-memory atomics), on under the switch
-    (the det variant and the segment sum)."""
+    (the det variant).  Its one-pass refresh sums nothing in either mode:
+    no segment sum."""
     _need_card()
     from repro_torch.distributed import fleet as F
 
@@ -1635,7 +1663,7 @@ def test_fleet_replica_inherits_the_deterministic_mode():
                 co.merged_state()
                 got = dict(co.stats.replica_launches)
         assert (got["det"] > 0) is on and (got["smem"] > 0) is not on
-        assert (got["segment_sum"] > 0) is on
+        assert got["segment_sum"] == 0
 
 
 def test_tree_compress_step_engine_on_card():
