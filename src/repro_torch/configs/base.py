@@ -40,7 +40,7 @@ SHAPES = {
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    family: str  # dense | moe | ssm | hybrid | hybrid_moe | encdec | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -72,6 +72,20 @@ class ArchConfig:
 
     # ---- hybrid (recurrentgemma) ----
     lru_width: int = 0
+
+    # ---- hybrid_moe (granite-4.0-h: Mamba-2 and attention layers by
+    # ``layer_types``, each followed by routed experts and a shared one) ----
+    layer_types: Tuple[str, ...] = ()  # "mamba" | "attention", a layer
+    shared_d_ff: int = 0               # the shared expert's width
+    # expert parallelism: the routed experts this chip holds, [offset,
+    # offset + experts_held) of num_experts (0: all of them)
+    expert_offset: int = 0
+    experts_held: int = 0
+    ssm_conv_bias: bool = False
+    attn_scale: float = 0.0          # 0: 1 / sqrt(head_dim)
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
 
     # ---- enc-dec ----
     enc_layers: int = 0
@@ -109,11 +123,24 @@ class ArchConfig:
             return False
         return True
 
+    @property
+    def held_experts(self) -> int:
+        """The routed experts this chip computes (all where none is set)."""
+        return self.experts_held or self.num_experts
+
+    def layer_period(self) -> int:
+        """The length of the shortest repeating unit of ``layer_types``."""
+        t = self.layer_types
+        return next(p for p in range(1, len(t) + 1)
+                    if all(t[i] == t[i % p] for i in range(len(t))))
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests (one fwd/train step)."""
         changes = dict(
-            # hybrid needs >= 3 layers for one full (R, R, L) group
+            # hybrid needs >= 3 layers for one full (R, R, L) group, a
+            # layer_types model one period
             num_layers=3 if self.layer_pattern == "rrl"
+            else self.layer_period() if self.layer_types
             else min(self.num_layers, 2),
             d_model=128,
             num_heads=4,
@@ -126,6 +153,10 @@ class ArchConfig:
         if self.num_experts:
             changes.update(num_experts=min(self.num_experts, 4),
                            moe_top_k=min(self.moe_top_k, 2), d_ff_expert=64)
+            if self.experts_held:
+                changes.update(expert_offset=0, experts_held=2)
+        if self.shared_d_ff:
+            changes.update(shared_d_ff=96)
         if self.ssm_state:
             changes.update(ssm_state=16, ssm_headdim=16)
         if self.lru_width:
@@ -153,10 +184,19 @@ ARCH_NAMES = (
 )
 
 
+# architectures of the port alone: no JAX counterpart to pair them with
+PORT_ARCH_NAMES = (
+    "granite_4_0_h_small",
+)
+
+
 def get_config(name: str) -> ArchConfig:
-    norm = name.replace("-", "_").replace(".", "")
-    if norm not in ARCH_NAMES:
-        raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
+    norm = name.replace("-", "_").replace(".", "_")
+    if norm not in ARCH_NAMES + PORT_ARCH_NAMES:
+        norm = name.replace("-", "_").replace(".", "")
+    if norm not in ARCH_NAMES + PORT_ARCH_NAMES:
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{ARCH_NAMES + PORT_ARCH_NAMES}")
     mod = importlib.import_module(f"repro_torch.configs.{norm}")
     return mod.CONFIG
 

@@ -44,6 +44,14 @@ _DET_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
 # bitmaps' bits after ranges
 _DET_CLUSTER_ARGTYPES = _DET_ARGTYPES[:18] + [ctypes.c_int] * 2 \
     + _DET_ARGTYPES[18:]
+
+
+def _packed(argtypes: list) -> list:
+    """A ``*_packed`` entry's arguments: its row entry's, with the (B,)
+    int64 stream offsets after the values."""
+    return argtypes[:1] + [ctypes.c_void_p] + argtypes[1:]
+
+
 SCHEMES = {transforms.PPSWOR: 0, transforms.PRIORITY: 1}
 _VALUE_DTYPES = (torch.float32, torch.bfloat16)
 _INT_MAX = 2**31 - 1
@@ -55,20 +63,26 @@ def _require(ok: bool, msg: str) -> None:
 
 
 def _launch(values, rows, width, seeds, p, scheme, transform_seeds,
-            base_keys, lengths, variant):
+            base_keys, lengths, variant, offsets=None):
     """Check the arguments and launch the kernel once: the (B, rows, width)
     delta and the variant launched (None for an empty batch, which
-    launches nothing)."""
+    launches nothing).  With ``offsets`` the values are one packed vector
+    and ``lengths`` (host ints) say how long each stream is."""
     _require(values.device.type == "cuda",
              f"values on {values.device}; expected a CUDA or CPU tensor")
-    _require(values.dim() == 2 and values.dtype in _VALUE_DTYPES
-             and values.is_contiguous(),
-             "values must be contiguous (B, n) float32 or bfloat16")
+    _require(values.dim() == (1 if offsets is not None else 2)
+             and values.dtype in _VALUE_DTYPES and values.is_contiguous(),
+             "values must be contiguous (B, n) float32 or bfloat16, or one "
+             "packed (N,) vector with offsets")
     _require(0 < rows <= _INT_MAX and 0 < width <= _INT_MAX,
              f"rows={rows}, width={width}")
     _require(p is None or scheme in SCHEMES, f"unknown scheme {scheme!r}")
-    B, n = values.shape
-    _require(B <= _INT_MAX and n <= _INT_MAX, f"shape {tuple(values.shape)}")
+    if offsets is not None:
+        B, n = len(offsets), max(lengths, default=0)
+        offs = torch.as_tensor(offsets, dtype=torch.int64).to(values.device)
+    else:
+        B, n = values.shape
+    _require(B <= _INT_MAX and n <= _INT_MAX, f"{B} streams of at most {n}")
     dev = values.device
     if B * n == 0:
         return torch.zeros((B, rows, width), dtype=torch.float32,
@@ -85,6 +99,15 @@ def _launch(values, rows, width, seeds, p, scheme, transform_seeds,
         det_chunks=True)
     transform = (int(p is not None), -1.0 / p if p is not None else 0.0,
                  SCHEMES.get(scheme, 0))
+    packed = offsets is not None
+
+    def entry(name, argtypes):
+        # the packed entry takes the offsets after the values
+        return build.function("countsketch_update",
+                              name + ("_packed" if packed else ""),
+                              _packed(argtypes) if packed else argtypes)
+
+    ptrs = (vals.data_ptr(),) + ((offs.data_ptr(),) if packed else ())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if plan.variant == "det":
@@ -96,15 +119,12 @@ def _launch(values, rows, width, seeds, p, scheme, transform_seeds,
                      width), dtype=torch.float32, device=dev)
             split = (plan.row_group, plan.ranges)
             if plan.cluster:
-                fn = build.function("countsketch_update",
-                                    "worp_countsketch_update_det_cluster",
-                                    _DET_CLUSTER_ARGTYPES)
+                fn = entry("worp_countsketch_update_det_cluster",
+                           _DET_CLUSTER_ARGTYPES)
                 split += (plan.cluster, tiling.det_clash_bits(plan, width))
             else:
-                fn = build.function("countsketch_update",
-                                    "worp_countsketch_update_det",
-                                    _DET_ARGTYPES)
-            err = fn(vals.data_ptr(), seeds32.data_ptr(), tseeds32.data_ptr(),
+                fn = entry("worp_countsketch_update_det", _DET_ARGTYPES)
+            err = fn(*ptrs, seeds32.data_ptr(), tseeds32.data_ptr(),
                      base32.data_ptr(), lens32.data_ptr(),
                      None if ends is None else ends.data_ptr(),
                      None if work is None else work.data_ptr(),
@@ -114,19 +134,16 @@ def _launch(values, rows, width, seeds, p, scheme, transform_seeds,
         elif plan.variant == "smem":
             ends = None if plan.one_per_stream \
                 else tiling.block_ends(lens32, plan.chunk)
-            fn = build.function("countsketch_update",
-                                "worp_countsketch_update_smem",
-                                _SMEM_ARGTYPES)
-            err = fn(vals.data_ptr(), seeds32.data_ptr(), tseeds32.data_ptr(),
+            fn = entry("worp_countsketch_update_smem", _SMEM_ARGTYPES)
+            err = fn(*ptrs, seeds32.data_ptr(), tseeds32.data_ptr(),
                      base32.data_ptr(), lens32.data_ptr(),
                      None if ends is None else ends.data_ptr(),
                      delta.data_ptr(), B, n, rows, width, plan.chunk,
                      *transform, plan.blocks, plan.threads, plan.smem_bytes,
                      stream)
         else:
-            fn = build.function("countsketch_update",
-                                "worp_countsketch_update", _ARGTYPES)
-            err = fn(vals.data_ptr(), seeds32.data_ptr(), tseeds32.data_ptr(),
+            fn = entry("worp_countsketch_update", _ARGTYPES)
+            err = fn(*ptrs, seeds32.data_ptr(), tseeds32.data_ptr(),
                      base32.data_ptr(), lens32.data_ptr(), delta.data_ptr(),
                      B, n, rows, width, *transform, plan.blocks,
                      plan.threads, stream)
@@ -141,7 +158,7 @@ def countsketch_update_batched(values: torch.Tensor, rows: int, width: int,
                                seeds, p: float | None = None,
                                scheme: str = transforms.PPSWOR,
                                transform_seeds=None, base_keys=None,
-                               lengths=None, *,
+                               lengths=None, offsets=None, *,
                                _variant: str | None = None) -> torch.Tensor:
     """Sketch B dense segments in one launch; returns the (B, rows, width)
     delta.
@@ -149,16 +166,26 @@ def countsketch_update_batched(values: torch.Tensor, rows: int, width: int,
     ``values`` is (B, n) float32 (bfloat16 is cast); stream b holds the
     frequencies of keys ``base_keys[b] + i`` (mod 2**32) for ``i <
     lengths[b]``, and later columns are ignored, so ragged streams batch
-    together.  With ``p`` set the bottom-k transform of ``scheme`` is fused.
-    Seeds and base keys are uint32 values.  ``_variant`` ("smem",
+    together.  With ``offsets`` ``values`` is one packed (N,) vector
+    instead, stream b's values ``values[offsets[b]:][:lengths[b]]``
+    (``lengths`` host ints; ``offsets`` ints or an int64 tensor, on the
+    values' device for no copy), with no padding: the same delta as the
+    streams padded into rows.  With ``p`` set the bottom-k transform of
+    ``scheme`` is fused.  Seeds and base keys are uint32 values.  ``_variant`` ("smem",
     "global" or "det") forces a kernel variant, for tests and
     measurements."""
     if values.device.type == "cpu":
+        if offsets is not None:
+            return ref.countsketch_update_packed_ref(
+                values, offsets, lengths, rows, width, seeds, p=p,
+                transform_seeds=transform_seeds, base_keys=base_keys,
+                scheme=scheme)
         return ref.countsketch_update_batched_ref(
             values, rows, width, seeds, p=p, transform_seeds=transform_seeds,
             base_keys=base_keys, lengths=lengths, scheme=scheme)
     delta, launched = _launch(values, rows, width, seeds, p, scheme,
-                              transform_seeds, base_keys, lengths, _variant)
+                              transform_seeds, base_keys, lengths, _variant,
+                              offsets)
     if launched:
         global launches
         launches += 1

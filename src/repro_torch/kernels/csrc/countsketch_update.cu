@@ -12,6 +12,10 @@
 // r_x^{-1/p} with r_x = Exp1 (ppswor) or U(0,1] (priority) when has_p, else
 // v' = v.  Slot (b, i) counts only when i < lengths[b] (the wrapper clamps
 // lengths to [0, n]); no key is padding, so key 0xFFFFFFFF is sketched.
+// Stream b's values are row b of a (B, n) array, or, through the entries
+// named *_packed, lengths[b] values from offsets[b] of one packed vector
+// (the streams back to back, no padding; n is then the longest length and
+// only sizes the launch), so ragged streams take O(sum of lengths) memory.
 //
 // Two entries, chosen by shape before the launch (kernels/tiling.py
 // table_plan), never by a failed launch:
@@ -95,8 +99,9 @@ namespace {
 __global__ void countsketch_update_kernel(
     const float* __restrict__ values, const int32_t* __restrict__ seeds,
     const int32_t* __restrict__ tseeds, const int32_t* __restrict__ base_keys,
-    const int32_t* __restrict__ lengths, float* __restrict__ delta, int B,
-    int n, int rows, int width, int has_p, float neg_inv_p, int scheme) {
+    const int32_t* __restrict__ lengths, const int64_t* __restrict__ offsets,
+    float* __restrict__ delta, int B, int n, int rows, int width, int has_p,
+    float neg_inv_p, int scheme) {
   const int64_t idx =
       static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= static_cast<int64_t>(B) * n) return;
@@ -106,7 +111,7 @@ __global__ void countsketch_update_kernel(
 
   const uint32_t k =
       static_cast<uint32_t>(base_keys[b]) + static_cast<uint32_t>(i);
-  float v = values[idx];
+  float v = values[offsets != nullptr ? offsets[b] + i : idx];
   if (has_p) {
     v = worp::transform_value(v, k, static_cast<uint32_t>(tseeds[b]), scheme,
                               neg_inv_p);
@@ -232,12 +237,13 @@ int chunk_sum(const void* workspace, const int32_t* ends, void* delta,
 // chunk counts) gives it, writes its table to workspace row g, and the
 // second pass sums them into the delta.  Launches on `stream`; returns a
 // CUDA error code (0 on success).
-extern "C" int worp_countsketch_update_det(
-    const void* values, const void* seeds, const void* tseeds,
-    const void* base_keys, const void* lengths, const void* block_ends,
-    void* workspace, void* delta, int B, int n, int rows, int width,
-    int chunk, int has_p, float neg_inv_p, int scheme, int row_group,
-    int ranges, int blocks, int threads, int smem_bytes, void* stream) {
+extern "C" int worp_countsketch_update_det_packed(
+    const void* values, const void* offsets, const void* seeds,
+    const void* tseeds, const void* base_keys, const void* lengths,
+    const void* block_ends, void* workspace, void* delta, int B, int n,
+    int rows, int width, int chunk, int has_p, float neg_inv_p, int scheme,
+    int row_group, int ranges, int blocks, int threads, int smem_bytes,
+    void* stream) {
   const auto kernel = det_kernel(ranges > 1       ? worp::kDetRanges
                                  : row_group > 0 ? worp::kDetRows
                                                  : worp::kDetWhole);
@@ -250,7 +256,8 @@ extern "C" int worp_countsketch_update_det(
       static_cast<const int32_t*>(lengths),
       ends,
       static_cast<float*>(ends == nullptr ? delta : workspace), B, n, rows,
-      width, chunk, has_p, scheme, neg_inv_p, row_group, ranges};
+      width, chunk, has_p, scheme, neg_inv_p, row_group, ranges,
+      static_cast<const int64_t*>(offsets)};
   const auto s = static_cast<cudaStream_t>(stream);
   kernel<<<blocks, threads, smem_bytes, s>>>(
       static_cast<const float*>(values),
@@ -258,6 +265,19 @@ extern "C" int worp_countsketch_update_det(
   err = static_cast<int>(cudaGetLastError());
   if (err || ends == nullptr) return err;
   return chunk_sum(workspace, ends, delta, B, rows, width, s);
+}
+
+// The det entry on (B, n) rows of values.
+extern "C" int worp_countsketch_update_det(
+    const void* values, const void* seeds, const void* tseeds,
+    const void* base_keys, const void* lengths, const void* block_ends,
+    void* workspace, void* delta, int B, int n, int rows, int width,
+    int chunk, int has_p, float neg_inv_p, int scheme, int row_group,
+    int ranges, int blocks, int threads, int smem_bytes, void* stream) {
+  return worp_countsketch_update_det_packed(
+      values, nullptr, seeds, tseeds, base_keys, lengths, block_ends,
+      workspace, delta, B, n, rows, width, chunk, has_p, neg_inv_p, scheme,
+      row_group, ranges, blocks, threads, smem_bytes, stream);
 }
 
 // The deterministic variant over thread block clusters (tiling.
@@ -271,13 +291,13 @@ extern "C" int worp_countsketch_update_det(
 // workspace and the second pass sums them, as
 // worp_countsketch_update_det's.  Launches on `stream`; returns a CUDA
 // error code (0 on success).
-extern "C" int worp_countsketch_update_det_cluster(
-    const void* values, const void* seeds, const void* tseeds,
-    const void* base_keys, const void* lengths, const void* block_ends,
-    void* workspace, void* delta, int B, int n, int rows, int width,
-    int chunk, int has_p, float neg_inv_p, int scheme, int row_group,
-    int ranges, int cluster, int clash_bits, int blocks, int threads,
-    int smem_bytes, void* stream) {
+extern "C" int worp_countsketch_update_det_cluster_packed(
+    const void* values, const void* offsets, const void* seeds,
+    const void* tseeds, const void* base_keys, const void* lengths,
+    const void* block_ends, void* workspace, void* delta, int B, int n,
+    int rows, int width, int chunk, int has_p, float neg_inv_p, int scheme,
+    int row_group, int ranges, int cluster, int clash_bits, int blocks,
+    int threads, int smem_bytes, void* stream) {
   const auto ends = static_cast<const int32_t*>(block_ends);
   const worp::TableArgs args{
       static_cast<const int32_t*>(seeds),
@@ -285,7 +305,8 @@ extern "C" int worp_countsketch_update_det_cluster(
       static_cast<const int32_t*>(lengths),
       ends,
       static_cast<float*>(ends == nullptr ? delta : workspace), B, n, rows,
-      width, chunk, has_p, scheme, neg_inv_p, row_group, ranges};
+      width, chunk, has_p, scheme, neg_inv_p, row_group, ranges,
+      static_cast<const int64_t*>(offsets)};
   const auto s = static_cast<cudaStream_t>(stream);
   const int err = worp::launch_cluster(
       det_cluster_kernel(ranges > 1 ? (width + ranges - 1) / ranges : width,
@@ -295,6 +316,21 @@ extern "C" int worp_countsketch_update_det_cluster(
       static_cast<const int32_t*>(base_keys), args, clash_bits);
   if (err || ends == nullptr) return err;
   return chunk_sum(workspace, ends, delta, B, rows, width, s);
+}
+
+// The cluster entry on (B, n) rows of values.
+extern "C" int worp_countsketch_update_det_cluster(
+    const void* values, const void* seeds, const void* tseeds,
+    const void* base_keys, const void* lengths, const void* block_ends,
+    void* workspace, void* delta, int B, int n, int rows, int width,
+    int chunk, int has_p, float neg_inv_p, int scheme, int row_group,
+    int ranges, int cluster, int clash_bits, int blocks, int threads,
+    int smem_bytes, void* stream) {
+  return worp_countsketch_update_det_cluster_packed(
+      values, nullptr, seeds, tseeds, base_keys, lengths, block_ends,
+      workspace, delta, B, n, rows, width, chunk, has_p, neg_inv_p, scheme,
+      row_group, ranges, cluster, clash_bits, blocks, threads, smem_bytes,
+      stream);
 }
 
 // Registers, static shared memory, blocks per SM, dynamic shared memory
@@ -313,12 +349,12 @@ extern "C" int worp_countsketch_update_cluster_info(int span, int split,
 // null for one block per stream (delta written whole), else the (B,)
 // inclusive prefix sum of chunk counts (delta zeroed by the caller).
 // Launches on `stream`; returns a CUDA error code (0 on success).
-extern "C" int worp_countsketch_update_smem(
-    const void* values, const void* seeds, const void* tseeds,
-    const void* base_keys, const void* lengths, const void* block_ends,
-    void* delta, int B, int n, int rows, int width, int chunk, int has_p,
-    float neg_inv_p, int scheme, int blocks, int threads, int smem_bytes,
-    void* stream) {
+extern "C" int worp_countsketch_update_smem_packed(
+    const void* values, const void* offsets, const void* seeds,
+    const void* tseeds, const void* base_keys, const void* lengths,
+    const void* block_ends, void* delta, int B, int n, int rows, int width,
+    int chunk, int has_p, float neg_inv_p, int scheme, int blocks,
+    int threads, int smem_bytes, void* stream) {
   const int err = worp::prepare_table_kernel(countsketch_update_smem,
                                              smem_bytes);
   if (err) return err;
@@ -328,12 +364,25 @@ extern "C" int worp_countsketch_update_smem(
       static_cast<const int32_t*>(lengths),
       static_cast<const int32_t*>(block_ends),
       static_cast<float*>(delta), B, n, rows, width, chunk, has_p, scheme,
-      neg_inv_p};
+      neg_inv_p, 0, 0, static_cast<const int64_t*>(offsets)};
   countsketch_update_smem<<<blocks, threads, smem_bytes,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(values),
       static_cast<const int32_t*>(base_keys), args);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The shared-memory entry on (B, n) rows of values.
+extern "C" int worp_countsketch_update_smem(
+    const void* values, const void* seeds, const void* tseeds,
+    const void* base_keys, const void* lengths, const void* block_ends,
+    void* delta, int B, int n, int rows, int width, int chunk, int has_p,
+    float neg_inv_p, int scheme, int blocks, int threads, int smem_bytes,
+    void* stream) {
+  return worp_countsketch_update_smem_packed(
+      values, nullptr, seeds, tseeds, base_keys, lengths, block_ends, delta,
+      B, n, rows, width, chunk, has_p, neg_inv_p, scheme, blocks, threads,
+      smem_bytes, stream);
 }
 
 // Registers, static shared memory, blocks per SM and dynamic shared memory
@@ -362,17 +411,30 @@ extern "C" int worp_countsketch_update_info(int variant, int threads,
 // The global-atomic variant: one thread per slot, `blocks` x `threads`
 // covering B * n.  Launches on `stream`; returns cudaGetLastError() (0 on
 // success).
-extern "C" int worp_countsketch_update(
-    const void* values, const void* seeds, const void* tseeds,
-    const void* base_keys, const void* lengths, void* delta, int B, int n,
-    int rows, int width, int has_p, float neg_inv_p, int scheme, int blocks,
-    int threads, void* stream) {
+extern "C" int worp_countsketch_update_packed(
+    const void* values, const void* offsets, const void* seeds,
+    const void* tseeds, const void* base_keys, const void* lengths,
+    void* delta, int B, int n, int rows, int width, int has_p,
+    float neg_inv_p, int scheme, int blocks, int threads, void* stream) {
   countsketch_update_kernel<<<blocks, threads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(values), static_cast<const int32_t*>(seeds),
       static_cast<const int32_t*>(tseeds),
       static_cast<const int32_t*>(base_keys),
-      static_cast<const int32_t*>(lengths), static_cast<float*>(delta), B, n,
+      static_cast<const int32_t*>(lengths),
+      static_cast<const int64_t*>(offsets), static_cast<float*>(delta), B, n,
       rows, width, has_p, neg_inv_p, scheme);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The global-atomic entry on (B, n) rows of values.
+extern "C" int worp_countsketch_update(
+    const void* values, const void* seeds, const void* tseeds,
+    const void* base_keys, const void* lengths, void* delta, int B, int n,
+    int rows, int width, int has_p, float neg_inv_p, int scheme, int blocks,
+    int threads, void* stream) {
+  return worp_countsketch_update_packed(values, nullptr, seeds, tseeds,
+                                        base_keys, lengths, delta, B, n,
+                                        rows, width, has_p, neg_inv_p, scheme,
+                                        blocks, threads, stream);
 }

@@ -70,7 +70,15 @@ struct TableArgs {
   // (kernels/tiling.py det_split): row_group rows a block (0: all), or,
   // where ranges > 1, one bucket range of one row a block
   int row_group, ranges;
+  // (B,) where each dense stream starts in a packed values vector (the
+  // update's packed entries); nullptr: stream b starts at b * n
+  const int64_t* offsets;
 };
+
+// Where stream b's slot 0 lies in the values (and a sparse stream's keys).
+__device__ __forceinline__ int64_t stream_start(const TableArgs& a, int b) {
+  return a.offsets != nullptr ? a.offsets[b] : static_cast<int64_t>(b) * a.n;
+}
 
 // Slot (b, i) of a sparse stream: key and value loaded, key -1 is padding.
 // Zipf-headed keys make hot buckets, so a warp combines its lanes that hold
@@ -207,7 +215,7 @@ __device__ __forceinline__ void table_block(const Slots& slots,
   const uint32_t seed = static_cast<uint32_t>(a.seeds[b]);
   const uint32_t tseed = static_cast<uint32_t>(a.tseeds[b]);
   const uint32_t width = static_cast<uint32_t>(a.width);
-  const int64_t row0 = static_cast<int64_t>(b) * a.n;
+  const int64_t row0 = stream_start(a, b);
   if constexpr (Slots::kCombine) {
     // warp-uniform trip count, so every lane reaches the warp collectives
     const int64_t warp0 = begin + (threadIdx.x & ~31u);
@@ -439,7 +447,7 @@ __device__ __forceinline__ void det_produce(const Slots& slots,
   const uint32_t tseed = static_cast<uint32_t>(a.tseeds[b]);
   const uint32_t width = static_cast<uint32_t>(a.width);
   const int nrows = d.r1 - d.r0;
-  const int64_t row0 = static_cast<int64_t>(b) * a.n;
+  const int64_t row0 = stream_start(a, b);
   const int j = g * 32 + lane;  // this lane's slot in every stage
   // this lane's next two slots, loaded two stages ahead (key -1 loads as
   // kDeadKey too)
@@ -775,7 +783,7 @@ __device__ __forceinline__ void det_dense_block(
   const uint32_t base = static_cast<uint32_t>(base_keys[b]);
   const uint32_t seed = static_cast<uint32_t>(a.seeds[b]);
   const uint32_t tseed = static_cast<uint32_t>(a.tseeds[b]);
-  const int64_t row0 = static_cast<int64_t>(b) * a.n;
+  const int64_t row0 = stream_start(a, b);
   const int tiles =
       end > begin ? static_cast<int>((end - begin + stage - 1) / stage) : 0;
   for (int c = threadIdx.x; c < cells; c += blockDim.x) table[c] = 0.0f;
@@ -968,7 +976,7 @@ __device__ __forceinline__ void det_cluster_produce(
   const uint32_t tseed = static_cast<uint32_t>(a.tseeds[b]);
   const uint32_t width = static_cast<uint32_t>(a.width);
   const uint32_t span = static_cast<uint32_t>(d.span);
-  const int64_t row0 = static_cast<int64_t>(b) * a.n;
+  const int64_t row0 = stream_start(a, b);
   const int64_t step = static_cast<int64_t>(parts) * kDetStage;
   const int slot = rank * kDetStage + g * 32 + lane;  // in a cluster stage
   const int group = rank * kDetGroups + g;

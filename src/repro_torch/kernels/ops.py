@@ -38,13 +38,16 @@ def sketch_dense_vector(values, rows: int, width: int, seed,
 def sketch_dense_batch(values, rows: int, width: int, seeds,
                        p: float | None = None,
                        scheme: str = transforms.PPSWOR, transform_seeds=None,
-                       base_keys=None, lengths=None) -> torch.Tensor:
+                       base_keys=None, lengths=None,
+                       offsets=None) -> torch.Tensor:
     """CountSketch of B dense segments in one launch -> (B, rows, width);
-    ``lengths`` masks ragged streams (see countsketch_update_batched)."""
+    ``lengths`` masks ragged streams, or with ``offsets`` the streams lie
+    back to back in one packed vector (see countsketch_update_batched)."""
     return countsketch_update_batched(values, rows, width, seeds, p=p,
                                       scheme=scheme,
                                       transform_seeds=transform_seeds,
-                                      base_keys=base_keys, lengths=lengths)
+                                      base_keys=base_keys, lengths=lengths,
+                                      offsets=offsets)
 
 
 def sketch_sparse_vector(keys, values, rows: int, width: int, seed,

@@ -205,6 +205,30 @@ def countsketch_update_batched_ref(values, rows: int, width: int, seeds,
     return _scatter_rows(keys, vals, rows, width, seeds)
 
 
+def countsketch_update_packed_ref(values, offsets, lengths, rows: int,
+                                  width: int, seeds, p: float | None = None,
+                                  transform_seeds=None, base_keys=None,
+                                  scheme: str = transforms.PPSWOR
+                                  ) -> torch.Tensor:
+    """CountSketch of B dense segments packed back to back in one (N,)
+    vector, stream b's values ``values[offsets[b]:][:lengths[b]]``
+    (``lengths`` host ints): (B, rows, width), each stream's table summed
+    in slot order, the bits of the same streams padded into rows."""
+    B = len(offsets)
+    dev = values.device
+    seeds, tseeds, _ = stream_params(B, 1, seeds, transform_seeds, None, dev)
+    base = hashing.as_u32(0 if base_keys is None else base_keys,
+                          device=dev).expand(B)
+    out = torch.zeros((B, rows, width), dtype=torch.float32, device=dev)
+    for b, (off, n) in enumerate(zip(offsets, lengths)):
+        if n:
+            out[b] = countsketch_update_batched_ref(
+                values[int(off):int(off) + int(n)][None], rows, width,
+                seeds[b], p=p, transform_seeds=tseeds[b],
+                base_keys=base[b], scheme=scheme)[0]
+    return out
+
+
 def countsketch_update_det_ref(values, rows: int, width: int, seeds,
                                p: float | None = None, transform_seeds=None,
                                base_keys=None, lengths=None,

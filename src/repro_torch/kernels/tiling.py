@@ -120,15 +120,19 @@ def row_read_launch(B: int, rows: int, k: int,
 
 def lengths_arg(lengths, B: int, n: int, device) -> torch.Tensor:
     """A kernel's (B,) int32 stream lengths, clamped to [0, n] (None means
-    n).  A scalar is filled on the device, so no blocking host-to-device
-    copy precedes the launch."""
+    n).  A scalar is filled on the device, and host lengths cross from
+    pinned memory without waiting, so no blocking host-to-device copy
+    precedes the launch."""
     if not isinstance(lengths, torch.Tensor):
         lens = np.clip(np.asarray(n if lengths is None else lengths,
                                   np.int64), 0, n)
         if lens.ndim == 0:
             return torch.full((B,), int(lens), dtype=torch.int32,
                               device=device)
-        lengths = torch.from_numpy(lens)
+        lengths = torch.from_numpy(lens.astype(np.int32))
+        if torch.device(device).type == "cuda":
+            return lengths.pin_memory().to(device, non_blocking=True) \
+                .expand(B).contiguous()
     return lengths.to(device=device, dtype=torch.int64).clamp(0, n).to(
         torch.int32).expand(B).contiguous()
 

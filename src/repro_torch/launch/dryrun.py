@@ -59,7 +59,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.configs.base import ARCH_NAMES, SHAPES, ShapeCell, get_config
+from repro_torch.configs.base import (ARCH_NAMES, PORT_ARCH_NAMES, SHAPES,
+                                     ShapeCell, get_config)
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch.mesh import LAYOUTS, make_production_mesh
 from repro_torch.models import layers as L
@@ -236,7 +237,8 @@ def run_cell(arch: str, shape_name: str, mesh_name: str = "card",
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default=None, choices=list(ARCH_NAMES))
+    ap.add_argument("--arch", default=None,
+                    choices=list(ARCH_NAMES + PORT_ARCH_NAMES))
     ap.add_argument("--shape", default=None, choices=list(SHAPES))
     ap.add_argument("--mesh", default="card",
                     choices=list(LAYOUTS) + ["all"])

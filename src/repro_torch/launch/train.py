@@ -6,7 +6,10 @@
 The reference's flags, plus ``--device`` (the card unless the caller asks
 otherwise).  ``--reduced`` runs the small configuration; without it the
 published one.  ``--compressed`` trains with WORp-compressed gradients
-(``gradcomp.CompressorConfig()``) over the default process group when one
+(``gradcomp.CompressorConfig()``; ``--compressor engine`` through the
+per-leaf engine path, one WOR sample a leaf, with AdamW in place; the
+default ``flat`` one sample of the raveled gradient) over the default
+process group when one
 is initialised; otherwise over one built from torchrun's environment when
 ``WORLD_SIZE`` is set (``nccl`` on the card, ``gloo`` on the CPU); failing
 both, over a one-rank group of that backend meeting through a
@@ -22,7 +25,7 @@ import tempfile
 
 import torch
 
-from repro_torch.configs.base import ARCH_NAMES, get_config
+from repro_torch.configs.base import ARCH_NAMES, PORT_ARCH_NAMES, get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.optim import gradcomp
 from repro_torch.train import loop
@@ -55,7 +58,8 @@ def process_group(dev: torch.device):
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True, choices=ARCH_NAMES)
+    ap.add_argument("--arch", required=True,
+                    choices=ARCH_NAMES + PORT_ARCH_NAMES)
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -63,6 +67,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--compressed", action="store_true",
                     help="WORp-compressed DP gradients")
+    ap.add_argument("--compressor", choices=("flat", "engine"),
+                    default="flat",
+                    help="the compressed step's compressor (--compressed)")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--device", default=None,
                     help="where the model trains (default: the card; 'cpu' "
@@ -82,7 +89,7 @@ def main(argv=None) -> dict:
         out = loop.run_training(
             cfg, num_steps=args.steps, batch=args.batch, seq=args.seq,
             lr=args.lr, ckpt_dir=args.ckpt, compressed=args.compressed,
-            cc=cc, device=dev)
+            cc=cc, compressor=args.compressor, device=dev)
     print(f"done: final loss {out['final_loss']:.4f}")
     return out
 

@@ -17,6 +17,8 @@ PyTorch here.  The cost-mode knobs are set only by the dry-run
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -51,6 +53,41 @@ def cost_trips(n: int) -> int:
     if _COST_MODE["dense_attn"] or cost_unroll() > 1:
         return min(n, cost_unroll())
     return n
+
+
+# Recomputation in training: each layer's forward runs again in backward
+# (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` does,
+# so that only the layers' inputs are kept between the passes.  ``again``
+# is true while a layer's forward runs the second time, when counters must
+# not count.
+_RECOMPUTE = {"again": False}
+
+
+def recomputing() -> bool:
+    """Whether a layer's forward is running again inside backward."""
+    return _RECOMPUTE["again"]
+
+
+@contextlib.contextmanager
+def _again():
+    was, _RECOMPUTE["again"] = _RECOMPUTE["again"], True
+    try:
+        yield
+    finally:
+        _RECOMPUTE["again"] = was
+
+
+def layer_call(fn, *args):
+    """``fn(*args)``, recomputed in backward where training needs it: grad
+    enabled and real tensors (the dry-run's meta tensors are counted as
+    they run)."""
+    x = args[0]
+    if not (torch.is_grad_enabled() and x.device.type != "meta"):
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _again()))
 
 
 def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
@@ -96,6 +133,24 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 def silu(x):
     return x * torch.sigmoid(x)
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float) -> torch.Tensor:
+    """Causal attention with no position encoding and a given ``scale``,
+    through PyTorch's fused ``scaled_dot_product_attention`` (a flash
+    kernel on the card): q (B, S, H, dh), k/v (B, S, Kh, dh), each kv head
+    shared by H / Kh query heads.  It keeps O(S) state for backward, where
+    ``blockwise_attention``'s autograd graph keeps every score tile (at 2 x
+    8,192 tokens and 32 heads some 43 GB for one layer)."""
+    G = q.shape[2] // k.shape[2]
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    o = F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, scale=scale)
+    return o.transpose(1, 2)
 
 
 def _band_mask(qpos, kpos, causal: bool, window: int):

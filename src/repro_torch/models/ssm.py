@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import shard
+from repro_torch.trace import span
 
 from .layers import rmsnorm, silu
 
@@ -61,8 +62,9 @@ def _split_proj(zxbcdt, dims: SSMDims):
     return z, xBC, dt
 
 
-def _causal_conv(xBC, conv_w, conv_state=None):
-    """Depthwise causal conv1d, width K.  xBC (B, S, C); conv_w (K, C).
+def _causal_conv(xBC, conv_w, conv_state=None, bias=None):
+    """Depthwise causal conv1d, width K.  xBC (B, S, C); conv_w (K, C);
+    ``bias`` (C,) or None.
 
     Returns (silu(out), new_conv_state) where conv_state is the last K-1
     inputs."""
@@ -73,6 +75,8 @@ def _causal_conv(xBC, conv_w, conv_state=None):
         pad = conv_state
     xp = torch.cat([pad, xBC], dim=1)  # (B, S+K-1, C)
     out = sum(xp[:, i: i + xBC.shape[1]] * conv_w[i] for i in range(K))
+    if bias is not None:
+        out = out + bias
     return silu(out), xp[:, -(K - 1):]
 
 
@@ -162,7 +166,9 @@ def mamba2_block(x, lp, cfg, mode: str, state=None):
     """Full Mamba-2 block.  x (B,S,D).
 
     lp: in_proj (D, in_proj_dim), conv (K, conv_dim), A_log (H,), D (H,),
-        dt_bias (H,), norm (d_inner,), out_proj (d_inner, D).
+        dt_bias (H,), norm (d_inner,), out_proj (d_inner, D); conv_b
+        (conv_dim,) where the config has a conv bias.  The gated norm takes
+        the config's ``norm_eps``.
     state: None (train/prefill from scratch) or dict(conv, ssm) for decode.
     Returns (y, new_state).
     """
@@ -175,7 +181,8 @@ def mamba2_block(x, lp, cfg, mode: str, state=None):
     A = -torch.exp(lp["A_log"].to(f32))  # (H,)
 
     conv_state = state["conv"] if state is not None else None
-    xBC, new_conv = _causal_conv(xBC, lp["conv"], conv_state)
+    xBC, new_conv = _causal_conv(xBC, lp["conv"], conv_state,
+                                 lp.get("conv_b"))
     gn = dims.ngroups * dims.d_state
     xs = xBC[..., : dims.d_inner].reshape(Bsz, S, dims.nheads, dims.headdim)
     B_ = xBC[..., dims.d_inner: dims.d_inner + gn].reshape(
@@ -188,9 +195,10 @@ def mamba2_block(x, lp, cfg, mode: str, state=None):
         y, new_ssm = ssd_decode_step(xs, dt, A, B_, C_, lp["D"].to(f32),
                                      state["ssm"])
     else:
-        y, new_ssm = ssd_chunked(xs, dt, A, B_, C_, lp["D"].to(f32), dims,
-                                 chunk=min(128, S))
+        with span("ssd.scan"):
+            y, new_ssm = ssd_chunked(xs, dt, A, B_, C_, lp["D"].to(f32),
+                                     dims, chunk=min(128, S))
     y = y.reshape(Bsz, S, dims.d_inner)
-    y = rmsnorm(y * silu(z), lp["norm"], zero_centered=False)
+    y = rmsnorm(y * silu(z), lp["norm"], cfg.norm_eps, zero_centered=False)
     out = torch.einsum("bse,ed->bsd", y, lp["out_proj"])
     return out, {"conv": new_conv, "ssm": new_ssm}

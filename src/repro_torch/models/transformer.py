@@ -12,12 +12,15 @@ local/global pairs, post-norms and softcaps), moe (olmoe, grok-1:
 ``models/moe.py``), vlm (phi-3-vision: patch embeddings prepended to the
 text), ssm (mamba2: ``models/ssm.py``), hybrid (recurrentgemma's (R, R, L)
 groups and recurrent tail: ``models/rglru.py``), encdec (seamless: an
-encoder over frame embeddings, a text decoder with cross attention).
+encoder over frame embeddings, a text decoder with cross attention), and,
+of the port alone, hybrid_moe (granite-4.0-h: ``models/hybrid_moe.py``,
+training only).
 Parameters keep the reference's stacked (L, ...) layout, so its arrays
 cross as a numpy copy (``convert.params_from_numpy``), and a Python loop
-over the layers takes the place of ``lax.scan``.  Training does not
-rematerialise the layers as the reference's ``jax.checkpoint`` does; the
-gradients are the same.  Decode updates the cache it is given in place
+over the layers takes the place of ``lax.scan``.  Training recomputes each
+layer in backward, as the reference's ``jax.checkpoint`` does
+(``layers.layer_call``: only the layers' inputs are kept between the
+passes); the gradients are the same.  Decode updates the cache it is given in place
 and returns it: the kv rings through ``cache_insert``, the recurrent and
 SSM states by a copy into each layer's slice.
 """
@@ -31,11 +34,12 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import shard
 
+from . import hybrid_moe
 from . import moe as moe_lib
 from . import rglru, ssm
 from .layers import (attn_out, attn_qkv, blockwise_attention, cache_insert,
-                     cost_trips, decode_attention, rmsnorm, rope, softcap,
-                     swiglu)
+                     cost_trips, decode_attention, layer_call, rmsnorm, rope,
+                     softcap, swiglu)
 from .params import PD
 
 
@@ -134,6 +138,8 @@ def _rec_stack_pd(L, cfg: ArchConfig):
 
 
 def param_tree(cfg: ArchConfig) -> Dict[str, Any]:
+    if cfg.family == "hybrid_moe":
+        return hybrid_moe.param_tree(cfg)
     D, Vp = cfg.d_model, cfg.padded_vocab()
     t: Dict[str, Any] = {
         "embed": PD((Vp, D), ("vocab", "embed")),
@@ -379,7 +385,11 @@ def _scan_stack(body, x, stack, cache, mode: str, cut: bool = True):
     n = _num_layers(stack)
     for i in range(cost_trips(n) if cut else n):
         cl = None if cache is None else _index(cache, i)
-        x, nc = body(x, _index(stack, i), cl)
+        if mode == "train":
+            x, nc = layer_call(lambda x, lp: body(x, lp, None),
+                               x, _index(stack, i))
+        else:
+            x, nc = body(x, _index(stack, i), cl)
         if mode == "decode":
             _assign(cl, nc)
         else:
@@ -502,6 +512,8 @@ def forward_train(params, batch, cfg: ArchConfig, wedge: bool = False):
     """Teacher-forced logits for the LM families.  batch['tokens'] (B, S)."""
     if cfg.family == "encdec":
         return _encdec_forward(params, batch, cfg, mode="train")[0]
+    if cfg.family == "hybrid_moe":
+        return hybrid_moe.forward_train(params, batch, cfg)
     x = _embed(params, batch["tokens"], cfg)
     if cfg.family == "vlm":
         x = _prefix_patches(x, batch["patch_embeds"], cfg)

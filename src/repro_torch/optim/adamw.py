@@ -50,6 +50,18 @@ def abstract_state(abstract_params) -> AdamWState:
     )
 
 
+def _step(p, g, m, v, bc1, bc2, lr, b1, b2, eps, weight_decay):
+    """One leaf's AdamW: (new parameter in its dtype, new float32 moments),
+    ``bc1``/``bc2`` the float32 bias corrections."""
+    g32 = g.to(torch.float32)
+    m_new = b1 * m + (1.0 - b1) * g32
+    v_new = b2 * v + (1.0 - b2) * g32 * g32
+    p32 = p.to(torch.float32)
+    delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps) \
+        + weight_decay * p32
+    return (p32 - lr * delta).to(p.dtype), m_new, v_new
+
+
 def update(
     params,
     grads,
@@ -69,17 +81,6 @@ def update(
     bc1 = 1.0 - torch.pow(torch.full_like(t, b1), t)
     bc2 = 1.0 - torch.pow(torch.full_like(t, b2), t)
 
-    def upd(p, g, m, v):
-        g32 = g.to(torch.float32)
-        m_new = b1 * m + (1.0 - b1) * g32
-        v_new = b2 * v + (1.0 - b2) * g32 * g32
-        mhat = m_new / bc1.to(m_new.device)
-        vhat = v_new / bc2.to(v_new.device)
-        delta = mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.to(
-            torch.float32)
-        p_new = (p.to(torch.float32) - lr * delta).to(p.dtype)
-        return p_new, m_new, v_new
-
     flat_p = pytree.leaves(params)
     flat_g = pytree.leaves(grads)
     flat_m = pytree.leaves(state.mu)
@@ -89,7 +90,8 @@ def update(
             f"adamw.update: params, grads and moments must have the same "
             f"leaves, got {len(flat_p)}, {len(flat_g)}, {len(flat_m)}, "
             f"{len(flat_v)}")
-    outs = [upd(p, g, m, v)
+    outs = [_step(p, g, m, v, bc1.to(m.device), bc2.to(v.device), lr, b1,
+                  b2, eps, weight_decay)
             for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v)]
     new_p = pytree.unflatten(params, [o[0] for o in outs])
     new_m = pytree.unflatten(params, [o[1] for o in outs])
@@ -97,4 +99,44 @@ def update(
     return new_p, AdamWState(step=step, mu=new_m, nu=new_v)
 
 
-__all__ = ["AdamWState", "abstract_state", "init", "update"]
+# elements of a leaf updated at once by ``update_`` (its float32
+# temporaries are a few of these, not of the whole leaf)
+_CHUNK = 1 << 24
+
+
+def update_(
+    params,
+    grads,
+    state: AdamWState,
+    lr: float = 3e-4,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    weight_decay: float = 0.1,
+) -> AdamWState:
+    """``update`` in place: each parameter and moment leaf is overwritten
+    with the bits ``update`` would return, a chunk of ``_CHUNK`` elements
+    at a time, so the step holds no second copy of the moments.  Returns
+    the state with the new step count (the same moment trees)."""
+    step = state.step + 1
+    t = step.to(torch.float32)
+    bc1 = 1.0 - torch.pow(torch.full_like(t, b1), t)
+    bc2 = 1.0 - torch.pow(torch.full_like(t, b2), t)
+    flat = [pytree.leaves(x) for x in (params, grads, state.mu, state.nu)]
+    if len({len(f) for f in flat}) != 1:
+        raise ValueError(
+            "adamw.update_: params, grads and moments must have the same "
+            f"leaves, got {[len(f) for f in flat]}")
+    for p, g, m, v in zip(*flat):
+        pf, gf, mf, vf = (x.view(-1) for x in (p, g, m, v))
+        c1, c2 = bc1.to(m.device), bc2.to(v.device)
+        for lo in range(0, pf.numel(), _CHUNK):
+            sl = slice(lo, lo + _CHUNK)
+            news = _step(pf[sl], gf[sl], mf[sl], vf[sl], c1, c2, lr, b1, b2,
+                         eps, weight_decay)
+            for dst, new in zip((pf, mf, vf), news):
+                dst[sl].copy_(new)
+    return AdamWState(step=step, mu=state.mu, nu=state.nu)
+
+
+__all__ = ["AdamWState", "abstract_state", "init", "update", "update_"]

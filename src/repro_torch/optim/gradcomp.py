@@ -84,13 +84,14 @@ def _comm_bytes(cc: CompressorConfig, float_payloads: Sequence,
 
 
 def _u32(x, device) -> torch.Tensor:
-    """A uint32 seed (wrapped) as the port's int64 tensor on ``device``."""
-    return torch.tensor(int(x) & hashing.MASK32, dtype=torch.int64,
-                        device=device)
+    """A uint32 seed (wrapped) as the port's int64 tensor on ``device``
+    (filled there: no copy from the host, so no wait for the card)."""
+    return torch.full((), int(x) & hashing.MASK32, dtype=torch.int64,
+                      device=device)
 
 
 def _f32(x, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -384,38 +385,88 @@ def tree_compress_step_sharded(grads, error, cc: CompressorConfig,
 
 def _leaf_update(a, shape, ids, hit, vals):
     """One leaf's sparse update (``vals`` at the ``ids`` where ``hit``) and
-    its new error (``a`` zeroed where the update is nonzero).  Ids that
-    miss (another leaf's, -1, past the leaf's end) go to a dropped scratch
-    slot instead of relying on out-of-bounds scatter semantics."""
+    its new error: ``a`` itself, zeroed in place where the update is
+    nonzero (``a`` is the step's own accumulation, so no copy is kept).
+    Ids that miss (another leaf's, -1, past the leaf's end) go to a dropped
+    scratch slot instead of relying on out-of-bounds scatter semantics."""
     size = a.numel()
     safe = torch.where(hit, ids, size).to(torch.int64)
     sp = torch.zeros((size + 1,), dtype=torch.float32, device=a.device)
     sp[safe] = torch.where(hit, vals, 0.0)
     sp = sp[:size]
-    return sp.reshape(shape), torch.where(sp != 0.0, 0.0, a).reshape(shape)
+    return sp.reshape(shape), a.masked_fill_(sp != 0.0, 0.0).reshape(shape)
 
 
 # ---------------------------------------------------------------------------
 # SketchEngine path: per-LAYER gradient streams, one batched kernel launch
 # ---------------------------------------------------------------------------
 
+# coordinates of a leaf ranked at once by ``_top_ids`` (8 bytes of key each)
+_RANK_CHUNK = 1 << 25
+_LOW32 = (1 << 32) - 1
+
+
+def _top_ids(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The indices of ``worp.top_k(x.abs(), k)`` on a flat ``x`` of at
+    least ``k`` and under 2**32 coordinates, in no set order: the k largest
+    |x|, ties (and NaNs, the largest) to the lower index.  Each coordinate's
+    key is its |x|'s bits over its complemented index, so the keys are
+    distinct and ``torch.topk`` on them keeps exactly that set; a chunk of
+    ``_RANK_CHUNK`` coordinates is keyed at a time, so the transient memory
+    is O(chunk), not a sort of the whole leaf."""
+    n = x.numel()
+    if not k <= n <= _LOW32:
+        raise ValueError(f"_top_ids: k={k} of n={n}")
+    best = []
+    for c0 in range(0, n, _RANK_CHUNK):
+        part = x[c0:c0 + _RANK_CHUNK].abs()
+        bits = torch.where(torch.isnan(part), 0x7FC00000,
+                           part.view(torch.int32)).to(torch.int64)
+        pos = torch.arange(c0, c0 + part.numel(), dtype=torch.int64,
+                           device=x.device)
+        keys = (bits << 32) | (_LOW32 - pos)
+        best.append(torch.topk(keys, min(k, keys.numel()),
+                               sorted=False).values)
+    keys = best[0] if len(best) == 1 else torch.topk(
+        torch.cat(best), k, sorted=False).values
+    return _LOW32 - (keys & _LOW32)
+
+
+@functools.lru_cache(maxsize=16)
+def _leaf_tensors(seed: int, sizes: tuple, device: str):
+    """The transform seeds of a tree's leaves and where each starts in the
+    packed accumulation, on ``device``: made once a tree shape, so a step
+    copies nothing from the host."""
+    t_seeds = torch.tensor([int(_leaf_salt(CompressorConfig(seed=seed), li))
+                            for li in range(len(sizes))], dtype=torch.int64,
+                           device=device)
+    offsets = np.concatenate([[0], np.cumsum(sizes[:-1])]).astype(np.int64)
+    return (t_seeds, torch.from_numpy(offsets).to(device),
+            torch.tensor(sizes, dtype=torch.int64, device=device))
+
+
 def tree_compress_step_engine(grads, error, cc: CompressorConfig,
                               group=None, k_per_leaf: int = 32,
                               cand_per_leaf: int = 64):
     """WORp compression with one WOR sample PER LAYER (engine data plane).
 
-    Each gradient leaf is one stream of the batched engine: all leaves'
-    sketches come from one launch of the dense update kernel (ragged
-    lengths mask the padding), the (L, rows, width) table block sums
+    Each gradient leaf is one stream of the batched engine: the leaves'
+    accumulations a = g + e are packed back to back in one float32 vector
+    (host offsets), all leaves' sketches come from one launch of the dense
+    update kernel over that vector, the (L, rows, width) table block sums
     across the group, and each layer's top-``k_per_leaf`` sample decodes
     from its own table through one estimate-kernel launch
     (``engine.onepass_sample_batched``).
 
     Values are exact pass-II sums ('twopass') or Eq.-(6) estimates.
 
-    Memory note: leaves pad to the LARGEST leaf (O(L * n_max) transient);
-    for trees dominated by one embedding-sized leaf plus hundreds of small
-    ones, use ``tree_compress_step_sharded`` (O(sum n)).
+    Memory note: nothing pads a leaf to the largest.  The packed vector is
+    O(sum n), and becomes the new error in place; the candidates are taken
+    leaf by leaf on views, O(1) in the leaf's size beyond a chunk of keys.
+    The results are those of the leaves padded into an (L, n_max) block:
+    every leaf proposes ncand = min(cand_per_leaf, n_max) candidates, so a
+    leaf shorter than ncand proposes its padded slots past its end, which
+    decode to 0 and which the final scatter drops.
     """
     from repro_torch.engine import engine as E
 
@@ -423,40 +474,37 @@ def tree_compress_step_engine(grads, error, cc: CompressorConfig,
         dist, world = _group(group, "tree_compress_step_engine")
         leaves_g = pytree.leaves(grads)
         leaves_e = pytree.leaves(error)
-        sizes = [int(np.prod(tuple(x.shape))) for x in leaves_g]
+        sizes = tuple(int(np.prod(tuple(x.shape))) for x in leaves_g)
         L, n_max = len(leaves_g), max(sizes)
         dev = leaves_g[0].device
+        t_seeds, offs_dev, sizes_dev = _leaf_tensors(
+            int(cc.seed), sizes, str(dev))
+        sk_seeds = t_seeds ^ 1
 
         with span("gradcomp.accumulate"):
-            accs = [g.to(torch.float32).reshape(-1) + e.reshape(-1)
-                    for g, e in zip(leaves_g, leaves_e)]
-            # zero past each leaf's length, as the reference's jnp.pad
-            a_pad = torch.zeros((L, n_max), dtype=torch.float32, device=dev)
-            for li, a in enumerate(accs):
-                a_pad[li, :sizes[li]] = a
-            lengths = np.asarray(sizes, np.int32)  # host: the plan reads them
-            t_seeds = torch.tensor(
-                [int(_leaf_salt(cc, li)) for li in range(L)],
-                dtype=torch.int64, device=dev)
-            sk_seeds = t_seeds ^ 1
+            packed = torch.empty((sum(sizes),), dtype=torch.float32,
+                                 device=dev)
+            accs = list(torch.split(packed, sizes))
+            for a, g, e in zip(accs, leaves_g, leaves_e):
+                torch.add(g.reshape(-1), e.reshape(-1), out=a)
 
         # 1. batched sketch of all layers in one kernel launch
         with span("gradcomp.sketch"):
             tables = kernel_ops.sketch_dense_batch(
-                a_pad, cc.rows, cc.width, sk_seeds, p=cc.p, scheme=cc.scheme,
-                transform_seeds=t_seeds, lengths=lengths)      # (L, R, W)
+                packed, cc.rows, cc.width, sk_seeds, p=cc.p, scheme=cc.scheme,
+                transform_seeds=t_seeds, lengths=sizes,
+                offsets=offs_dev)                              # (L, R, W)
             # per-layer scale slices (leading axis L): one layer's magnitude
             # never degrades another's quantization grid
             tables = wire_codecs.fake_quant(tables, cc.codec)
         tables = _psum(dist, tables, group)                    # merge shards
 
-        # 2. per-layer candidate proposals, unioned across workers.  Leaves
-        # shorter than ncand propose padded slots (zero, past the leaf's
-        # end): they decode to 0 and the final scatter drops them.  a_pad is
-        # zero past every length, so no mask is needed before the magnitudes.
+        # 2. per-layer candidate proposals, unioned across workers
         with span("gradcomp.candidates"):
             ncand = min(cand_per_leaf, n_max)
-            _, cand = worp.top_k(torch.abs(a_pad), ncand)
+            pad = torch.arange(ncand, dtype=torch.int64, device=dev)
+            cand = torch.stack([pad if size < ncand else _top_ids(a, ncand)
+                                for a, size in zip(accs, sizes)])
             cand = _all_gather(dist, cand.to(torch.int32), group, world,
                                dim=1)                          # (L, D*ncand)
         # top_k needs k+1 <= candidate count (D*ncand can be tiny on 1 worker)
@@ -473,25 +521,23 @@ def tree_compress_step_engine(grads, error, cc: CompressorConfig,
                 seed_transform=t_seeds)
             s = E.onepass_sample_batched(state, k_leaf, cc.p, cc.scheme)
             sel, est_vals, tau = s.keys, s.freqs, s.threshold  # (L, k), (L,)
-            # fewer than k_leaf unique candidates -> -1 slots
-            live = sel != _EMPTY
+            # fewer than k_leaf unique candidates -> -1 slots; a leaf shorter
+            # than ncand may sample its padded slots past its end
+            in_leaf = (sel != _EMPTY) & (sel < sizes_dev[:, None])
 
             nworkers = _workers(world, dev)
             if cc.mode == "twopass":
-                exact_local = torch.gather(
-                    a_pad, 1, torch.where(live, sel, 0).to(torch.int64))
+                at = torch.where(in_leaf, offs_dev[:, None] + sel, 0)
                 vals = _psum(dist, wire_codecs.fake_quant(
-                    torch.where(live, exact_local, 0.0), cc.codec),
+                    torch.where(in_leaf, packed[at], 0.0), cc.codec),
                     group) / nworkers
             else:
-                vals = torch.where(live, est_vals, 0.0) / nworkers
+                vals = torch.where(sel != _EMPTY, est_vals, 0.0) / nworkers
 
         with span("gradcomp.leaf_update"):
             sparse_leaves, err_leaves = zip(*(
-                _leaf_update(a, g.shape, sel[li], live[li] & (sel[li] < size),
-                             vals[li])
-                for li, (a, size, g) in enumerate(zip(accs, sizes,
-                                                      leaves_g))))
+                _leaf_update(a, g.shape, sel[li], in_leaf[li], vals[li])
+                for li, (a, g) in enumerate(zip(accs, leaves_g))))
 
         with span("gradcomp.stats"):
             two = cc.mode == "twopass"

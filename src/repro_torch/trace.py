@@ -10,7 +10,10 @@ PyTorch's own process-wide flag, which every profiler sets on start and
 clears on stop, so a worker thread's spans follow the profiler too.
 
 A span marks a stage, once a call: never inside a per-leaf, per-row or
-per-stream loop.
+per-stream loop.  A model's layers are the one exception: a span a layer
+(``layer.*``, ``ssd.scan``, ``moe.*``, ten or so of each a step, each
+opened again where backward recomputes the layer), whose work is
+milliseconds, against the 10.7 us a span costs while a profiler runs.
 """
 from __future__ import annotations
 

@@ -66,6 +66,7 @@ def run_training(
     ckpt_every: int = 50,
     compressed: bool = False,
     cc: Optional[gradcomp.CompressorConfig] = None,
+    compressor: str = "flat",
     group=None,
     log_every: int = 10,
     seed: int = 0,
@@ -93,7 +94,12 @@ def run_training(
         rank = dist.get_rank(group)
         state = steps.CompressedTrainState(
             params=params, opt=opt, error=gradcomp.init_error(params))
-        step_fn = steps.make_compressed_train_step(cfg, group, cc, lr=lr)
+        makers = {"flat": steps.make_compressed_train_step,
+                  "engine": steps.make_compressed_train_step_engine}
+        if compressor not in makers:
+            raise ValueError(f"compressor {compressor!r}: one of "
+                             f"{sorted(makers)}")
+        step_fn = makers[compressor](cfg, group, cc, lr=lr)
     else:
         state = steps.TrainState(params=params, opt=opt)
 

@@ -8,6 +8,9 @@
                        gradient all-reduce + error feedback (the paper's
                        application); the reference runs them under
                        ``shard_map`` over its dp mesh axes.
+``make_compressed_train_step_engine`` : the same through the engine
+                       compressor (one WOR sample a leaf, packed leaves,
+                       one sketch launch) and an AdamW update in place.
 
 Gradients come back in the parameters' dtype, as JAX's ``value_and_grad``
 gives them; the AdamW update runs under ``torch.no_grad()``.  In the
@@ -26,6 +29,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import pytree
 from repro_torch.models import model as M
 from repro_torch.optim import adamw, gradcomp
+from repro_torch.trace import span
 
 
 class TrainState(NamedTuple):
@@ -154,6 +158,44 @@ def make_compressed_train_step_tp(cfg: ArchConfig, group, cc:
     return step
 
 
+def make_compressed_train_step_engine(cfg: ArchConfig, group, cc:
+                                      gradcomp.CompressorConfig,
+                                      lr: float = 3e-4, k_per_leaf: int = 32,
+                                      cand_per_leaf: int = 64,
+                                      expose: bool = False):
+    """The WORp-compressed DP step through the engine path
+    (``gradcomp.tree_compress_step_engine``: a ``k_per_leaf`` WOR sample
+    of every leaf, from ``cand_per_leaf`` candidates a leaf and rank),
+    for models whose state fills the card: the leaves are packed with no
+    padding, and AdamW updates the parameters and moments in place
+    (``adamw.update_``; the state passed in is the state returned).  With
+    ``expose`` the metrics also hold the step's gradient tree
+    (``grads``) and sparse update (``update``)."""
+    dist, world = gradcomp._group(group,
+                                  "make_compressed_train_step_engine")
+    rank = dist.get_rank(group)
+
+    def step(state: CompressedTrainState, batch):
+        with span("train.grad"):
+            loss, grads = value_and_grad(state.params,
+                                         local_rows(batch, rank, world), cfg)
+        loss = _pmean(dist, loss, group, world)
+        with torch.no_grad():
+            sparse, new_err, stats = gradcomp.tree_compress_step_engine(
+                grads, state.error, cc, group, k_per_leaf=k_per_leaf,
+                cand_per_leaf=cand_per_leaf)
+            with span("train.optim"):
+                opt = adamw.update_(state.params, sparse, state.opt, lr=lr)
+        metrics = {"loss": loss, **stats}
+        if expose:
+            metrics.update(grads=grads, update=sparse)
+        return (CompressedTrainState(params=state.params, opt=opt,
+                                     error=new_err), metrics)
+
+    return step
+
+
 __all__ = ["CompressedTrainState", "TrainState", "local_rows",
-           "make_compressed_train_step", "make_compressed_train_step_tp",
+           "make_compressed_train_step", "make_compressed_train_step_engine",
+           "make_compressed_train_step_tp",
            "serve_prefill", "serve_step", "train_step", "value_and_grad"]

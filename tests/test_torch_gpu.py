@@ -2018,3 +2018,187 @@ def test_train_cli_with_analytics_kernels_on_card():
                             analytics_sampler="onepass", analytics_topk=8)
     assert ts.launches > before[0] and tq.estimate_launches > before[1]
     assert len(out["top_tokens"]) == 8
+
+
+# ---------------------------------------------------------------------------
+# packed streams (the engine compressor's leaves, back to back)
+# ---------------------------------------------------------------------------
+
+PACKED_SIZES = [5, 70_000, 1, 300, 33_000, 0, 2047]
+
+
+@pytest.mark.parametrize("variant", ["smem", "global", "det"])
+def test_cuda_packed_update_equals_the_padded_rows(variant):
+    """Streams packed back to back with device offsets: the same delta as
+    the streams padded into rows (the det variant the same bits; the
+    atomic variants within the plain version's bounds)."""
+    _need_card()
+    sizes = PACKED_SIZES
+    g = torch.Generator().manual_seed(11)
+    packed = torch.randn(sum(sizes), generator=g)
+    offsets = np.concatenate([[0], np.cumsum(sizes[:-1])]).astype(np.int64)
+    rows_ = torch.zeros((len(sizes), max(sizes)))
+    for b, (o, n) in enumerate(zip(offsets, sizes)):
+        rows_[b, :n] = packed[o:o + n]
+    seeds = torch.randint(0, 2**32, (len(sizes),), generator=g)
+    kw = dict(p=1.0, transform_seeds=seeds.cuda() * 3 % 2**32,
+              lengths=sizes)
+    det = variant == "det"
+    with (_deterministic() if det else contextlib.nullcontext()):
+        got = tu.countsketch_update_batched(
+            packed.cuda(), 7, 2048, seeds.cuda(), offsets=torch.from_numpy(
+                offsets).cuda(), _variant=None if det else variant, **kw)
+        padded = tu.countsketch_update_batched(
+            rows_.cuda(), 7, 2048, seeds.cuda(),
+            _variant=None if det else variant, **kw)
+    if det:
+        assert torch.equal(got, padded)
+    else:
+        plain = dict(p=1.0, transform_seeds=seeds * 3 % 2**32,
+                     lengths=sizes)
+        want = ref.countsketch_update_batched_ref(rows_, 7, 2048, seeds,
+                                                  **plain)
+        mass = ref.countsketch_update_mass_ref(rows_, 7, 2048, seeds,
+                                               **plain)
+        _check_sum(got.cpu(), want, mass)
+        _check_sum(padded.cpu(), want, mass)
+    assert not got[sizes.index(0)].any()
+
+
+def test_engine_compressed_step_on_card_matches_the_padded_step():
+    """The engine compressor on the card in the deterministic mode: the
+    packed leaves give the padded block's update and error bit for bit
+    (tests/test_torch_gradcomp_packed.py's oracle), over one-rank NCCL."""
+    _need_card()
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.optim import gradcomp as G
+    from test_torch_gradcomp_packed import _tree, padded_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1,
+            device_id=torch.device("cuda", 0))
+        try:
+            cc = G.CompressorConfig(rows=7, width=2048, seed=5)
+            grads = {k: v.cuda() for k, v in _tree(0).items()}
+            err = G.init_error(grads)
+            with _deterministic():
+                sp, ne, _ = G.tree_compress_step_engine(grads, err, cc)
+                psp, perr, _ = padded_step(grads, err, cc)
+            for k in grads:
+                assert torch.equal(sp[k], psp[k]) and torch.equal(
+                    ne[k], perr[k]), k
+        finally:
+            dist.destroy_process_group()
+
+
+def test_hybrid_moe_on_card_matches_the_reference():
+    """granite-4.0-h's family reduced, float32 with TF32 off, on the card:
+    the loss and every gradient within 1e-3 of the plain reference's
+    (tests/granite_hybrid_ref.py; SDPA's kernel and the atomics of the
+    expert scatter sum in other orders), no choice dropped, and the
+    engine-compressed step runs over a one-rank NCCL group."""
+    _need_card()
+    import dataclasses
+    import tempfile
+
+    import torch.distributed as dist
+    from granite_hybrid_ref import Reference, hf_config
+    from repro_torch.configs.base import get_config
+    from repro_torch.distributed import pytree
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    from repro_torch.optim import adamw, gradcomp
+    from repro_torch.train import steps
+
+    cfg = get_config("granite_4_0_h_small").reduced()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = pytree.tree_map(
+        lambda t: t + 0.1 * torch.randn(t.shape, generator=g,
+                                        device="cuda"),
+        M.init_params(cfg, g, dtype=torch.float32))
+    toks = torch.randint(0, cfg.vocab_size, (2, 257), generator=g,
+                         device="cuda")
+    b = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with moe.count_drops() as drops:
+            loss, grads = steps.value_and_grad(params, b, cfg)
+        want, wgrads = Reference(hf_config(cfg)).loss_and_grads(
+            params, b["tokens"], b["labels"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    assert abs(float(loss) - float(want)) <= 1e-3 * abs(float(want))
+    for got, w in zip(pytree.leaves(grads), pytree.leaves(wgrads)):
+        assert float((got - w).abs().max()) <= 1e-3 * float(
+            w.abs().max().clamp_min(1e-30))
+    assert sum(int(d) for d, _ in drops) == 0
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1,
+            device_id=torch.device("cuda", 0))
+        try:
+            bf = dataclasses.replace(cfg)
+            p16 = pytree.tree_map(lambda t: t.to(torch.bfloat16), params)
+            st = steps.CompressedTrainState(p16, adamw.init(p16),
+                                            gradcomp.init_error(p16))
+            step = steps.make_compressed_train_step_engine(
+                bf, None, gradcomp.CompressorConfig())
+            launches = tu.launches
+            for _ in range(2):
+                st, m = step(st, b)
+            assert tu.launches == launches + 2
+            assert bool(torch.isfinite(m["loss"]))
+        finally:
+            dist.destroy_process_group()
+
+
+def test_moe_held_on_card_matches_per_expert_products_in_bfloat16():
+    """The held experts' grouped products in bfloat16 on the card, output
+    and gradients, against each expert's products in float32 over its own
+    tokens: within bfloat16's rounding (2e-2 of each tensor's largest),
+    and finite where the grouped products leave rows unwritten."""
+    _need_card()
+    from repro_torch.models import moe
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    T, D, F_, E, held, K, off = 4096, 256, 96, 18, 4, 6, 4
+    x = torch.randn(1, T, D, generator=g, device="cuda")
+    mp = {"router": torch.randn(D, E, generator=g, device="cuda"),
+          "wg": torch.randn(held, D, F_, generator=g, device="cuda") / 16,
+          "wi": torch.randn(held, D, F_, generator=g, device="cuda") / 16,
+          "wo": torch.randn(held, F_, D, generator=g, device="cuda") / 10}
+    dy = torch.randn(1, T, D, generator=g, device="cuda")
+
+    def grads(fn, dtype):
+        xs = x.to(dtype).requires_grad_(True)
+        ws = {k: v.to(dtype).requires_grad_(True) for k, v in mp.items()}
+        out = fn(xs, ws)
+        out.backward(dy.to(dtype))
+        return [out] + [xs.grad] + [ws[k].grad for k in ("wg", "wi", "wo")]
+
+    def plain(xs, ws):
+        xt = xs.reshape(T, D).float()
+        logits = xt @ ws["router"].float()
+        top, idx = torch.topk(logits, K, dim=-1)
+        gates = torch.softmax(top, -1)
+        out = torch.zeros_like(xt)
+        for e in range(held):
+            tok, slot = torch.nonzero(idx == off + e, as_tuple=True)
+            h = xt[tok]
+            a = torch.nn.functional.silu(h @ ws["wg"][e].float()) \
+                * (h @ ws["wi"][e].float())
+            out = out.index_add(0, tok, (a @ ws["wo"][e].float())
+                                * gates[tok, slot][:, None])
+        return out.reshape(1, T, D)
+
+    got = grads(lambda xs, ws: moe.moe_held(xs, ws, K, off, held),
+                torch.bfloat16)
+    want = grads(plain, torch.float32)
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert float((a.float() - b).abs().max()) <= 2e-2 * float(
+            b.abs().max())
